@@ -1,0 +1,113 @@
+"""Carry weights across from the JAX package.
+
+``params_from_jax_numpy`` takes the JAX parameter tree as numpy arrays
+(nested dicts and lists, conv weights HWIO, frozen-BN scale/offset/mean/var)
+and ``load_npz`` the flat ``/``-joined npz that ``models/nn.py::save_params``
+writes. Both fill a :class:`~playground3d_tpu_torch.models.retinanet.RetinaNet`
+whose architecture matches the tree. Conv weights go HWIO -> OIHW; channel
+order is kept, so the heads' (anchor, class) packing survives.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch.models.retinanet import RetinaNet, retinanet_init
+from playground3d_tpu_torch.models.resnet import LAYER_SPECS
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts / lists -> {"a/0/b": array}; None leaves are skipped,
+    as ``save_params`` skips them."""
+    flat: Dict[str, np.ndarray] = {}
+    if tree is None:
+        return flat
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            flat.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            flat.update(flatten_tree(v, f"{prefix}/{i}"))
+    else:
+        flat[prefix] = np.asarray(tree)
+    return flat
+
+
+def to_jax_layout(model: RetinaNet) -> Dict[str, np.ndarray]:
+    """The model's tensors under the JAX tree's flat keys, conv weights
+    back in HWIO (the inverse of :func:`load_flat`)."""
+    out = {}
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        a = t.detach().cpu().numpy()
+        if name.endswith(".w"):
+            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        out[name.replace(".", "/")] = a
+    return out
+
+
+def load_flat(model: RetinaNet, flat: Mapping[str, np.ndarray]) -> RetinaNet:
+    """Copy a flat ``/``-keyed JAX tree into ``model``. Every model tensor
+    must be present with a matching shape, and every key used."""
+    tensors = dict(model.named_parameters())
+    tensors.update(dict(model.named_buffers()))
+    expected = {name.replace(".", "/"): name for name in tensors}
+    missing = sorted(set(expected) - set(flat))
+    extra = sorted(set(flat) - set(expected))
+    if missing or extra:
+        raise ValueError(f"param tree mismatch: missing {missing[:5]} extra {extra[:5]}")
+    with torch.no_grad():
+        for key, name in expected.items():
+            a = np.asarray(flat[key], dtype=np.float32)
+            if key.endswith("/w"):
+                a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            t = tensors[name]
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: shape {a.shape} != {tuple(t.shape)}")
+            t.copy_(torch.tensor(a))
+    return model
+
+
+def _infer_arch(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Architecture knobs of a flat JAX tree."""
+    stem_w = flat["backbone/conv1/w"]
+    stem = "s2d" if stem_w.shape[2] == 48 else "conv7"
+    blocks = []
+    for stage in range(1, 5):
+        ids = {int(k.split("/")[2]) for k in flat if k.startswith(f"backbone/layer{stage}/")}
+        blocks.append(len(ids))
+    bottleneck = any(k.startswith("backbone/layer1/0/conv3/") for k in flat)
+    depth = next(
+        d for d, (kind, layers) in LAYER_SPECS.items()
+        if tuple(layers) == tuple(blocks) and (kind == "bottleneck") == bottleneck
+    )
+    cls_w = flat["heads/cls_out/w"]
+    tower_depth = len({k.split("/")[2] for k in flat if k.startswith("heads/cls_tower/")})
+    return dict(
+        depth=depth, stem=stem, feature_size=cls_w.shape[2], num_classes=cls_w.shape[3] // 9,
+        tower_depth=tower_depth,
+        shared_tower=not any(k.startswith("heads/reg_tower/") for k in flat),
+    )
+
+
+def model_from_flat(flat: Mapping[str, np.ndarray], device: DeviceLike = None) -> RetinaNet:
+    """A RetinaNet shaped like the flat tree, holding its weights, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    model = retinanet_init(device="cpu", **_infer_arch(flat))
+    load_flat(model, flat)
+    return model.to(resolve_device(device))
+
+
+def params_from_jax_numpy(tree: Any, device: DeviceLike = None) -> RetinaNet:
+    """JAX ``retinanet_init`` tree (numpy leaves) -> RetinaNet."""
+    return model_from_flat(flatten_tree(tree), device)
+
+
+def load_npz(path: str, device: DeviceLike = None) -> RetinaNet:
+    """``models/nn.py::save_params`` npz -> RetinaNet."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    return model_from_flat(flat, device)

@@ -1,0 +1,104 @@
+"""Layer building blocks (port of ``playground3d_tpu/models/nn.py``).
+
+Modules hold float32 parameters named as the JAX tree's keys (``w``, ``b``;
+frozen BN ``scale``/``offset``/``mean``/``var`` as buffers); conv weights
+are OIHW. Activations inside the networks are NCHW tensors in
+channels-last memory order (the public entry points take NHWC, as the JAX
+package does). The compute dtype is a call argument, bf16 by default.
+
+Two details keep the numerics of ``jax.lax.conv_general_dilated``:
+
+* ``"SAME"`` padding. XLA pads ``total = max((ceil(n/s)-1)*s + k - n, 0)``
+  with the odd pixel at the end: the 7x7/2 stem pads (2,3) on an even
+  extent, stride-2 3x3 convs (0,1). Torch's ``padding=`` is symmetric, so
+  the asymmetric cases go through an explicit ``F.pad``.
+* rounding order. Input and weight are cast to the compute dtype, the conv
+  emits that dtype, and the bias is added after the conv in that dtype, as
+  ``conv_apply`` does (``nn.py:64-74``); frozen BN is ``x*a + b`` with
+  ``a``/``b`` folded in float32 and then cast.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA ``"SAME"`` padding (before, after) of one spatial extent."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def he_normal(shape, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=torch.float32) * math.sqrt(2.0 / fan_in)
+
+
+class Conv(nn.Module):
+    """k x k convolution with ``"SAME"`` padding; the stride is a call
+    argument, as in ``conv_apply``."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, bias: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.k = k
+        self.w = nn.Parameter(he_normal((out_ch, in_ch, k, k), k * k * in_ch, generator))
+        self.b = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor, stride: int = 1, dtype=torch.bfloat16) -> torch.Tensor:
+        ph = same_pads(x.shape[2], self.k, stride)
+        pw = same_pads(x.shape[3], self.k, stride)
+        x = x.to(dtype)
+        w = self.w.to(dtype)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            out = F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]))
+        else:
+            out = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w, stride=stride)
+        if self.b is not None:
+            out = out + self.b.to(dtype)[None, :, None, None]
+        return out
+
+
+class FrozenBN(nn.Module):
+    """Inference-mode batch norm folded to one multiply-add (the reference
+    never trains BN statistics, model.py:260,278-282)."""
+
+    def __init__(self, ch: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("scale", torch.ones(ch))
+        self.register_buffer("offset", torch.zeros(ch))
+        self.register_buffer("mean", torch.zeros(ch))
+        self.register_buffer("var", torch.ones(ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        a = inv.to(x.dtype)[None, :, None, None]
+        b = (self.offset - self.mean * inv).to(x.dtype)[None, :, None, None]
+        return x * a + b
+
+
+def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
+    """``"SAME"`` max pooling: -inf padding, XLA's split of the pad."""
+    ph = same_pads(x.shape[2], k, stride)
+    pw = same_pads(x.shape[3], k, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, k, stride)
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample (reference FPN, model.py:65)."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def crop_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Add after cropping both to the common spatial size (the reference's
+    shape-mismatch fix, model.py:92-97)."""
+    h = min(a.shape[2], b.shape[2])
+    w = min(a.shape[3], b.shape[3])
+    return a[:, :, :h, :w] + b[:, :, :h, :w]

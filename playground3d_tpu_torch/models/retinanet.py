@@ -1,0 +1,174 @@
+"""Directional RetinaNet: ResNet + FPN + heads, with decode and NMS (port
+of ``playground3d_tpu/models/retinanet.py``, float path).
+
+``forward_raw`` is the training / raw forward, ``detect_multiframe`` the
+batched multi-camera detector (reference MULTI_FRAME, model.py:311-344),
+``localize`` the crop detector (LOCALIZE, model.py:362-363). Public inputs
+are NHWC images, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch.models.anchors import anchors_for_shape
+from playground3d_tpu_torch.models.decode import decode_regression
+from playground3d_tpu_torch.models.fpn import FPN
+from playground3d_tpu_torch.models.heads import Heads
+from playground3d_tpu_torch.models.resnet import ResNet, fpn_sizes
+from playground3d_tpu_torch.ops.nms import batched_nms
+from playground3d_tpu_torch.ops.topk import top_k
+from playground3d_tpu_torch.utils.constants import IMAGENET_MEAN, IMAGENET_STD
+
+DEFAULT_NUM_CLASSES = 8
+
+
+class Detections(NamedTuple):
+    """Fixed-capacity masked detection set."""
+
+    scores: torch.Tensor  # [K]
+    classes: torch.Tensor  # [K] int32
+    boxes: torch.Tensor  # [K,20] (16 corner coords + 2D box)
+    cam_idx: torch.Tensor  # [K] int32 source image index
+    mask: torch.Tensor  # [K] bool
+
+
+class RetinaNet(nn.Module):
+    """Parameter names mirror the JAX tree: ``backbone.layer1.0.conv1.w``
+    <-> ``backbone/layer1/0/conv1/w``."""
+
+    def __init__(self, num_classes: int = DEFAULT_NUM_CLASSES, depth: int = 50,
+                 stem: str = "conv7", tower_depth: int = 4, shared_tower: bool = False,
+                 feature_size: int = 256, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_classes, self.depth, self.stem = num_classes, depth, stem
+        c3, c4, c5 = fpn_sizes(depth)
+        self.backbone = ResNet(depth, stem, generator=generator)
+        self.fpn = FPN(c3, c4, c5, feature_size=feature_size, generator=generator)
+        self.heads = Heads(num_classes, feature_size=feature_size, tower_depth=tower_depth,
+                           shared_tower=shared_tower, generator=generator)
+
+
+def retinanet_init(
+    generator: Optional[torch.Generator] = None,
+    num_classes: int = DEFAULT_NUM_CLASSES,
+    depth: int = 50,
+    stem: str = "conv7",
+    tower_depth: int = 4,
+    shared_tower: bool = False,
+    feature_size: int = 256,
+    device: DeviceLike = None,
+) -> RetinaNet:
+    """A randomly initialized detector (He-normal convs, identity frozen
+    BN, focal-prior output convs) on ``device`` (the card unless the caller
+    asks for the CPU). Weights are drawn on the CPU from ``generator``."""
+    dev = resolve_device(device)
+    model = RetinaNet(num_classes, depth, stem, tower_depth, shared_tower, feature_size,
+                      generator=generator)
+    return model.to(dev).eval().requires_grad_(False)
+
+
+def normalize_on_device(images: torch.Tensor) -> torch.Tensor:
+    """uint8 frames -> ImageNet-normalized float32; other dtypes pass
+    through. The channel constants tile to s2d-packed channel counts."""
+    if images.dtype != torch.uint8:
+        return images
+    reps = images.shape[-1] // 3
+    mean = torch.as_tensor(np.tile(IMAGENET_MEAN, reps), device=images.device)
+    std = torch.as_tensor(np.tile(IMAGENET_STD, reps), device=images.device)
+    return (images.to(torch.float32) / 255.0 - mean) / std
+
+
+def forward_raw(
+    model: RetinaNet,
+    images: torch.Tensor,
+    dtype=torch.bfloat16,
+    apply_sigmoid: bool = True,
+    compact: bool = False,
+    min_level: int = 3,
+    score_path: bool = False,
+):
+    """NHWC images -> head outputs (see :meth:`Heads.forward`); uint8
+    inputs are normalized first; heads run on pyramid levels >= min_level."""
+    images = normalize_on_device(images)
+    c3, c4, c5 = model.backbone(images, dtype)
+    feats = model.fpn(c3, c4, c5, dtype)
+    if min_level > 3:
+        feats = feats[min_level - 3:]
+    return model.heads(feats, dtype=dtype, apply_sigmoid=apply_sigmoid, compact=compact,
+                       score_path=score_path)
+
+
+def _image_shape_of(images: torch.Tensor, stem: str) -> Tuple[int, int]:
+    """Pixel (H, W) for the anchors, accounting for s2d-packed inputs."""
+    h, w = images.shape[1:3]
+    if stem == "s2d" and images.shape[-1] == 48:
+        return h * 4, w * 4
+    return h, w
+
+
+@functools.lru_cache(maxsize=16)
+def _anchors(shape: Tuple[int, int], levels: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(anchors_for_shape(shape, levels), device=device)
+
+
+@torch.no_grad()
+def detect_multiframe(
+    model: RetinaNet,
+    images: torch.Tensor,
+    score_threshold: float = 1e-7,
+    nms_iou: float = 0.5,
+    pre_topk: int = 4096,
+    max_dets: int = 256,
+    approx_topk: bool = False,
+    min_level: int = 3,
+) -> Detections:
+    """Batched multi-camera detection: per-anchor max class logit over all
+    N frames, exact top-k (lower index first on ties), sigmoid and decode
+    of the survivors, camera-grouped NMS on the 2D boxes (cols 16:20)."""
+    if approx_topk:
+        raise ValueError("approx_topk is the TPU's approx_max_k; the port's top-k is exact")
+    n = images.shape[0]
+    levels = tuple(range(min_level, 8))
+    anchors = _anchors(_image_shape_of(images, model.stem), levels, images.device)
+    cls_max, cls_arg, reg = forward_raw(
+        model, images, compact=True, min_level=min_level, score_path=True
+    )
+    a = anchors.shape[0]
+    logits = cls_max.reshape(-1).to(torch.float32)
+    k = min(pre_topk, n * a)
+    top_logits, top_idx = top_k(logits, k)
+    top_scores = torch.sigmoid(top_logits)
+    anchor_idx = top_idx % a
+    top_cam = (top_idx // a).to(torch.int32)
+    top_reg = reg.reshape(n * a, -1)[top_idx].to(torch.float32)
+    top_boxes = decode_regression(top_reg, anchors[anchor_idx])
+    top_classes = cls_arg.reshape(n * a)[top_idx]
+    valid = top_scores > score_threshold
+
+    keep_idx, keep_mask = batched_nms(
+        top_boxes[:, 16:20], top_scores, top_cam, valid, nms_iou, max_keep=max_dets
+    )
+    keep = keep_idx.long()
+    return Detections(
+        scores=top_scores[keep],
+        classes=top_classes[keep],
+        boxes=top_boxes[keep],
+        cam_idx=top_cam[keep],
+        mask=keep_mask,
+    )
+
+
+@torch.no_grad()
+def localize(model: RetinaNet, crops: torch.Tensor, dtype=torch.bfloat16):
+    """NHWC crops -> (decoded boxes [n, A, 20], class scores [n, A, K]);
+    no NMS: the tracker's best-box selection reads the raw candidates."""
+    anchors = _anchors(_image_shape_of(crops, model.stem), (3, 4, 5, 6, 7), crops.device)
+    cls, reg = forward_raw(model, crops, dtype=dtype)
+    return decode_regression(reg, anchors), cls

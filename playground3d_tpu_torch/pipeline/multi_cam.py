@@ -1,0 +1,579 @@
+"""Multi-camera crop tracker (port of ``playground3d_tpu/pipeline/multi_cam.py``,
+reference ``MC_Crop_Tracker``, MC3D_crop_tracker.py).
+
+Tracks live in the shared roadway frame across N cameras: full-frame
+detection every ``det_step`` frames, crop re-detection every ``skip_step``
+frames in between, a passthrough snapshot otherwise, continuous-time
+Kalman rolls against per-camera clocks and online clock-bias estimation.
+
+The JAX package runs a clip as one ``lax.scan`` with a 3-way ``lax.switch``;
+here it is a host loop that picks the branch from the global frame index
+(the host knows it, so picking costs no device read). The crop branch is
+the conv7 frame path: it crops with :func:`~playground3d_tpu_torch.ops.
+roi_align.crop_and_resize`, the hand-written CUDA kernel on the card.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch.geometry import transforms as T
+from playground3d_tpu_torch.models.retinanet import Detections, RetinaNet, detect_multiframe, localize
+from playground3d_tpu_torch.ops.iou import elementwise_iou, pairwise_iou
+from playground3d_tpu_torch.ops.roi_align import crop_and_resize
+from playground3d_tpu_torch.ops.topk import top_k
+from playground3d_tpu_torch.pipeline.camera_bank import (
+    CameraBank,
+    bank_from_registry,
+    im_to_state_refined,
+    state_to_im_banked,
+)
+from playground3d_tpu_torch.pipeline.tracker_state import (
+    ParsedDetections,
+    Snapshot,
+    TrackState,
+    associate_and_update,
+    init_track_state,
+    lifecycle,
+    parse_detections_pre,
+    snapshot,
+    space_nms_parsed,
+)
+from playground3d_tpu_torch.track.kf import KFParams, default_params, kf_predict, kf_update, kf_view
+from playground3d_tpu_torch.utils.config import TrackerConfig, camera_centers, tracking_x_range
+from playground3d_tpu_torch.utils.constants import (
+    CLASS_HEIGHTS,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    NUM_CLASSES,
+)
+
+
+# ---------------------------------------------------------------------------
+# online clock-bias estimation (MC3D_crop_tracker.py:237-316)
+# ---------------------------------------------------------------------------
+
+
+def estimate_ts_bias(
+    parsed: ParsedDetections,
+    state: TrackState,
+    ts_bias: torch.Tensor,  # [C]
+    kfp: KFParams,
+    cfg: TrackerConfig,
+) -> torch.Tensor:
+    """EMA update of per-camera clock bias from cross-camera detection pairs
+    whose roadway footprints overlap: the x-offset over the direction's mean
+    tracked speed is an observed dt, compared with the camera-clock dt.
+    Camera 0 is the reference; each camera takes the mean of its pairs."""
+    C = ts_bias.shape[0]
+    dev = ts_bias.device
+    live = state.kf.mask
+    v = state.kf.x[:, 5]
+    d = state.kf.d
+    eb = live & (d > 0)
+    wb = live & (d < 0)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def mean_speed(sel):
+        mean = torch.sum(torch.where(sel, v, zero)) / torch.clamp(torch.sum(sel), min=1)
+        return torch.where(torch.any(sel), mean, kfp.mu_v)
+
+    eb_speed, wb_speed = mean_speed(eb), mean_speed(wb)
+
+    fp = T.space_footprint_xyxy(T.state_to_space(parsed.state))
+    iou = pairwise_iou(fp, fp)
+    cam = parsed.cam_idx.long()
+    valid_pair = (
+        parsed.mask[:, None] & parsed.mask[None, :]
+        & (cam[:, None] != cam[None, :]) & (iou > cfg.phi_nms_space)
+    )
+    dx = parsed.state[None, :, 0] - parsed.state[:, None, 0]  # x_j - x_i
+    x_vel = torch.where(parsed.state[:, 5] > 0, eb_speed, -wb_speed)
+    x_vel = torch.where(
+        torch.abs(x_vel) > 1.0, x_vel, torch.sign(x_vel) * 1.0 + (x_vel == 0).to(torch.float32)
+    )
+    dt_obs = dx / x_vel[:, None]
+    raw_times = parsed.times - ts_bias[cam]
+    dt_expected = raw_times[None, :] - raw_times[:, None]
+    time_error = dt_obs - dt_expected
+    target = -time_error + ts_bias[cam][None, :]
+    w = valid_pair.to(torch.float32)
+    num = torch.zeros((C,), dtype=torch.float32, device=dev).index_add(0, cam, torch.sum(w * target, dim=1))
+    den = torch.zeros((C,), dtype=torch.float32, device=dev).index_add(0, cam, torch.sum(w, dim=1))
+    mean_target = num / torch.clamp(den, min=1.0)
+    has_update = (den > 0) & (torch.arange(C, device=dev) != 0)
+    return torch.where(
+        has_update, (1 - cfg.ts_alpha) * ts_bias + cfg.ts_alpha * mean_target, ts_bias
+    )
+
+
+# ---------------------------------------------------------------------------
+# crop re-detection branch (MC3D_crop_tracker.py:1146-1254)
+# ---------------------------------------------------------------------------
+
+
+def select_crop_slots(
+    live: torch.Tensor, fsld: torch.Tensor, age: torch.Tensor, K: int
+) -> torch.Tensor:
+    """Stale-first crop schedule: the K live slots longest without a
+    detection (fsld), oldest first on ties, lower slot first after that."""
+    pri = torch.where(
+        live,
+        fsld.to(torch.float32) * 1024.0 + torch.clamp(age, max=1023).to(torch.float32),
+        torch.full_like(fsld, -1, dtype=torch.float32),
+    )
+    return top_k(pri, K)[1]
+
+
+def _normalize_crops(crops: torch.Tensor) -> torch.Tensor:
+    mean = torch.as_tensor(IMAGENET_MEAN, device=crops.device)
+    std = torch.as_tensor(IMAGENET_STD, device=crops.device)
+    return (crops / 255.0 - mean) / std
+
+
+def make_crop_step(
+    crop_model: RetinaNet,
+    bank: CameraBank,
+    centers: torch.Tensor,  # [C,2] camera view centres in roadway coords
+    kfp: KFParams,
+    cfg: TrackerConfig,
+    frame_stem: str = "conv7",
+):
+    """(state, frames [C,H,W,3], cam_times [C], ts_bias [C]) ->
+    (state', snapshot). For each of the ``cfg.crop_slots`` stalest live
+    slots (all slots when 0): nearest camera, roll to its clock, project,
+    crop, re-detect, pick the best candidate by (1-W)*IoU + W*conf,
+    Kalman-update. Only the conv7 frame path (raw NHWC frames) is ported."""
+    if frame_stem != "conv7":
+        raise NotImplementedError("the s2d frame path (crop_and_resize_s2d) is not ported yet")
+    cs = cfg.cs
+    class_heights = torch.as_tensor(CLASS_HEIGHTS, device=centers.device)
+
+    @torch.no_grad()
+    def step(state: TrackState, frames: torch.Tensor, cam_times: torch.Tensor, ts_bias: torch.Tensor):
+        N = state.ids.shape[0]
+        dev = state.ids.device
+        live = state.kf.mask
+        K = cfg.crop_slots if (cfg.crop_slots and cfg.crop_slots < N) else N
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        t_mean = torch.mean(cam_times)
+
+        pre = kf_view(state.kf, torch.where(live, t_mean - state.t_off, zero), kfp)
+        if K < N:
+            sel = select_crop_slots(live, state.fsld, state.age, K)
+        else:
+            sel = torch.arange(N, device=dev)
+        live_k = live[sel]
+
+        # nearest camera per selected object (MC3D:1156-1164)
+        pre_k = pre[sel]
+        d2 = (pre_k[:, 0:1] - centers[None, :, 0]) ** 2 + (pre_k[:, 1:2] - centers[None, :, 1]) ** 2
+        cam_k = torch.argmin(d2, dim=1)
+
+        # roll each selected object to its camera's bias-corrected clock;
+        # unselected slots keep dt = 0 (identity predict)
+        obj_t = cam_times[cam_k] + ts_bias[cam_k]
+        dt_k = torch.where(live_k, obj_t - state.t_off[sel], zero)
+        dt = torch.zeros((N,), dtype=torch.float32, device=dev).index_put((sel,), dt_k)
+        kf1 = kf_predict(state.kf, dt, kfp)
+        t_off = state.t_off.index_put((sel,), torch.where(live_k, obj_t, state.t_off[sel]))
+
+        state6_k = torch.cat([kf1.x[sel, :5], kf1.d[sel, None]], dim=1)
+        im_objs = state_to_im_banked(bank, state6_k, cam_k)  # [K,8,2]
+
+        # square crop boxes, expanded (MC3D get_crop_boxes:920-945)
+        hull = T.im_hull_xyxy(im_objs)
+        w = hull[:, 2] - hull[:, 0]
+        h = hull[:, 3] - hull[:, 1]
+        scale = torch.maximum(w, h) * cfg.crop_expand
+        cx = (hull[:, 0] + hull[:, 2]) / 2
+        cy = (hull[:, 1] + hull[:, 3]) / 2
+        crop_boxes = torch.stack(
+            [cx - scale / 2, cy - scale / 2, cx + scale / 2, cy + scale / 2], dim=1
+        )
+
+        # uint8 frames are cropped in place (the kernel converts in
+        # registers) and normalized here, as the JAX branch normalizes
+        crops = crop_and_resize(frames, crop_boxes, cam_k.to(torch.int32), out_size=cs)
+        if frames.dtype == torch.uint8:
+            crops = _normalize_crops(crops)
+
+        reg_boxes, cls = localize(crop_model, crops)
+        confs = torch.amax(cls, dim=2)
+        classes = torch.argmax(cls, dim=2)
+
+        top_conf, top_idx = top_k(confs, cfg.cd_max)  # [K,cd]
+        rows = torch.arange(K, device=dev)[:, None]
+        cand = reg_boxes[rows, top_idx]  # [K,cd,20]
+        cand_cls = classes[rows, top_idx]
+
+        # local crop coords -> global frame coords (MC3D local_to_global:948-971)
+        corners = cand[:, :, :16].reshape(K, cfg.cd_max, 8, 2)
+        corners = corners * (scale / cs)[:, None, None, None]
+        corners = corners + crop_boxes[:, None, None, 0:2]
+
+        flat = corners.reshape(K * cfg.cd_max, 8, 2)
+        flat_cam = torch.repeat_interleave(cam_k, cfg.cd_max)
+        heights = class_heights[cand_cls.reshape(-1)]
+        cand_state = im_to_state_refined(bank, flat, flat_cam, heights).reshape(K, cfg.cd_max, 6)
+
+        # best box per object: (1-W)*IoU(footprint, a-priori) + W*conf
+        apri_fp = T.space_footprint_xyxy(T.state_to_space(state6_k))
+        cand_fp = T.space_footprint_xyxy(
+            T.state_to_space(cand_state.reshape(K * cfg.cd_max, 6))
+        ).reshape(K, cfg.cd_max, 4)
+        ious = elementwise_iou(cand_fp, apri_fp[:, None, :])
+        score = (1 - cfg.w_conf) * ious + cfg.w_conf * top_conf
+        best = torch.argmax(score, dim=1)
+        rows_k = torch.arange(K, device=dev)
+        best_state = cand_state[rows_k, best]
+        best_conf = top_conf[rows_k, best]
+        best_cls = cand_cls[rows_k, best]
+
+        # crop measurement update (model 2), scattered back to the pool
+        meas = torch.zeros((N, 5), dtype=torch.float32, device=dev).index_put(
+            (sel,), best_state[:, :5].to(torch.float32)
+        )
+        no = torch.zeros((N,), dtype=torch.bool, device=dev)
+        upd = no.index_put((sel,), live_k)
+        good = no.index_put((sel,), live_k & (best_conf >= cfg.sigma_c))
+        kf_upd = (upd & good) if cfg.crop_conf_gate else upd
+        kf2 = kf_update(kf1, meas, kf_upd, kfp, measurement_idx=2)
+
+        if cfg.size_nudge:
+            # class-size nudge (model 3) toward the voted class's mean size
+            voted = torch.argmax(state.cls_votes, dim=1)
+            kf2 = kf_update(kf2, kfp.class_size[voted], kf_upd, kfp, measurement_idx=3)
+
+        izero = torch.zeros_like(state.fsld)
+        fsld = torch.where(good, izero, state.fsld + (live & ~good).to(torch.int32))
+        misses = torch.where(good, izero, state.misses + (upd & ~good).to(torch.int32))
+        good_k = live_k & (best_conf >= cfg.sigma_c)
+        one_hot = Fn.one_hot(best_cls, NUM_CLASSES).to(torch.float32)
+        votes = state.cls_votes.index_put(
+            (sel,), torch.where(good_k[:, None], one_hot, zero), accumulate=True
+        )
+        conf_sum = state.conf_sum.index_put(
+            (sel,), torch.where(live_k, best_conf, zero), accumulate=True
+        )
+        conf_cnt = state.conf_cnt.index_put((sel,), live_k.to(torch.float32), accumulate=True)
+
+        new_state = state._replace(
+            kf=kf2, fsld=fsld, misses=misses, age=state.age + live.to(torch.int32),
+            cls_votes=votes, conf_sum=conf_sum, conf_cnt=conf_cnt, t_off=t_off,
+        )
+        new_state = lifecycle(new_state, t_mean, kfp, cfg)
+        return new_state, snapshot(new_state, t_mean, kfp, cfg)
+
+    return step
+
+
+def _detect_tail(state, pre, ts_bias, cam_times, kfp, cfg):
+    """Shared tail of the detect branch: clock bias, roadway NMS,
+    association, lifecycle, snapshot."""
+    ts_bias2 = estimate_ts_bias(pre, state, ts_bias, kfp, cfg) if cfg.estimate_ts_bias else ts_bias
+    parsed = space_nms_parsed(pre, cfg)
+    t_ref = torch.mean(cam_times)
+    state, _, _ = associate_and_update(state, parsed, t_ref, kfp, cfg)
+    state = lifecycle(state, t_ref, kfp, cfg)
+    return state, snapshot(state, t_ref, kfp, cfg), ts_bias2
+
+
+def make_mc_detect_step(det_model: RetinaNet, bank: CameraBank, kfp: KFParams, cfg: TrackerConfig):
+    """(state, frames [C,H,W,3], cam_times [C], ts_bias [C]) ->
+    (state', snapshot, ts_bias'): the full-frame detection branch with
+    clock-bias estimation (MC3D track() detect branch :1068-1139)."""
+
+    @torch.no_grad()
+    def step(state: TrackState, frames: torch.Tensor, cam_times: torch.Tensor, ts_bias: torch.Tensor):
+        det = detect_multiframe(
+            det_model, frames, pre_topk=cfg.pre_topk, max_dets=cfg.max_dets,
+            approx_topk=cfg.approx_topk, min_level=cfg.det_min_level,
+        )
+        pre = parse_detections_pre(det, bank, cam_times + ts_bias, cfg)
+        return _detect_tail(state, pre, ts_bias, cam_times, kfp, cfg)
+
+    return step
+
+
+def make_mc_detect_step_from_detections(bank: CameraBank, kfp: KFParams, cfg: TrackerConfig):
+    """Detect-branch step taking precomputed :class:`Detections`."""
+
+    @torch.no_grad()
+    def step(state: TrackState, det: Detections, cam_times: torch.Tensor, ts_bias: torch.Tensor):
+        pre = parse_detections_pre(det, bank, cam_times + ts_bias, cfg)
+        return _detect_tail(state, pre, ts_bias, cam_times, kfp, cfg)
+
+    return step
+
+
+def _stack_snaps(snaps: List[Snapshot]) -> Snapshot:
+    return Snapshot(*(torch.stack(xs) for xs in zip(*snaps)))
+
+
+def make_mc_clip_step(
+    det_model: RetinaNet,
+    bank: CameraBank,
+    centers: torch.Tensor,
+    kfp: KFParams,
+    cfg: TrackerConfig,
+    crop_model: Optional[RetinaNet] = None,
+):
+    """(state, ts_bias, frames [T,C,H,W,3], cam_times [T,C], frame0 int) ->
+    (state', ts_bias', snapshots stacked over T): frame ``i`` (global index
+    ``frame0 + i``) takes the detect branch when ``i % det_step == 0``, the
+    crop branch when ``i % skip_step == 0``, a passthrough snapshot
+    otherwise (the reference's cadence loop, MC3D_crop_tracker.py:1051-1254).
+
+    As in the JAX clip, the branch follows the global frame index and the
+    clock-bias update of a detect frame applies to the frames after it."""
+    if det_model.stem != "conv7":
+        raise NotImplementedError("only the conv7 frame path is ported")
+    detect_step = make_mc_detect_step(det_model, bank, kfp, cfg)
+    crop_step = (
+        make_crop_step(crop_model, bank, centers, kfp, cfg) if crop_model is not None else None
+    )
+    d, s = cfg.det_step, cfg.skip_step
+
+    @torch.no_grad()
+    def clip(state: TrackState, ts_bias: torch.Tensor, frames: torch.Tensor,
+             cam_times: torch.Tensor, frame0: int):
+        st, tb = state, ts_bias
+        snaps = []
+        for li in range(frames.shape[0]):
+            i = int(frame0) + li
+            f, t = frames[li], cam_times[li]
+            if i % d == 0:
+                st, snap, tb = detect_step(st, f, t, tb)
+            elif crop_step is not None and i % s == 0:
+                st, snap = crop_step(st, f, t, tb)
+            else:
+                snap = snapshot(st, torch.mean(t), kfp, cfg)
+            snaps.append(snap)
+        return st, tb, _stack_snaps(snaps)
+
+    return clip
+
+
+class MultiCameraTracker:
+    """Host driver for N-camera tracking with crop re-detection.
+
+    ``sources`` are per-camera iterators of (frame [H,W,3], t_abs). The
+    models must already sit on ``device`` (the card unless the caller asks
+    for the CPU); frames are shipped there as they arrive."""
+
+    def __init__(
+        self,
+        registry,
+        cameras: Sequence[str],
+        cfg: Optional[TrackerConfig] = None,
+        kf_params: Optional[KFParams] = None,
+        det_model: Optional[RetinaNet] = None,
+        crop_model: Optional[RetinaNet] = None,
+        detect_fn: Optional[Callable] = None,
+        centers: Optional[np.ndarray] = None,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.registry = registry
+        self.cameras = list(cameras)
+        if cfg is None:
+            try:
+                x_range = tracking_x_range(self.cameras)
+            except KeyError:
+                x_range = (0.0, 2000.0)
+            cfg = TrackerConfig(x_range=x_range)
+        self.cfg = cfg
+        self.kfp = kf_params if kf_params is not None else default_params(device=self.device)
+        self.bank = bank_from_registry(registry, device=self.device)
+        if centers is None:
+            centers = np.asarray(camera_centers(self.cameras), np.float32)
+        self.centers = torch.as_tensor(np.asarray(centers, np.float32), device=self.device)
+
+        self.detect_fn = detect_fn
+        if detect_fn is None:
+            if det_model is None:
+                raise ValueError("MultiCameraTracker needs det_model or detect_fn")
+            self._detect_step = make_mc_detect_step(det_model, self.bank, self.kfp, cfg)
+        else:
+            self._parsed_step = make_mc_detect_step_from_detections(self.bank, self.kfp, cfg)
+        self._det_model = det_model
+        self._crop_model = crop_model
+        self._clip = None
+        self._crop_step = (
+            make_crop_step(crop_model, self.bank, self.centers, self.kfp, cfg)
+            if crop_model is not None else None
+        )
+
+        self.state = init_track_state(cfg.max_tracks, self.device)
+        self.ts_bias = torch.zeros((len(self.cameras),), dtype=torch.float32, device=self.device)
+        self.epoch: Optional[float] = None
+        self.rows: List[tuple] = []
+        self.ts_bias_log: List[np.ndarray] = []
+        self.timers = {"detect": 0.0, "crop": 0.0, "drain": 0.0}
+
+    def _timed(self, stage: str, t0: float) -> None:
+        self.timers[stage] += time.time() - t0
+
+    def _append_row(self, frame_num, t_off, ids, mask, states, classes, bias):
+        self.rows.append(
+            (frame_num, float(self.epoch + float(t_off)), ids[mask], states[mask], classes[mask])
+        )
+        self.ts_bias_log.append(bias)
+
+    @torch.no_grad()
+    def process(self, frames: np.ndarray, times: Sequence[float], frame_num: int) -> Snapshot:
+        """One frame of all cameras: frames [C,H,W,3]; times per camera."""
+        if self.epoch is None:
+            self.epoch = float(min(times))
+        cam_times = torch.as_tensor(
+            np.asarray([t - self.epoch for t in times], np.float32), device=self.device
+        )
+        frames_t = torch.as_tensor(np.asarray(frames), device=self.device)
+
+        t0 = time.time()
+        if frame_num % self.cfg.det_step == 0:
+            if self.detect_fn is None:
+                self.state, snap, self.ts_bias = self._detect_step(
+                    self.state, frames_t, cam_times, self.ts_bias
+                )
+            else:
+                det = self.detect_fn(frames_t, frame_num)
+                self.state, snap, self.ts_bias = self._parsed_step(
+                    self.state, det, cam_times, self.ts_bias
+                )
+            stage = "detect"
+        elif self._crop_step is not None and frame_num % self.cfg.skip_step == 0:
+            self.state, snap = self._crop_step(self.state, frames_t, cam_times, self.ts_bias)
+            stage = "crop"
+        else:
+            snap = snapshot(self.state, torch.mean(cam_times), self.kfp, self.cfg)
+            stage = "drain"
+        self._timed(stage, t0)
+
+        t0 = time.time()
+        self._append_row(
+            frame_num, snap.t.cpu(), snap.ids.cpu().numpy(), snap.raw_mask.cpu().numpy(),
+            snap.states7.cpu().numpy(), snap.classes.cpu().numpy(), self.ts_bias.cpu().numpy(),
+        )
+        self._timed("drain", t0)
+        return snap
+
+    def _synced_frames(self, sources: List[Iterable], cutoff: int, sync_ms: float):
+        """Yield (frames [C,H,W,3], times [C]); cameras lagging the latest
+        timestamp by >= sync_ms skip frames (MC3D time_sync_cameras:219-235)."""
+        iters = [iter(s) for s in sources]
+        try:
+            cur = [next(it) for it in iters]
+        except StopIteration:
+            return
+        for _ in range(cutoff):
+            latest = max(c[1] for c in cur)
+            try:
+                for i in range(len(iters)):
+                    while latest - cur[i][1] >= sync_ms / 1000.0:
+                        cur[i] = next(iters[i])
+            except StopIteration:
+                return
+            yield np.stack([c[0] for c in cur]), [c[1] for c in cur]
+            try:
+                cur = [next(it) for it in iters]
+            except StopIteration:
+                return
+
+    def track(self, sources: List[Iterable], cutoff: int = 10**9, sync_ms: float = 20.0,
+              per_frame: bool = False, clip_len: int = 24):
+        """Track all sources to exhaustion: the clip loop
+        (:meth:`track_clips`) when the detector is available, else (or with
+        ``per_frame=True``) one :meth:`process` per frame."""
+        if not per_frame and self.detect_fn is None:
+            return self.track_clips(sources, clip_len=clip_len, cutoff=cutoff, sync_ms=sync_ms)
+        start = time.time()
+        n = 0
+        for frame_num, (frames, times) in enumerate(self._synced_frames(sources, cutoff, sync_ms)):
+            self.process(frames, times, frame_num)
+            n += 1
+        wall = time.time() - start
+        return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}
+
+    def _clip_fn(self):
+        if self._clip is None:
+            self._clip = make_mc_clip_step(
+                self._det_model, self.bank, self.centers, self.kfp, self.cfg,
+                crop_model=self._crop_model,
+            )
+        return self._clip
+
+    @torch.no_grad()
+    def track_clips(self, sources: List[Iterable], clip_len: int = 24, cutoff: int = 10**9,
+                    sync_ms: float = 20.0):
+        """Clip host loop: one clip step per ``clip_len`` frames, the next
+        clip read, stacked and copied to the device by a background thread
+        while the current one runs."""
+        if self.detect_fn is not None or self._det_model is None:
+            raise ValueError("track_clips needs det_model (not a detect_fn)")
+        clip = self._clip_fn()
+        q: queue.Queue = queue.Queue(maxsize=2)
+        done = object()
+        producer_err: list = []
+
+        def stage(batch_np, times_np):
+            return (
+                torch.as_tensor(batch_np).to(self.device),
+                torch.as_tensor(times_np).to(self.device),
+            )
+
+        def producer():
+            buf_f, buf_t = [], []
+            frame0 = 0
+            try:
+                for frames, times in self._synced_frames(sources, cutoff, sync_ms):
+                    if self.epoch is None:
+                        self.epoch = float(min(times))
+                    buf_f.append(frames)
+                    buf_t.append([t - self.epoch for t in times])
+                    if len(buf_f) == clip_len:
+                        q.put((stage(np.stack(buf_f), np.asarray(buf_t, np.float32)), frame0))
+                        frame0 += clip_len
+                        buf_f, buf_t = [], []
+                if buf_f:
+                    q.put((stage(np.stack(buf_f), np.asarray(buf_t, np.float32)), frame0))
+            except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
+                producer_err.append(e)
+            finally:
+                q.put(done)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        start = time.time()
+        n = 0
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            (ft, tt), frame0 = item
+            t0 = time.time()
+            self.state, self.ts_bias, snaps = clip(self.state, self.ts_bias, ft, tt, frame0)
+            self._timed("detect", t0)
+            t0 = time.time()
+            ids, mask, states, classes, ts = (
+                x.cpu().numpy() for x in (snaps.ids, snaps.raw_mask, snaps.states7, snaps.classes, snaps.t)
+            )
+            bias = self.ts_bias.cpu().numpy()
+            for k in range(ids.shape[0]):
+                self._append_row(frame0 + k, ts[k], ids[k], mask[k], states[k], classes[k], bias)
+            n += ids.shape[0]
+            self._timed("drain", t0)
+        thread.join(timeout=10)
+        if producer_err:
+            raise producer_err[0]
+        wall = time.time() - start
+        return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}

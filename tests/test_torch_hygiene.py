@@ -1,0 +1,77 @@
+"""The PyTorch port stands alone: importing it and running a CPU step loads
+no JAX and nothing of the JAX package, and its entry points refuse to fall
+back to the CPU when CUDA is absent."""
+
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+_STEP = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    import torch
+    import playground3d_tpu_torch
+    from playground3d_tpu_torch.geometry.homography import CameraRegistry
+    from playground3d_tpu_torch.models import bridge
+    from playground3d_tpu_torch.models.retinanet import retinanet_init
+    from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
+    from playground3d_tpu_torch.utils.config import TrackerConfig
+
+    rng = np.random.default_rng(0)
+    sp = np.stack([rng.uniform(400, 600, 12), rng.uniform(0, 120, 12)], 1)
+    im = sp * [3.0, 4.0] + [-1000.0, 100.0]
+    reg = CameraRegistry()
+    reg.add_camera("p1c1", im, sp, np.array([[1e6, 540.0], [960.0, 1e6], [960.0, -1e5]]))
+    g = torch.Generator().manual_seed(0)
+    det = retinanet_init(g, depth=18, device="cpu")
+    crop = retinanet_init(g, depth=18, tower_depth=2, shared_tower=True, device="cpu")
+    cfg = TrackerConfig(max_tracks=8, max_dets=8, pre_topk=32, det_step=2, cs=32, cd_max=4)
+    trk = MultiCameraTracker(reg, ["p1c1"], cfg=cfg, det_model=det, crop_model=crop,
+                             centers=np.array([[500.0, 60.0]]), device="cpu")
+    src = [((np.zeros((64, 96, 3), np.uint8), 1.6e9 + f / 30.0) for f in range(3))]
+    assert trk.track(src, clip_len=3)["frames"] == 3
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "playground3d_tpu" or m.startswith("playground3d_tpu."))
+    print("BAD", bad)
+    assert not bad, bad
+    """
+)
+
+
+def test_port_loads_no_jax_and_nothing_of_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _STEP], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
+
+
+def _entry_points():
+    from playground3d_tpu_torch.geometry.homography import CameraRegistry
+    from playground3d_tpu_torch.models.retinanet import retinanet_init
+    from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
+    from playground3d_tpu_torch.pipeline.tracker_state import init_track_state
+    from playground3d_tpu_torch.track.kf import default_params
+
+    return {
+        "retinanet_init": lambda: retinanet_init(depth=18),
+        "default_params": lambda: default_params(),
+        "init_track_state": lambda: init_track_state(4),
+        "MultiCameraTracker": lambda: MultiCameraTracker(CameraRegistry(), [], detect_fn=print),
+    }
+
+
+@pytest.mark.parametrize(
+    "name", ["retinanet_init", "default_params", "init_track_state", "MultiCameraTracker"]
+)
+def test_default_device_raises_without_cuda(monkeypatch, name):
+    """Entry points default to the card; without CUDA they raise instead
+    of running on the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points()[name]()
