@@ -7,6 +7,11 @@ for ``sm_90a`` into a shared library with a plain C interface at first use,
 into ``playground3d_tpu_torch/_build/``, and bound with ``ctypes``. Nothing
 here imports a GPU package or runs ``nvcc`` when the module is imported.
 
+What the host decides is in one pure function that needs no card,
+:func:`launch_plan` (tile of output rows, grid, shared-memory bytes, from
+shapes alone). The kernel takes the plan as arguments and refuses one whose
+bytes it does not compute itself.
+
 The plain PyTorch version of the same function and the dispatch between
 the two live in :mod:`playground3d_tpu_torch.ops.roi_align`.
 """
@@ -20,11 +25,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["build", "check_args", "crop_and_resize_cuda"]
+__all__ = ["LaunchPlan", "build", "check_args", "crop_and_resize_cuda", "launch_noop", "launch_plan"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "crop_resize.cu"
@@ -35,7 +40,48 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC",
 )
-MAX_CROPS = 65535  # gridDim.y
+
+# The kernel's layout constants (csrc/crop_resize.cu holds the same values).
+THREADS = 256
+MAX_TILE_ROWS = 16  # two source rows per output row, one lane of warp 0 each
+MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory one block may ask for
+HEADER_BYTES = 320  # the row table
+COLUMN_BYTES = 20  # per output column: 1 - wx as double, x0, x1, wx
+MAX_BLOCKS = 2**31 - 1  # gridDim.x: one block per (crop, tile of rows)
+TILE_ROWS = 8  # measured on an H100 (PERF.md section 6): the best at 32 crops, within its noise
+SMS = 132  # H100 SXM
+
+
+class LaunchPlan(NamedTuple):
+    tile_rows: int  # output rows per block
+    tiles: int  # blocks per crop
+    threads: int
+    smem_bytes: int  # dynamic shared memory per block: the row and column tables
+
+
+def launch_plan(out_size: int, n: int = 1) -> LaunchPlan:
+    """How the kernel is launched for ``n`` crops of ``out_size``: from
+    these alone, never from the data. A block computes a tile of
+    ``TILE_ROWS`` output rows of one crop; the tile is halved while the grid
+    would leave SMs without a block (few or small crops). Shared memory
+    holds the tile's row table and the crop's column table. Raises
+    ValueError, naming the reason, for what the kernel cannot take."""
+    if min(out_size, n) < 1:
+        raise ValueError(f"crop_resize: empty problem, out_size={out_size} n={n}")
+    smem = HEADER_BYTES + COLUMN_BYTES * out_size
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"crop_resize: out_size {out_size} needs {smem} bytes of shared memory for its "
+            f"column table, above the {MAX_SMEM_BYTES} a block may use"
+        )
+    tile = TILE_ROWS
+    while tile > 1 and -(-out_size // tile) * n < SMS:
+        tile //= 2
+    tiles = -(-out_size // tile)
+    if n * tiles > MAX_BLOCKS:
+        raise ValueError(f"crop_resize: {n} crops in {tiles} tiles each exceed {MAX_BLOCKS} blocks")
+    return LaunchPlan(tile, tiles, THREADS, smem)
+
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -78,8 +124,10 @@ def _load() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in ("crop_and_resize_f32", "crop_and_resize_u8"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
+        lib.crop_and_resize_noop.argtypes = [ptr]
+        lib.crop_and_resize_noop.restype = i32
         lib.crop_and_resize_error_string.argtypes = [i32]
         lib.crop_and_resize_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -92,7 +140,10 @@ def check_args(
     """Raise ValueError on anything the kernel does not take: frames
     [C,H,W,ch] float32 or uint8, boxes [n,4] float32, frame_idx [n] int32,
     all contiguous and on one device, sizes inside the kernel's int32
-    indexing and grid limits."""
+    indexing and grid limits, and whatever :func:`launch_plan` refuses (a
+    column table above a block's shared memory). Pixels are read in place
+    with loads of one element, so any storage offset and any row pitch are
+    taken; a tensor whose first byte lies off an element boundary is not."""
     if frames.dtype not in (torch.float32, torch.uint8):
         raise ValueError(f"crop_resize: frames must be float32 or uint8, got {frames.dtype}")
     if frames.ndim != 4:
@@ -118,15 +169,23 @@ def check_args(
         raise ValueError(f"crop_resize: empty frames {tuple(frames.shape)}")
     if frames.numel() >= 2**31 or n * out_size * out_size * frames.shape[3] >= 2**31:
         raise ValueError("crop_resize: frames or output exceed 2^31 elements")
-    if n > MAX_CROPS:
-        raise ValueError(f"crop_resize: at most {MAX_CROPS} crops per launch, got {n}")
+    if frames.data_ptr() % frames.element_size():
+        raise ValueError(
+            f"crop_resize: frames start at address {frames.data_ptr():#x}, off the "
+            f"{frames.element_size()}-byte boundary of their elements"
+        )
+    if n:
+        launch_plan(out_size, n)
 
 
 def crop_and_resize_cuda(
-    frames: torch.Tensor, boxes: torch.Tensor, frame_idx: torch.Tensor, out_size: int = 112
+    frames: torch.Tensor, boxes: torch.Tensor, frame_idx: torch.Tensor, out_size: int = 112,
+    plan: Optional[LaunchPlan] = None,
 ) -> torch.Tensor:
     """Launch the kernel on the current stream -> [n,S,S,ch] float32.
-    ``crop_and_resize_cuda.launches`` counts the launches."""
+    ``crop_and_resize_cuda.launches`` counts the launches. ``plan`` replaces
+    :func:`launch_plan`'s choice (for tuning runs; the library refuses a plan
+    whose shared-memory bytes are not what it computes itself)."""
     if frames.device.type != "cuda":
         raise ValueError(f"crop_resize: the CUDA kernel takes CUDA tensors, got {frames.device}")
     check_args(frames, boxes, frame_idx, out_size)
@@ -135,19 +194,31 @@ def crop_and_resize_cuda(
     out = torch.empty((n, out_size, out_size, ch), dtype=torch.float32, device=frames.device)
     if n == 0:
         return out
+    plan = launch_plan(out_size, n) if plan is None else plan
     lib = _load()
     fn = lib.crop_and_resize_u8 if frames.dtype == torch.uint8 else lib.crop_and_resize_f32
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             frames.data_ptr(), boxes.data_ptr(), frame_idx.data_ptr(), out.data_ptr(),
-            C, H, W, ch, n, out_size, stream,
+            C, H, W, ch, n, out_size, plan.tile_rows, plan.smem_bytes, stream,
         )
-    if err != 0:
-        msg = lib.crop_and_resize_error_string(err).decode()
-        raise RuntimeError(f"crop_resize: kernel launch failed: {msg} ({err})")
+    _raise_on(lib, err)
     crop_and_resize_cuda.launches += 1
     return out
 
 
 crop_and_resize_cuda.launches = 0
+
+
+def launch_noop() -> None:
+    """Launch the library's empty kernel on the current stream: what one
+    launch costs on the card's clock, for timing beside the kernel."""
+    lib = _load()
+    _raise_on(lib, lib.crop_and_resize_noop(torch.cuda.current_stream().cuda_stream))
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        msg = lib.crop_and_resize_error_string(err).decode()
+        raise RuntimeError(f"crop_resize: kernel launch failed: {msg} ({err})")
