@@ -39,8 +39,7 @@
 //    every tile height, at 32 crops and at 2048, because the spans must be
 //    sized for a whole frame row (93 KB a block, two blocks an SM) and, for
 //    boxes much larger than the output, carry five times the bytes the
-//    samples need. scripts/crop_staging_experiment/ keeps that kernel and
-//    its measurement.
+//    samples need. PERF.md section 6 keeps the measurement.
 //  * Conversions: for uint8 frames the x blends need none (see blend_x).
 //
 // Arithmetic: the reference's float32 formulas, rounded where XLA rounds
@@ -68,6 +67,7 @@ constexpr int kOffWy = kOffOmwy + kMaxTileRows * 8;            // wy
 constexpr int kOffRowBase = kOffWy + kMaxTileRows * 4;         // element offset of y0's and y1's row
 constexpr int kOffCols = kOffRowBase + 2 * kMaxTileRows * 4;  // 320
 constexpr int kColBytes = 8 + 4 + 4 + 4;                       // 1 - wx (double), x0, x1, wx
+constexpr int kMaxSmemBytes = 232448;  // 227 KB a block (MAX_SMEM_BYTES of ops/crop_resize.py)
 
 // lo + (j + 0.5) * ((hi - lo) * inv_s) - 0.5, clamped to [0, extent_max]
 __device__ __forceinline__ float sample_coord(float lo, float hi, int j, float inv_s,
@@ -222,19 +222,20 @@ crop_resize_kernel(const T* __restrict__ frames, const float* __restrict__ boxes
 
 __global__ void noop_kernel() {}
 
-// The plan (tile_rows, smem_bytes) is ops/crop_resize.py::launch_plan's; the
-// bytes are recomputed here and a plan that disagrees is refused.
+// tile_rows is ops/crop_resize.py::launch_plan's; the grid and the
+// shared-memory bytes follow from it here by launch_plan's rule.
 template <typename T>
 int launch(const void* frames, const void* boxes, const void* frame_idx, void* out, int C, int H,
-           int W, int ch, int n, int S, int tile_rows, int smem_bytes, void* stream) {
+           int W, int ch, int n, int S, int tile_rows, void* stream) {
   if (tile_rows < 1 || tile_rows > kMaxTileRows || n < 1 || S < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long need = kOffCols + static_cast<long long>(kColBytes) * S;
   const long long tiles = (S + tile_rows - 1) / tile_rows;
-  if (need != smem_bytes || n * tiles > 2147483647LL) {
+  if (need > kMaxSmemBytes || n * tiles > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int smem_bytes = static_cast<int>(need);
   auto kernel = crop_resize_kernel<T>;
   if (smem_bytes > 48 * 1024) {  // above the default limit of dynamic shared memory
     const cudaError_t err =
@@ -256,16 +257,14 @@ extern "C" {
 // All return the cudaError_t of the launch (0 = cudaSuccess).
 int crop_and_resize_f32(const void* frames, const void* boxes, const void* frame_idx,
                         void* out, int C, int H, int W, int ch, int n, int S, int tile_rows,
-                        int smem_bytes, void* stream) {
-  return launch<float>(frames, boxes, frame_idx, out, C, H, W, ch, n, S, tile_rows, smem_bytes,
-                       stream);
+                        void* stream) {
+  return launch<float>(frames, boxes, frame_idx, out, C, H, W, ch, n, S, tile_rows, stream);
 }
 
 int crop_and_resize_u8(const void* frames, const void* boxes, const void* frame_idx,
                        void* out, int C, int H, int W, int ch, int n, int S, int tile_rows,
-                       int smem_bytes, void* stream) {
-  return launch<uint8_t>(frames, boxes, frame_idx, out, C, H, W, ch, n, S, tile_rows,
-                         smem_bytes, stream);
+                       void* stream) {
+  return launch<uint8_t>(frames, boxes, frame_idx, out, C, H, W, ch, n, S, tile_rows, stream);
 }
 
 // An empty kernel: what one launch costs on the card's clock, for timing.

@@ -9,8 +9,8 @@ here imports a GPU package or runs ``nvcc`` when the module is imported.
 
 What the host decides is in one pure function that needs no card,
 :func:`launch_plan` (tile of output rows, grid, shared-memory bytes, from
-shapes alone). The kernel takes the plan as arguments and refuses one whose
-bytes it does not compute itself.
+shapes alone). The kernel is given the tile height and derives the grid
+and the bytes from it by the same rule.
 
 The plain PyTorch version of the same function and the dispatch between
 the two live in :mod:`playground3d_tpu_torch.ops.roi_align`.
@@ -49,7 +49,6 @@ HEADER_BYTES = 320  # the row table
 COLUMN_BYTES = 20  # per output column: 1 - wx as double, x0, x1, wx
 MAX_BLOCKS = 2**31 - 1  # gridDim.x: one block per (crop, tile of rows)
 TILE_ROWS = 8  # measured on an H100 (PERF.md section 6): the best at 32 crops, within its noise
-SMS = 132  # H100 SXM
 
 
 class LaunchPlan(NamedTuple):
@@ -62,10 +61,10 @@ class LaunchPlan(NamedTuple):
 def launch_plan(out_size: int, n: int = 1) -> LaunchPlan:
     """How the kernel is launched for ``n`` crops of ``out_size``: from
     these alone, never from the data. A block computes a tile of
-    ``TILE_ROWS`` output rows of one crop; the tile is halved while the grid
-    would leave SMs without a block (few or small crops). Shared memory
-    holds the tile's row table and the crop's column table. Raises
-    ValueError, naming the reason, for what the kernel cannot take."""
+    ``TILE_ROWS`` output rows of one crop (the last tile of a crop may be
+    shorter). Shared memory holds the tile's row table and the crop's
+    column table. Raises ValueError, naming the reason, for what the kernel
+    cannot take."""
     if min(out_size, n) < 1:
         raise ValueError(f"crop_resize: empty problem, out_size={out_size} n={n}")
     smem = HEADER_BYTES + COLUMN_BYTES * out_size
@@ -74,9 +73,7 @@ def launch_plan(out_size: int, n: int = 1) -> LaunchPlan:
             f"crop_resize: out_size {out_size} needs {smem} bytes of shared memory for its "
             f"column table, above the {MAX_SMEM_BYTES} a block may use"
         )
-    tile = TILE_ROWS
-    while tile > 1 and -(-out_size // tile) * n < SMS:
-        tile //= 2
+    tile = min(TILE_ROWS, out_size)
     tiles = -(-out_size // tile)
     if n * tiles > MAX_BLOCKS:
         raise ValueError(f"crop_resize: {n} crops in {tiles} tiles each exceed {MAX_BLOCKS} blocks")
@@ -124,7 +121,7 @@ def _load() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in ("crop_and_resize_f32", "crop_and_resize_u8"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
             fn.restype = i32
         lib.crop_and_resize_noop.argtypes = [ptr]
         lib.crop_and_resize_noop.restype = i32
@@ -180,12 +177,9 @@ def check_args(
 
 def crop_and_resize_cuda(
     frames: torch.Tensor, boxes: torch.Tensor, frame_idx: torch.Tensor, out_size: int = 112,
-    plan: Optional[LaunchPlan] = None,
 ) -> torch.Tensor:
     """Launch the kernel on the current stream -> [n,S,S,ch] float32.
-    ``crop_and_resize_cuda.launches`` counts the launches. ``plan`` replaces
-    :func:`launch_plan`'s choice (for tuning runs; the library refuses a plan
-    whose shared-memory bytes are not what it computes itself)."""
+    ``crop_and_resize_cuda.launches`` counts the launches."""
     if frames.device.type != "cuda":
         raise ValueError(f"crop_resize: the CUDA kernel takes CUDA tensors, got {frames.device}")
     check_args(frames, boxes, frame_idx, out_size)
@@ -194,14 +188,14 @@ def crop_and_resize_cuda(
     out = torch.empty((n, out_size, out_size, ch), dtype=torch.float32, device=frames.device)
     if n == 0:
         return out
-    plan = launch_plan(out_size, n) if plan is None else plan
+    plan = launch_plan(out_size, n)
     lib = _load()
     fn = lib.crop_and_resize_u8 if frames.dtype == torch.uint8 else lib.crop_and_resize_f32
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             frames.data_ptr(), boxes.data_ptr(), frame_idx.data_ptr(), out.data_ptr(),
-            C, H, W, ch, n, out_size, plan.tile_rows, plan.smem_bytes, stream,
+            C, H, W, ch, n, out_size, plan.tile_rows, stream,
         )
     _raise_on(lib, err)
     crop_and_resize_cuda.launches += 1
