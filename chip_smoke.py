@@ -7,19 +7,26 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. build   - compile every hand-written kernel from ``playground3d_tpu_torch/
-             csrc`` with nvcc (all sources at once), print the build seconds;
+             csrc`` with nvcc (one nvcc per source, all started together);
 2. kernels - run each kernel at the shapes the main path gives it and at
              odd and edge shapes, hold it against its plain PyTorch version,
-             and time the kernel, an empty kernel, the plain version and one
-             PyTorch library call that computes the same function (never
-             used by the port);
-3. main    - the multi-camera tracker's main path at full width: one 1080p
-             camera, ResNet-50 conv7 detector (FPN/heads 256 wide, bf16),
-             ResNet-18 crop net, 24-frame clips through
-             ``MultiCameraTracker.track_clips``, live tracks seeded so every
-             crop frame crops and updates real slots; per-branch times and
-             host syncs; the card's clip held against the CPU's on a small
-             input;
+             and time the kernel, an empty kernel, the plain version and the
+             nearest PyTorch library call (never used by the port):
+             ``crop_resize.cu`` (raw frames), ``crop_resize_s2d.cu`` (s2d
+             frames, every pyramid level), ``yuv420_s2d.cu`` and ``qconv.cu``
+             (every conv shape that the quantized detector and crop net
+             launch at 1080p, listed by a hook);
+3. main    - the multi-camera tracker at full width through
+             ``MultiCameraTracker.track_clips``: one 1080p camera, ResNet-50
+             detector (FPN/heads 256 wide), ResNet-18 crop net, 24-frame
+             clips, live tracks seeded so every crop frame crops and updates
+             real slots. The shipped configuration first (uint8 s2d-packed
+             frames, s2d stems, both nets int8-quantized), then for
+             comparison in the same run: s2d frames with float nets, raw
+             frames with conv7 stems and float nets (the path the port ran first),
+             and planar YUV420 bytes converted on the card. Before that, the
+             card's clip is held against the CPU's on a small input for each
+             transport and for a quantized pair;
 4. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the final ``{"ok": true, ...}`` line.
 
@@ -32,7 +39,9 @@ Only the port and PyTorch are imported; nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -45,6 +54,7 @@ N_SEED = 32  # live tracks seeded = crop_slots, so every crop slot is real
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 FP64_FLOPS = 34e12  # H100 SXM, outside the tensor cores (NVIDIA data sheet)
+INT8_OPS = 1979e12  # H100 SXM, dense int8 on the tensor cores
 # the kernel and the plain version do the same rounded ops in the same order:
 # integer-valued pixels must agree exactly, [0,1] floats to 1e-5
 CROP_TOL = {"uint8": 0.0, "float32": 1e-5}
@@ -103,7 +113,7 @@ def bench_registry(h: int = H, w: int = W):
     return reg
 
 
-def build_models(device, crop_target, small: bool = False):
+def build_models(device, crop_target, small: bool = False, stem: str = "conv7"):
     """Random-init detector and crop net from fixed seeds, with two bias
     tweaks so the random heads drive the tracker like a trained pair:
 
@@ -121,13 +131,13 @@ def build_models(device, crop_target, small: bool = False):
     from playground3d_tpu_torch.models.retinanet import retinanet_init
 
     if small:
-        det = retinanet_init(torch.Generator().manual_seed(0), depth=18, device=device)
-        crop = retinanet_init(torch.Generator().manual_seed(1), depth=18, tower_depth=2,
+        det = retinanet_init(torch.Generator().manual_seed(0), depth=18, stem=stem, device=device)
+        crop = retinanet_init(torch.Generator().manual_seed(1), depth=18, stem=stem, tower_depth=2,
                               shared_tower=True, device=device)
     else:
-        det = retinanet_init(torch.Generator().manual_seed(0), depth=50, stem="conv7",
+        det = retinanet_init(torch.Generator().manual_seed(0), depth=50, stem=stem,
                              feature_size=256, tower_depth=4, shared_tower=False, device=device)
-        crop = retinanet_init(torch.Generator().manual_seed(1), depth=18, stem="conv7",
+        crop = retinanet_init(torch.Generator().manual_seed(1), depth=18, stem=stem,
                               tower_depth=2, shared_tower=True, device=device)
     wh = base_anchors(32.0)[:, 2:] * 2.0  # [9, (w, h)] of the stride-8 anchors
     offset = (np.asarray(crop_target, np.float64)[None, :] - 4.0) / wh
@@ -139,9 +149,31 @@ def build_models(device, crop_target, small: bool = False):
     return det, crop
 
 
-def seed_crop_boxes(reg, cfg, n_seed: int):
+def quantize_pair(det, crop, frame_s2d, cs: int, seed: int = 5):
+    """Both nets int8-quantized as the JAX package's benchmark quantizes its
+    pair: the detector calibrated on one packed uint8 frame, the crop net on
+    four random uint8 crops in the packed layout."""
+    import torch
+
+    from playground3d_tpu_torch.models.quant import quantize_detector
+
+    gen = torch.Generator().manual_seed(seed)
+    crop_calib = torch.randint(0, 256, (4, cs // 4, cs // 4, 48), generator=gen, dtype=torch.uint8)
+    return (quantize_detector(det, frame_s2d[None]),
+            quantize_detector(crop, crop_calib.to(frame_s2d.device)))
+
+
+def pack_frames(frames: np.ndarray) -> np.ndarray:
+    """[T,H,W,3] -> [T,H/4,W/4,48], the packing the frame sources do."""
+    from playground3d_tpu_torch.ops.crop_mxu import pack_s2d
+
+    return np.stack([pack_s2d(f) for f in frames])
+
+
+def seed_crop_boxes(reg, cfg, n_seed: int, s2d: bool = False):
     """The seeded tracks' crop boxes [n,4] and image corners [n,8,2], built
-    as the crop branch builds them (``multi_cam.py::make_crop_step``)."""
+    as the crop branch builds them (``multi_cam.py::make_crop_step``); on the
+    s2d frame path the box side is clamped to ``max_crop_span_s2d()``."""
     import torch
 
     from playground3d_tpu_torch.geometry import transforms as T
@@ -153,14 +185,18 @@ def seed_crop_boxes(reg, cfg, n_seed: int):
     im = state_to_im_banked(bank_from_registry(reg, "cpu"), s6, torch.zeros(n_seed, dtype=torch.long))
     hull = T.im_hull_xyxy(im)
     scale = torch.maximum(hull[:, 2] - hull[:, 0], hull[:, 3] - hull[:, 1]) * cfg.crop_expand
+    if s2d:
+        from playground3d_tpu_torch.ops.crop_mxu import max_crop_span_s2d
+
+        scale = torch.clamp(scale, max=max_crop_span_s2d())
     corner = (hull[:, :2] + hull[:, 2:]) / 2 - scale[:, None] / 2
     return torch.cat([corner, corner + scale[:, None]], 1), im
 
 
-def crop_target(reg, cfg, n_seed: int):
+def crop_target(reg, cfg, n_seed: int, s2d: bool = False):
     """Mean crop pixel (x, y) of the seeded tracks' bottom centres, for
     crops built as the crop branch builds them."""
-    boxes, im = seed_crop_boxes(reg, cfg, n_seed)
+    boxes, im = seed_crop_boxes(reg, cfg, n_seed, s2d)
     scale = boxes[:, 2:3] - boxes[:, 0:1]
     bottom = im[:, 0:4].mean(1)
     return ((bottom - boxes[:, :2]) / scale * cfg.cs).mean(0).tolist()
@@ -195,13 +231,14 @@ def make_tracker(reg, det, crop, cfg, device, n_seed):
     from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
 
     trk = MultiCameraTracker(reg, ["p1c1"], cfg=cfg, det_model=det, crop_model=crop,
-                             centers=np.array([[565.0, 60.0]], np.float32), device=device)
+                             centers=np.array([[565.0, 60.0]], np.float32), stem=det.stem,
+                             crop_stem=crop.stem, device=device)
     trk.state = seed_tracks(trk.state, n_seed)
     return trk
 
 
 def sources(frames: np.ndarray, t0: float = 1.6e9):
-    """One camera's (frame, time) stream from [T,H,W,3]."""
+    """One camera's (frame, time) stream from [T,...] frames."""
     return [((frames[k], t0 + k / 30.0) for k in range(frames.shape[0]))]
 
 
@@ -238,22 +275,28 @@ def gpu_ms(fn, iters: int = 50, flush=None) -> float:
 # ---------------------------------------------------------------------------
 
 
-KERNEL_MODULES = ("playground3d_tpu_torch.ops.crop_resize",)
+KERNEL_MODULES = (
+    "playground3d_tpu_torch.ops.crop_resize",
+    "playground3d_tpu_torch.ops.crop_mxu",
+    "playground3d_tpu_torch.ops.yuv420",
+    "playground3d_tpu_torch.ops.qconv",
+)
 
 
 def phase_build():
     import importlib
 
-    mods = [importlib.import_module(m) for m in KERNEL_MODULES]
+    libs = [importlib.import_module(m).LIB for m in KERNEL_MODULES]
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
-        paths = list(ex.map(lambda m: m.build(), mods))
-    log(f"build: {len(mods)} kernel source(s) in {time.time() - t0:.2f} s")
-    for m, p in zip(mods, paths):
-        log(f"build: {p.name}")
-        for line in m.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build:   {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
+        paths = list(ex.map(lambda lib: lib.build(), libs))
+    log(f"build: {len(libs)} kernel sources in {time.time() - t0:.2f} s, one nvcc each, side by side")
+    for lib, p in zip(libs, paths):
+        regs = sorted({int(line.split("Used ")[1].split(" registers")[0])
+                       for line in lib.build_log.splitlines() if "registers" in line})
+        spills = any("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+                     for line in lib.build_log.splitlines())
+        log(f"build: {p.name}: registers per kernel {regs}, spills {'yes' if spills else 'none'}")
 
 
 def crop_case(gen, device, n, hw, frame_count=1):
@@ -386,7 +429,8 @@ def grid_sample_call(frames_u8, boxes, S):
     return lambda: F.grid_sample(src, grid, mode="bilinear", padding_mode="border", align_corners=False)
 
 
-def phase_kernels(device):
+def kernels_crop_resize(device, flush, noop_ms):
+    """``crop_resize.cu`` (raw NHWC frames, the conv7 frame path)."""
     import torch
 
     from playground3d_tpu_torch.ops import crop_resize
@@ -394,7 +438,6 @@ def phase_kernels(device):
 
     gen = torch.Generator().manual_seed(3)
     S, n = 112, 32
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     frames_u8 = torch.randint(0, 256, (1, H, W, 3), generator=gen, dtype=torch.uint8).to(device)
     frames_f32 = frames_u8.float() / 255.0
     boxes, fi = crop_case(gen, device, n, (H, W))
@@ -419,9 +462,6 @@ def phase_kernels(device):
     # times at the main path's shape (uint8 frame, 32 crops of 112x112), at
     # two box sets: crop_case's 20-600 px squares, and the squares the main
     # path really crops around its seeded tracks
-    noop_ms = gpu_ms(crop_resize.launch_noop)
-    log(f"kernels: an empty kernel takes {noop_ms * 1e3:.2f} us between CUDA events "
-        f"(that much of every time below is the launch)")
     sets = {}
     for label, bx in (("crop_case boxes", boxes), ("main-path boxes", main_boxes)):
         def run(bx=bx):
@@ -463,43 +503,475 @@ def phase_kernels(device):
     }
 
 
-def phase_small_reference(device):
-    """The clip on the card (CUDA kernel) against the same clip on the CPU
-    (plain versions) at 64x96 with ResNet-18 nets: ids and masks equal,
-    states within 1e-3 ft."""
+# ---- crop_resize_s2d.cu -----------------------------------------------------
+
+
+def s2d_box_sets(gen, device, hw, frame_count, main_boxes):
+    """(label, boxes, cam_idx) that between them sample every pyramid level:
+    spans up to 248 px (level 0), ``crop_case``'s 20-600 px squares (levels 0
+    to 2), the main path's own boxes (clamped to 992 px: level 2), the level
+    edges (248, 496, 992 px and one ulp either side), and boxes partly
+    outside the frame, on its last cell row and column, and swapped."""
     import torch
 
+    h, w = hw
+    n = main_boxes.shape[0]
+
+    def cams(k):
+        return torch.randint(0, frame_count, (k,), generator=gen, dtype=torch.int32).to(device)
+
+    c = torch.rand(n, 2, generator=gen) * torch.tensor([w, h])
+    s0 = torch.rand(n, 1, generator=gen) * 228.0 + 20.0
+    yield "spans <= 248 px (level 0)", torch.cat([c - s0 / 2, c + s0 / 2], 1).to(device).contiguous(), cams(n)
+    cb, _ = crop_case(gen, device, n, hw)
+    yield "crop_case boxes (levels 0-2)", cb, cams(n)
+    yield "main-path boxes (992 px, level 2)", main_boxes, cams(n)
+    spans = []
+    for base in (248.0, 496.0, 992.0):
+        f = np.float32(base)
+        spans += [np.nextafter(f, np.float32(0)), f, np.nextafter(f, np.float32(4000))]
+    sp = torch.tensor(np.array(spans, np.float32))
+    yield ("level-edge spans", torch.stack([0 * sp + 40.0, 0 * sp + 30.0, 40.0 + sp, 30.0 + sp * 0.7], 1)
+           .to(device).contiguous(), cams(len(spans)))
+    eb, _ = edge_case(device, hw, frame_count)
+    last = torch.tensor([[w - 4.0, h - 4.0, w, h], [w - 300.0, h - 5.0, w + 40.0, h + 200.0],
+                         [0.0, h - 1000.0, 992.0, h - 8.0], [w - 992.0, 0.0, w, 992.0]], device=device)
+    yield "edge boxes", torch.cat([eb, last]).contiguous(), cams(eb.shape[0] + 4)
+
+
+def s2d_crop_bytes(frames, boxes, cam, S, win_cells=64, n_levels=3, level_bytes=2) -> int:
+    """Bytes the s2d crop must move: the frames read once and the levels
+    written once for the pyramid, each distinct cell the samples touch read
+    once (48 values of its level's type), the crops written, the boxes."""
+    import torch
+
+    from playground3d_tpu_torch.ops import crop_mxu
+
+    C, Hs, Ws, _ = frames.shape
+    shapes = crop_mxu.level_shapes(Hs, Ws, n_levels)
+    pyramid = sum(C * hl * wl * 48 * level_bytes for hl, wl in shapes[1:])
+    level = crop_mxu._levels_of(boxes, win_cells, n_levels)
+    ls = torch.exp2(level.float())
+    hl = torch.tensor([s[0] for s in shapes], device=boxes.device)[level]
+    wl = torch.tensor([s[1] for s in shapes], device=boxes.device)[level]
+    xs = crop_mxu._sample_positions(boxes[:, 0], boxes[:, 2], ls, S, (wl * 4).float())
+    ys = crop_mxu._sample_positions(boxes[:, 1], boxes[:, 3], ls, S, (hl * 4).float())
+    cells = 0
+    for b in range(boxes.shape[0]):
+        cx = torch.unique(torch.cat([xs[b].floor().long() >> 2, (xs[b].floor().long() + 1).clamp(max=int(wl[b]) * 4 - 1) >> 2]))
+        cy = torch.unique(torch.cat([ys[b].floor().long() >> 2, (ys[b].floor().long() + 1).clamp(max=int(hl[b]) * 4 - 1) >> 2]))
+        cells += int(cx.numel() * cy.numel()) * 48 * (frames.element_size() if int(level[b]) == 0 else level_bytes)
+    n = boxes.shape[0]
+    return frames.numel() * frames.element_size() + pyramid + cells + n * S * S * 3 * 4 + n * 20
+
+
+def pooled_grid_sample_call(frames_s2d_u8, boxes, S, level=2):
+    """The yardstick for the s2d crop at boxes that all sample ``level``:
+    ``avg_pool2d`` down to that level, then ``F.grid_sample``. It is given
+    the frame already unpacked to float32 NCHW and a prebuilt grid, and it
+    neither normalizes nor rounds to bfloat16."""
+    import torch
+    import torch.nn.functional as F
+
+    from playground3d_tpu_torch.ops.crop_mxu import _pixels
+
+    img = _pixels(frames_s2d_u8).float().permute(0, 3, 1, 2).contiguous()  # [1,3,H,W]
+    hl, wl = img.shape[2] >> level, img.shape[3] >> level
+    n = boxes.shape[0]
+    j = torch.arange(S, dtype=torch.float32, device=boxes.device)
+    b = boxes / float(2 ** level)
+    xs = b[:, 0:1] + (j[None] + 0.5) * ((b[:, 2:3] - b[:, 0:1]) / S) - 0.5
+    ys = b[:, 1:2] + (j[None] + 0.5) * ((b[:, 3:4] - b[:, 1:2]) / S) - 0.5
+    grid = torch.stack(
+        [((2 * xs + 1) / wl - 1)[:, None, :].expand(n, S, S), ((2 * ys + 1) / hl - 1)[:, :, None].expand(n, S, S)],
+        dim=-1,
+    ).contiguous()
+
+    def call():
+        lv = img
+        for _ in range(level):
+            lv = F.avg_pool2d(lv, 2)
+        return F.grid_sample(lv.expand(n, -1, -1, -1), grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    return call
+
+
+def kernels_crop_s2d(device, flush, noop_ms):
+    """``crop_resize_s2d.cu`` (s2d-packed frames, the shipped frame path)."""
+    import torch
+
+    from playground3d_tpu_torch.ops import crop_mxu
+
+    gen = torch.Generator().manual_seed(4)
+    S, n = 112, 32
+    cfg = tracker_config()
+    main_boxes = seed_crop_boxes(bench_registry(), cfg, N_SEED, s2d=True)[0].to(device).contiguous()
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(device)
+
+    frames1, frames2 = u8(1, H // 4, W // 4, 48), u8(2, H // 4, W // 4, 48)
+    errs = {}
+
+    def hold(label, fr, b, cam, tol, **kw):
+        got = crop_mxu.crop_and_resize_s2d(fr, b, cam, **kw)
+        ref = crop_mxu.crop_and_resize_s2d_plain(fr, b, cam, **kw)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        errs[label] = e / max(float(ref.abs().max()), 1e-30) if tol else e
+        log(f"kernels: crop_and_resize_s2d {label}: frames {list(fr.shape)} {str(fr.dtype)[6:]}, "
+            f"{b.shape[0]} crops -> {list(got.shape)}: max_abs_diff vs plain {e:.3g} "
+            f"({'tolerance ' + format(tol, 'g') + ' of the largest value' if tol else 'must be 0'})")
+        if got.shape != ref.shape or not e <= tol * float(ref.abs().max()):
+            fail(f"crop_and_resize_s2d {label}: max_abs_diff {e}")
+
+    # the compute type of the tracker is bfloat16: kernel and plain version
+    # do the same rounded operations, so they must agree exactly. At float32
+    # the plain version's two products run through a library matmul whose
+    # sums may contract, so 1e-6 of the largest value is allowed there
+    for cams_label, fr in (("1 camera", frames1), ("2 cameras", frames2)):
+        for label, b, cam in s2d_box_sets(gen, device, (H, W), fr.shape[0], main_boxes):
+            hold(f"uint8 normalize bf16 s2d, {cams_label}, {label}", fr, b, cam, 0.0, out_size=S, normalize=True)
+    ff = frames2.float() / 255.0
+    for label, b, cam in s2d_box_sets(gen, device, (H, W), 2, main_boxes):
+        hold(f"float bf16 s2d, 2 cameras, {label}", ff, b, cam, 0.0, out_size=S)
+    cb, _ = crop_case(gen, device, n, (H, W))
+    cam2 = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32).to(device)
+    for layout in ("hwc", "chw"):
+        hold(f"uint8 normalize bf16 {layout}, crop_case boxes", frames2, cb, cam2, 0.0, out_size=S,
+             layout=layout, normalize=True)
+        hold(f"float bf16 {layout}, crop_case boxes", ff, cb, cam2, 0.0, out_size=37, layout=layout)
+    for layout in ("s2d", "hwc", "chw"):
+        hold(f"uint8 normalize float32 {layout}, crop_case boxes", frames2, cb, cam2, 1e-6, out_size=S,
+             layout=layout, dtype=torch.float32, normalize=True)
+    hold("float float32 s2d, crop_case boxes", ff, cb, cam2, 1e-6, out_size=S, dtype=torch.float32)
+    # odd cell counts (67 x 101 -> 33 x 50 -> 16 x 25) and frames smaller than the window
+    odd = u8(2, 67, 101, 48)
+    ob = torch.cat([crop_case(gen, device, 12, (268, 404))[0], edge_case(device, (268, 404), 2)[0]]).contiguous()
+    ocam = torch.randint(0, 2, (ob.shape[0],), generator=gen, dtype=torch.int32).to(device)
+    hold("uint8 normalize bf16 s2d, odd cells, window 16", odd, ob, ocam, 0.0, out_size=28, win_cells=16, normalize=True)
+    hold("uint8 normalize bf16 hwc, odd cells, window 64 (frame below the window)", odd, ob, ocam, 0.0,
+         out_size=37, layout="hwc", normalize=True)
+    hold("uint8 bf16 s2d, one level", odd, ob, ocam, 0.0, out_size=28, win_cells=16, n_levels=1)
+
+    # times at the main path's call: uint8 [1,270,480,48], 32 boxes of 992 px,
+    # normalize, bfloat16, packed crops
+    cam = torch.zeros(n, dtype=torch.int32, device=device)
+
+    def run():
+        return crop_mxu.crop_and_resize_s2d_cuda(frames1, main_boxes, cam, S, normalize=True)
+
+    cold = [gpu_ms(run, flush=flush) for _ in range(3)]
+    kernel_ms, warm_ms = float(np.median(cold)), gpu_ms(run)
+    plain_ms = gpu_ms(lambda: crop_mxu.crop_and_resize_s2d_plain(frames1, main_boxes, cam, S, normalize=True),
+                      iters=10, flush=flush)
+    lib = pooled_grid_sample_call(frames1, main_boxes, S)
+    library_ms = gpu_ms(lib, flush=flush)
+    nbytes = s2d_crop_bytes(frames1, main_boxes, cam, S)
+    # per output element: four pixels normalized (3 ops each) and three
+    # two-term products: ~24 float32 ops, far below the byte bound
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, n * S * S * 3 * 24 / FP32_FLOPS) * 1e3
+    log(f"kernels: crop_and_resize_s2d at [1,{H // 4},{W // 4},48] uint8, {n} crops of {S}x{S} (packed), "
+        f"main-path boxes: pyramid + sampling (2 kernels, one call) {kernel_ms * 1e3:.2f} us "
+        f"(L2 cold, median of 3 x 50: {' '.join(f'{c * 1e3:.2f}' for c in cold)}; {warm_ms * 1e3:.2f} us warm; "
+        f"an empty kernel {noop_ms * 1e3:.2f} us), avg_pool2d x 2 + grid_sample on the unpacked float32 frame "
+        f"{library_ms * 1e3:.2f} us, plain version {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+        f"({nbytes} bytes at 3.35 TB/s), {bound_ms / kernel_ms * 100:.1f}% of bound")
+    return {
+        "name": "crop_and_resize_s2d", "route": "cuda",
+        "source": "playground3d_tpu_torch/csrc/crop_resize_s2d.cu",
+        "replaces": "playground3d_tpu/ops/crop_mxu.py:87",
+        "max_abs_err": max(errs.values()), "bound_by": "bytes",
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+    }
+
+
+# ---- yuv420_s2d.cu ----------------------------------------------------------
+
+
+def kernels_yuv(device, flush, noop_ms):
+    """``yuv420_s2d.cu``: a clip of planar YUV420 bytes to packed RGB."""
+    import torch
+
+    from playground3d_tpu_torch.ops import yuv420
+
+    gen = torch.Generator().manual_seed(6)
+    worst = 0
+    for t, c, h, w in ((2, 2, 36, 52), (1, 3, 8, 4), (T_CLIP, 1, H, W)):
+        buf = torch.randint(0, 256, (t, c, h * w * 3 // 2), generator=gen, dtype=torch.uint8).to(device)
+        got = yuv420.yuv420_flat_to_s2d(buf, (h, w))
+        ref = yuv420.yuv420_flat_to_s2d_plain(buf, (h, w))
+        torch.cuda.synchronize()
+        differ = int((got != ref).sum())
+        worst = max(worst, int((got.int() - ref.int()).abs().max()))
+        log(f"kernels: yuv420_flat_to_s2d [{t},{c},{h * w * 3 // 2}] ({h}x{w}) -> {list(got.shape)}: "
+            f"{differ} of {got.numel()} bytes differ from the plain version (must be 0)")
+        if got.shape != ref.shape or differ:
+            fail(f"yuv420_flat_to_s2d {t}x{c}x{h}x{w}: {differ} bytes differ")
+        del ref
+    cold = [gpu_ms(lambda: yuv420.yuv420_flat_to_s2d_cuda(buf, (H, W)), iters=20, flush=flush) for _ in range(3)]
+    kernel_ms = float(np.median(cold))
+    warm_ms = gpu_ms(lambda: yuv420.yuv420_flat_to_s2d_cuda(buf, (H, W)), iters=20)
+    plain_ms = gpu_ms(lambda: yuv420.yuv420_flat_to_s2d_plain(buf, (H, W)), iters=3, flush=flush)
+    nbytes = buf.numel() + T_CLIP * H * W * 3
+    # per pixel ~14 float32 ops (three scalings shared by four pixels, the
+    # colour matrix, + 0.5 and clamp): below the byte bound
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, T_CLIP * H * W * 14 / FP32_FLOPS) * 1e3
+    log(f"kernels: yuv420_flat_to_s2d at [{T_CLIP},1,{H * W * 3 // 2}] uint8 (one clip): kernel "
+        f"{kernel_ms * 1e3:.1f} us (L2 cold, median of 3 x 20: {' '.join(f'{c * 1e3:.1f}' for c in cold)}; "
+        f"{warm_ms * 1e3:.1f} us warm; an empty kernel {noop_ms * 1e3:.2f} us), plain version "
+        f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s), "
+        f"{bound_ms / kernel_ms * 100:.1f}% of bound; no single library call computes it")
+    return {
+        "name": "yuv420_flat_to_s2d", "route": "cuda",
+        "source": "playground3d_tpu_torch/csrc/yuv420_s2d.cu",
+        "replaces": "playground3d_tpu/pipeline/multi_cam.py:62",
+        "max_abs_err": float(worst), "bound_by": "bytes",
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+    }
+
+
+# ---- qconv.cu ---------------------------------------------------------------
+
+
+QCONV_CHECK_SHAPES = (  # N, H, W, Cin, Cout, k, stride
+    (1, 135, 240, 256, 256, 3, 1), (1, 135, 67, 128, 72, 3, 1), (2, 67, 135, 256, 108, 3, 2),
+    (1, 135, 240, 512, 128, 1, 1), (1, 67, 67, 1024, 256, 1, 2), (1, 270, 480, 256, 64, 1, 1),
+    (1, 17, 30, 2048, 256, 3, 2), (32, 7, 7, 512, 512, 3, 1), (1, 20, 30, 144, 40, 3, 1),
+)
+
+
+def shipped_models(device):
+    """The main path's models, built once: (registry, config, float s2d
+    pair, quantized pair, the packed calibration frame)."""
+    import torch
+
+    if "models" not in _CACHE:
+        reg, cfg = bench_registry(), tracker_config()
+        det, crop = build_models(device, crop_target(reg, cfg, N_SEED, s2d=True), stem="s2d")
+        raw = np.random.default_rng(1).integers(0, 256, (1, H, W, 3), dtype=np.uint8)
+        calib = torch.as_tensor(pack_frames(raw)[0]).to(device)
+        det_q, crop_q = quantize_pair(det, crop, calib, cfg.cs)
+        _CACHE["models"] = (reg, cfg, (det, crop), (det_q, crop_q), calib)
+    return _CACHE["models"]
+
+
+_CACHE: dict = {}
+
+
+def record_qconv_shapes(device):
+    """Every call of the int8 conv kernel in one detect frame and one crop
+    frame of the main path, by shape: {branch: {(N,H,W,Cin,Cout,k,stride,
+    relu, has_offset, int8_out): launches}}."""
+    import collections
+
+    import torch
+
+    from playground3d_tpu_torch.models import quant
+    from playground3d_tpu_torch.models.retinanet import detect_multiframe, localize
+
+    if "qconv_shapes" in _CACHE:
+        return _CACHE["qconv_shapes"]
+    reg, cfg, _, (det_q, crop_q), calib = shipped_models(device)
+    seen = {"detect": collections.Counter(), "crop": collections.Counter()}
+    real = quant.qconv  # the one entry models/quant.py calls the int8 conv through
+    branch = ["detect"]
+
+    def recording(x, wq, scale, offset=None, stride=1, relu=False, emit_xs=None):
+        key = (*x.shape, wq.shape[0], wq.shape[1], stride, bool(relu), offset is not None, emit_xs is not None)
+        seen[branch[0]][key] += 1
+        return real(x, wq, scale, offset, stride, relu, emit_xs)
+
+    quant.qconv = recording
+    try:
+        detect_multiframe(det_q, calib[None], pre_topk=cfg.pre_topk, max_dets=cfg.max_dets,
+                          min_level=cfg.det_min_level)
+        branch[0] = "crop"
+        localize(crop_q, torch.zeros((cfg.crop_slots, cfg.cs // 4, cfg.cs // 4, 48), device=device))
+        torch.cuda.synchronize()
+    finally:
+        quant.qconv = real
+    _CACHE["qconv_shapes"] = seen
+    return seen
+
+
+def kernels_qconv(device, flush, noop_ms):
+    """``qconv.cu``: exactness at odd and edge shapes, then the time of every
+    conv shape that the quantized pair launches on the main path."""
+    import torch
+    import torch.nn.functional as F
+
+    from playground3d_tpu_torch.models.nn import same_pads
+    from playground3d_tpu_torch.ops import qconv as QC
+
+    gen = torch.Generator().manual_seed(8)
+
+    def operands(N, Hh, Ww, cin, cout, k):
+        x = torch.randint(-127, 128, (N, Hh, Ww, cin), generator=gen, dtype=torch.int8).to(device)
+        wq = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, dtype=torch.int8).to(device)
+        scale = (torch.rand(cout, generator=gen) * 2e-5 + 1e-6).to(device)
+        offset = torch.randn(cout, generator=gen).to(device)
+        return x, wq, scale, offset
+
+    xs = torch.tensor(0.043, device=device)
+    worst = 0.0
+    for N, Hh, Ww, cin, cout, k, stride in QCONV_CHECK_SHAPES:
+        x, wq, scale, offset = operands(N, Hh, Ww, cin, cout, k)
+        acc = QC.qconv_cuda(x, wq, scale, offset, stride, store=QC.ACC)
+        ref = QC.conv_int32_plain(x, wq, stride)
+        torch.cuda.synchronize()
+        acc_equal = bool(torch.equal(acc, ref))
+        differ = 0
+        for relu in (False, True):
+            for emit in (None, xs):
+                for off in (offset, None):
+                    got = QC.qconv(x, wq, scale, off, stride, relu, emit)
+                    want = QC.epilogue_plain(ref, scale, off, relu, emit)
+                    torch.cuda.synchronize()
+                    differ += int((got.float() != want.float()).sum())
+                    worst = max(worst, float((got.float() - want.float()).abs().max()))
+        log(f"kernels: qconv x [{N},{Hh},{Ww},{cin}] w [{cout},{k},{k},{cin}] stride {stride}: int32 "
+            f"accumulators {'equal' if acc_equal else 'DIFFER'} (max |acc| {int(ref.abs().max())}), int8 and "
+            f"bfloat16 outputs over 8 epilogues: {differ} values differ from the plain version (must be 0)")
+        if not acc_equal or differ:
+            fail(f"qconv {N}x{Hh}x{Ww}x{cin}->{cout} k{k} s{stride}: accumulators equal={acc_equal}, {differ} outputs differ")
+
+    # every shape of the main path, from a hook on the wrapper
+    seen = record_qconv_shapes(device)
+    shapes = sorted(set(seen["detect"]) | set(seen["crop"]))
+    rows = []
+    for key in shapes:
+        N, Hh, Ww, cin, cout, k, stride, relu, has_off, int8_out = key
+        x, wq, scale, offset = operands(N, Hh, Ww, cin, cout, k)
+        off, emit = (offset if has_off else None), (xs if int8_out else None)
+        kernel_ms = gpu_ms(lambda: QC.qconv_cuda(x, wq, scale, off, stride, relu, emit), iters=20)
+        ref = QC.conv_int32_plain(x, wq, stride)
+        got = QC.qconv_cuda(x, wq, scale, off, stride, relu, emit)
+        if not torch.equal(got, QC.epilogue_plain(ref, scale, off, relu, emit)):
+            fail(f"qconv main-path shape {key}: output differs from the plain version")
+        plain_ms = gpu_ms(lambda: QC.qconv_plain(x, wq, scale, off, stride, relu, emit), iters=3)
+        # the library call: the bf16 channels-last convolution of the same
+        # shape (what the float path runs there), operands already cast and padded
+        ph, pw = same_pads(Hh, k, stride), same_pads(Ww, k, stride)
+        xb = F.pad(x.permute(0, 3, 1, 2).to(torch.bfloat16), (pw[0], pw[1], ph[0], ph[1])).contiguous(
+            memory_format=torch.channels_last)
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        library_ms = gpu_ms(lambda: F.conv2d(xb, wb, stride=stride), iters=20)
+        ho, wo = got.shape[1], got.shape[2]
+        macs = N * ho * wo * cout * cin * k * k
+        nbytes = x.numel() + wq.numel() + got.numel() * got.element_size() + cout * 8
+        t_ops, t_bytes = 2 * macs / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            N=N, H=Hh, W=Ww, Cin=cin, Cout=cout, k=k, stride=stride, relu=relu, offset=has_off,
+            out="int8" if int8_out else "bf16", per_detect=seen["detect"][key], per_crop=seen["crop"][key],
+            macs=macs, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        ))
+        del x, wq, ref, got, xb, wb
+    log(f"kernels: qconv on the main path: {len(rows)} distinct calls (warm, mean of 20 between CUDA events; "
+        f"library = F.conv2d bf16 channels_last on cast and padded operands; an empty kernel {noop_ms * 1e3:.2f} us)")
+    log("kernels: qconv   N   H   W  Cin Cout k s relu off  out |det crop|  kernel us  bf16 conv us  plain us  "
+        "bound us (by)   TMAC/s")
+    for r in rows:
+        log(f"kernels: qconv {r['N']:3d} {r['H']:3d} {r['W']:3d} {r['Cin']:4d} {r['Cout']:4d} {r['k']} {r['stride']} "
+            f"{int(r['relu']):4d} {int(r['offset']):3d} {r['out']:>4s} |{r['per_detect']:3d} {r['per_crop']:4d}| "
+            f"{r['ms'] * 1e3:10.2f} {r['library_ms'] * 1e3:13.2f} {r['plain_ms'] * 1e3:9.1f} "
+            f"{r['bound_ms'] * 1e3:9.3f} ({r['bound_by'][:5]}) {r['macs'] / r['ms'] / 1e9:8.2f}")
+    totals = {}
+    for branch, per in (("detect", "per_detect"), ("crop", "per_crop")):
+        tot = {f: sum(r[per] * r[f] for r in rows) for f in ("ms", "plain_ms", "library_ms", "bound_ms", "macs")}
+        tot["launches"] = sum(r[per] for r in rows)
+        tot["by_ops"] = sum(r[per] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        totals[branch] = tot
+        log(f"kernels: qconv total per {branch} frame: {tot['launches']} launches, {tot['macs'] / 1e9:.1f} GMAC, "
+            f"kernel {tot['ms']:.3f} ms, bf16 convs of the same shapes {tot['library_ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['by_ops'] / max(tot['bound_ms'], 1e-12) * 100:.0f}% of it from shapes bound by operations), "
+            f"{tot['bound_ms'] / tot['ms'] * 100:.1f}% of bound")
+    os.makedirs("_outputs", exist_ok=True)
+    with open(os.path.join("_outputs", "qconv_shapes.json"), "w") as fh:
+        json.dump({"rows": rows, "totals": totals}, fh, indent=1)
+    det = totals["detect"]
+    # the record is of one detect frame's int8 convs, all shapes together
+    return {
+        "name": "qconv", "route": "cuda", "source": "playground3d_tpu_torch/csrc/qconv.cu",
+        "replaces": "playground3d_tpu/models/quant.py:180",
+        "max_abs_err": worst,
+        "bound_by": "operations" if det["by_ops"] >= 0.5 * det["bound_ms"] else "bytes",
+        "ms": det["ms"], "plain_ms": det["plain_ms"], "library_ms": det["library_ms"], "bound_ms": det["bound_ms"],
+    }
+
+
+def phase_kernels(device):
+    """Every kernel against its plain version, with times -> the entries of
+    the ``kernels`` line (their ``launches`` come from the main phase)."""
+    import torch
+
+    from playground3d_tpu_torch.ops import crop_resize
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    noop_ms = gpu_ms(crop_resize.launch_noop)
+    log(f"kernels: an empty kernel takes {noop_ms * 1e3:.2f} us between CUDA events "
+        f"(that much of every launch below is the launch itself)")
+    return [fn(device, flush, noop_ms) for fn in (kernels_crop_resize, kernels_crop_s2d, kernels_yuv, kernels_qconv)]
+
+
+def phase_small_reference(device):
+    """The clip on the card (CUDA kernels) against the same clip on the CPU
+    (plain versions) at 64x96 with ResNet-18 nets, for each frame transport
+    and for an int8-quantized pair (quantized once on the CPU, then copied to
+    the card, so both run the same integers): ids and masks equal, states
+    within 1e-3 ft. The output convs have zero weights, so every logit is its
+    bias whatever the backbone computes and ties decide alike on both."""
+    import torch
+
+    from playground3d_tpu_torch.ops.yuv420 import yuv420_flat_to_s2d
+    from playground3d_tpu_torch.pipeline.camera_bank import bank_from_registry
     from playground3d_tpu_torch.pipeline.multi_cam import make_mc_clip_step
     from playground3d_tpu_torch.pipeline.tracker_state import init_track_state
-    from playground3d_tpu_torch.pipeline.camera_bank import bank_from_registry
     from playground3d_tpu_torch.track.kf import default_params
 
     reg = bench_registry(64, 96)
     cfg = tracker_config(small=True)
-    frames = np.random.default_rng(11).integers(0, 256, (12, 1, 64, 96, 3), dtype=np.uint8)
+    rng = np.random.default_rng(11)
+    raw = rng.integers(0, 256, (12, 64, 96, 3), dtype=np.uint8)
+    yuv = rng.integers(0, 256, (12, 1, 64 * 96 * 3 // 2), dtype=np.uint8)
     times = (np.arange(12, dtype=np.float32)[:, None] / 30.0)
-    out = {}
-    for dev in ("cpu", device):
-        det, crop = build_models(dev, crop_target(reg, cfg, 6), small=True)
-        clip = make_mc_clip_step(det, bank_from_registry(reg, dev),
-                                 torch.tensor([[565.0, 60.0]], device=dev), default_params(device=dev),
-                                 cfg, crop_model=crop)
-        st0 = seed_tracks(init_track_state(cfg.max_tracks, dev), 6)
-        st, _, snaps = clip(st0, torch.zeros(1, device=dev), torch.as_tensor(frames, device=dev),
-                            torch.as_tensor(times, device=dev), 0)
-        out[str(dev)] = {k: getattr(snaps, k).cpu() for k in ("ids", "raw_mask", "classes", "states7")}
-    cpu, gpu = out["cpu"], out[str(device)]
-    for k in ("ids", "raw_mask", "classes"):
-        if not torch.equal(cpu[k], gpu[k]):
-            fail(f"small clip: {k} differs between the card and the CPU")
-    live = cpu["raw_mask"]
-    diff = float((cpu["states7"] - gpu["states7"])[live].abs().max()) if live.any() else 0.0
-    log(f"main: small clip (12 frames, 64x96) card vs CPU: ids/raw_mask/classes equal, "
-        f"{int(live.sum())} live slot-frames, states7 max_abs_diff {diff:.3g} (tolerance 1e-3)")
-    if not diff <= 1e-3:
-        fail(f"small clip states7 differ by {diff}")
-    if int(live.sum()) == 0:
-        fail("small clip: no live tracks")
+    cases = (
+        ("raw frames, conv7 stems, float", "conv7", False, raw[:, None]),
+        ("s2d frames, s2d stems, float", "s2d", False, pack_frames(raw)[:, None]),
+        ("s2d frames, s2d stems, int8", "s2d", True, pack_frames(raw)[:, None]),
+        ("YUV420 bytes, s2d stems, int8", "s2d", True, yuv),
+    )
+    for label, stem, int8, frames in cases:
+        det, crop = build_models("cpu", crop_target(reg, cfg, 6, s2d=stem == "s2d"), small=True, stem=stem)
+        if int8:
+            det, crop = quantize_pair(det, crop, torch.as_tensor(pack_frames(raw)[0]), cfg.cs)
+        out = {}
+        for dev in ("cpu", device):
+            d, c = (det, crop) if dev == "cpu" else (copy.deepcopy(det).to(dev), copy.deepcopy(crop).to(dev))
+            clip = make_mc_clip_step(d, bank_from_registry(reg, dev),
+                                     torch.tensor([[565.0, 60.0]], device=dev), default_params(device=dev),
+                                     cfg, crop_model=c, stem=stem, crop_stem=stem)
+            st0 = seed_tracks(init_track_state(cfg.max_tracks, dev), 6)
+            fr = torch.as_tensor(frames, device=dev)
+            if fr.ndim == 3:
+                fr = yuv420_flat_to_s2d(fr, (64, 96))
+            st, _, snaps = clip(st0, torch.zeros(1, device=dev), fr, torch.as_tensor(times, device=dev), 0)
+            out[str(dev)] = {k: getattr(snaps, k).cpu() for k in ("ids", "raw_mask", "classes", "states7")}
+        cpu, gpu = out["cpu"], out[str(device)]
+        for k in ("ids", "raw_mask", "classes"):
+            if not torch.equal(cpu[k], gpu[k]):
+                fail(f"small clip ({label}): {k} differs between the card and the CPU")
+        live = cpu["raw_mask"]
+        diff = float((cpu["states7"] - gpu["states7"])[live].abs().max()) if live.any() else 0.0
+        log(f"main: small clip (12 frames, 64x96; {label}) card vs CPU: ids/raw_mask/classes equal, "
+            f"{int(live.sum())} live slot-frames, states7 max_abs_diff {diff:.3g} (tolerance 1e-3)")
+        if not diff <= 1e-3:
+            fail(f"small clip ({label}): states7 differ by {diff}")
+        if int(live.sum()) == 0:
+            fail(f"small clip ({label}): no live tracks")
 
 
 def branch_times(trk, frames_dev, device):
@@ -535,7 +1007,7 @@ def branch_times(trk, frames_dev, device):
     return out
 
 
-def profile_branches(trk, frames_dev, device, top: int = 6):
+def profile_branches(trk, frames_dev, device, label: str, top: int = 6):
     """One detect and one crop frame under torch.profiler: the card's busy
     share of the branch's wall time and its largest kernels by device time."""
     import torch
@@ -559,80 +1031,140 @@ def profile_branches(trk, frames_dev, device, top: int = 6):
         kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kern)
         if busy <= 0:
-            log(f"profile: {name}: the profiler saw no device time (not measured)")
+            log(f"profile ({label}): {name}: the profiler saw no device time (not measured)")
             continue
-        log(f"profile: {name}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+        log(f"profile ({label}): {name}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
             f"({busy / wall_us * 100:.0f}%), {sum(e.count for e in kern)} kernel launches")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
-            log(f"profile: {name}:   {e.self_device_time_total / 1e3:7.3f} ms  x{e.count:<4d} {e.key[:90]}")
+            log(f"profile ({label}): {name}:   {e.self_device_time_total / 1e3:7.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
-def phase_main(device):
+def kernel_counters():
+    """name in the ``kernels`` line -> the wrapper that counts its launches."""
+    from playground3d_tpu_torch.ops import crop_mxu, crop_resize, qconv, yuv420
+
+    return {
+        "crop_and_resize": crop_resize.crop_and_resize_cuda,
+        "crop_and_resize_s2d": crop_mxu.crop_and_resize_s2d_cuda,
+        "yuv420_flat_to_s2d": yuv420.yuv420_flat_to_s2d_cuda,
+        "qconv": qconv.qconv_cuda,
+    }
+
+
+def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail: bool = False):
+    """One configuration of the main path: a warm-up clip of ``n_warm``
+    frames on a tracker of its own, then all of ``frames`` (a multiple of
+    24) through ``track_clips`` with every launch count set to 0 just
+    before and read just after. Checks what came out; returns the frames/s,
+    the launch counts and the tracker."""
     import torch
 
-    from playground3d_tpu_torch.ops import crop_resize
     from playground3d_tpu_torch.ops.topk import HostSyncs
 
-    phase_small_reference(device)
-
-    reg = bench_registry()
-    cfg = tracker_config()
-    det, crop = build_models(device, crop_target(reg, cfg, N_SEED))
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (2 * T_CLIP, H, W, 3), dtype=np.uint8)
-
-    # warm-up: cuDNN algorithm choice and the kernel library load
+    reg, cfg = bench_registry(), tracker_config()
     warm = make_tracker(reg, det, crop, cfg, device, N_SEED)
-    warm.track_clips(sources(frames[:T_CLIP]), clip_len=T_CLIP)
+    warm.track_clips(sources(frames[:n_warm]), clip_len=n_warm, yuv_hw=yuv_hw)
     torch.cuda.synchronize()
 
     trk = make_tracker(reg, det, crop, cfg, device, N_SEED)
     conf_cnt0 = trk.state.conf_cnt.clone()
-    crop_resize.crop_and_resize_cuda.launches = 0
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     syncs0 = HostSyncs.count
     torch.cuda.reset_peak_memory_stats()
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.time()
     s.record()
-    stats = trk.track_clips(sources(frames), clip_len=T_CLIP)
+    stats = trk.track_clips(sources(frames), clip_len=T_CLIP, yuv_hw=yuv_hw)
     e.record()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = crop_resize.crop_and_resize_cuda.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     syncs = HostSyncs.count - syncs0
     ms = s.elapsed_time(e)
     n_frames = stats["frames"]
 
     # what came out: every frame a row, finite states, detections, crops
-    if n_frames != 2 * T_CLIP or len(trk.rows) != n_frames:
-        fail(f"main: {n_frames} frames tracked, {len(trk.rows)} rows, expected {2 * T_CLIP}")
+    if n_frames != frames.shape[0] or len(trk.rows) != n_frames:
+        fail(f"main ({label}): {n_frames} frames tracked, {len(trk.rows)} rows, expected {frames.shape[0]}")
     for row in trk.rows:
         if not np.isfinite(row[3]).all():
-            fail(f"main: non-finite states at frame {row[0]}")
+            fail(f"main ({label}): non-finite states at frame {row[0]}")
     crop_frames = [k for k in range(n_frames) if k % cfg.det_step and k % cfg.skip_step == 0]
     live_at_crop = [len(trk.rows[k][2]) for k in crop_frames]
     births = int(trk.state.next_id) - N_SEED
     crop_measured = float((trk.state.conf_cnt - conf_cnt0).clamp(min=0).sum())
     if births <= 0:
-        fail("main: the detector produced no births")
+        fail(f"main ({label}): the detector produced no births")
     if min(live_at_crop) == 0 or crop_measured <= 0:
-        fail(f"main: crop frames found no live tracks ({live_at_crop}) or updated none")
-    if launches < len(crop_frames):
-        fail(f"main: crop_and_resize launched {launches} times for {len(crop_frames)} crop frames")
+        fail(f"main ({label}): crop frames found no live tracks ({live_at_crop}) or updated none")
     n_detect = sum(1 for k in range(n_frames) if k % cfg.det_step == 0)
-    log(f"main: {n_frames} frames ({n_detect} detect, {len(crop_frames)} crop) of 1x{H}x{W} uint8 "
-        f"in {ms:.1f} ms (CUDA events) = {n_frames / ms * 1e3:.2f} frames/s; host wall "
-        f"{wall:.2f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"main: births {births}, live tracks at crop frames {live_at_crop}, "
-        f"crop measurements {crop_measured:.0f}, crop_and_resize launches {launches}, "
-        f"host syncs {syncs} ({syncs / n_detect:.1f} per detect frame incl. the crop frames' "
-        f"lifecycle NMS; per-branch below)")
+    fps = n_frames / ms * 1e3
+    log(f"main ({label}): {n_frames} frames ({n_detect} detect, {len(crop_frames)} crop) of 1x{H}x{W} "
+        f"in {ms:.1f} ms (CUDA events) = {fps:.2f} frames/s; host wall {wall:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"main ({label}): births {births}, live tracks at crop frames {live_at_crop}, crop measurements "
+        f"{crop_measured:.0f}, host syncs {syncs}, kernel launches {launches}")
+    if detail:
+        frames_dev = torch.as_tensor(frames[:1]).to(device)  # [C=1,...]
+        for name, (bms, bsyncs) in branch_times(trk, frames_dev, device).items():
+            log(f"main ({label}): branch {name}: {bms:.2f} ms median of 5 (CUDA events), {bsyncs:.0f} host syncs")
+        profile_branches(trk, frames_dev, device, label)
+    return fps, launches, len(crop_frames), n_detect
 
-    frames_dev = torch.as_tensor(frames[:1]).to(device)  # [C=1,H,W,3]
-    for name, (bms, bsyncs) in branch_times(trk, frames_dev, device).items():
-        log(f"main: branch {name}: {bms:.2f} ms median of 5 (CUDA events), {bsyncs:.0f} host syncs")
-    profile_branches(trk, frames_dev, device)
-    return launches
+
+def phase_main(device):
+    """The shipped configuration at full width, then the three comparison
+    configurations in the same run. Returns the launches of each kernel on
+    the path that runs it."""
+    import torch
+
+    phase_small_reference(device)
+
+    _, cfg, (det_f, crop_f), (det_q, crop_q), _ = shipped_models(device)
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (2 * T_CLIP, H, W, 3), dtype=np.uint8)
+    packed = pack_frames(raw)
+    seen = record_qconv_shapes(device)
+    per_detect, per_crop = sum(seen["detect"].values()), sum(seen["crop"].values())
+
+    # the shipped configuration: uint8 s2d frames, s2d stems, int8 nets
+    fps, launches, n_crop, n_detect = run_clips("s2d + int8", det_q, crop_q, packed, device, T_CLIP, detail=True)
+    if launches["crop_and_resize_s2d"] != n_crop:
+        fail(f"main: crop_and_resize_s2d launched {launches['crop_and_resize_s2d']} times for {n_crop} crop frames")
+    if launches["qconv"] != n_detect * per_detect + n_crop * per_crop:
+        fail(f"main: qconv launched {launches['qconv']} times, expected {n_detect} x {per_detect} + {n_crop} x {per_crop}")
+    if launches["crop_and_resize"] or launches["yuv420_flat_to_s2d"]:
+        fail(f"main: the s2d path launched a kernel of another path: {launches}")
+    report = {"s2d + int8": fps}
+    path_launches = {k: launches[k] for k in ("crop_and_resize_s2d", "qconv")}
+
+    # comparisons, one timed clip each after a short warm-up
+    fps_f, l_f, n_crop_f, _ = run_clips("s2d + float", det_f, crop_f, packed[:T_CLIP], device, 6)
+    if l_f["qconv"] or l_f["crop_and_resize_s2d"] != n_crop_f:
+        fail(f"main: the float s2d path's launches are off: {l_f}")
+    report["s2d + float"] = fps_f
+
+    reg = bench_registry()
+    det_c, crop_c = build_models(device, crop_target(reg, cfg, N_SEED), stem="conv7")
+    fps_c, l_c, n_crop_c, _ = run_clips("conv7 + float", det_c, crop_c, raw[:T_CLIP], device, 6)
+    if l_c["crop_and_resize"] != n_crop_c or l_c["qconv"] or l_c["crop_and_resize_s2d"]:
+        fail(f"main: the conv7 path's launches are off: {l_c}")
+    report["conv7 + float"] = fps_c
+    path_launches["crop_and_resize"] = l_c["crop_and_resize"]
+    del det_c, crop_c
+
+    yuv = rng.integers(0, 256, (T_CLIP, H * W * 3 // 2), dtype=np.uint8)
+    fps_y, l_y, n_crop_y, _ = run_clips("YUV420 bytes -> s2d + int8", det_q, crop_q, yuv, device, 6, yuv_hw=(H, W))
+    if l_y["yuv420_flat_to_s2d"] != 1 or l_y["crop_and_resize_s2d"] != n_crop_y:
+        fail(f"main: the YUV path's launches are off: {l_y}")
+    report["yuv + int8"] = fps_y
+    path_launches["yuv420_flat_to_s2d"] = l_y["yuv420_flat_to_s2d"]
+
+    log("main: frames/s side by side, one call, one card (numbers, not a result: the host decides and "
+        "spreads by tens of percent between runs): " + ", ".join(f"{k} {v:.2f}" for k, v in report.items()))
+    return path_launches
 
 
 def device_line() -> str:
@@ -660,16 +1192,20 @@ def main() -> None:
 
     t0 = time.time()
     phase_build()
-    entry = phase_kernels(device)
+    entries = phase_kernels(device)
     if kernels_only:
         log(f"total: {time.time() - t0:.1f} s (kernels only: no result line)")
         return
-    entry["launches"] = phase_main(device)
+    launches = phase_main(device)
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
+        if entry["launches"] < 1:
+            fail(f"{entry['name']} was launched no time on the path that should run it")
     log(f"total: {time.time() - t0:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: entry[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: entry[k] for k in keys} for entry in entries]}))
     print(device_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

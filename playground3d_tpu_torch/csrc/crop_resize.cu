@@ -273,7 +273,7 @@ int crop_and_resize_noop(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* crop_and_resize_error_string(int err) {
+const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

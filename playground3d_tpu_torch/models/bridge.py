@@ -5,7 +5,10 @@
 and ``load_npz`` the flat ``/``-joined npz that ``models/nn.py::save_params``
 writes. Both fill a :class:`~playground3d_tpu_torch.models.retinanet.RetinaNet`
 whose architecture matches the tree. Conv weights go HWIO -> OIHW; channel
-order is kept, so the heads' (anchor, class) packing survives.
+order is kept, so the heads' (anchor, class) packing survives. A quantized
+tree (``models/quant.py``) carries ``wq`` (int8, HWIO -> [out,k,k,in]),
+``ws`` and ``xs`` beside the float weights of its quantized convs: they land
+in the buffers of the same names, so both packages run the same integers.
 """
 
 from __future__ import annotations
@@ -55,8 +58,9 @@ def load_flat(model: RetinaNet, flat: Mapping[str, np.ndarray]) -> RetinaNet:
     tensors = dict(model.named_parameters())
     tensors.update(dict(model.named_buffers()))
     expected = {name.replace(".", "/"): name for name in tensors}
+    quantized = {k for k in flat if k.rsplit("/", 1)[-1] in ("wq", "ws", "xs") and k not in expected}
     missing = sorted(set(expected) - set(flat))
-    extra = sorted(set(flat) - set(expected))
+    extra = sorted(set(flat) - set(expected) - quantized)
     if missing or extra:
         raise ValueError(f"param tree mismatch: missing {missing[:5]} extra {extra[:5]}")
     with torch.no_grad():
@@ -68,6 +72,15 @@ def load_flat(model: RetinaNet, flat: Mapping[str, np.ndarray]) -> RetinaNet:
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: shape {a.shape} != {tuple(t.shape)}")
             t.copy_(torch.tensor(a))
+        for key in sorted(quantized):
+            path, leaf = key.rsplit("/", 1)
+            conv = model.get_submodule(path.replace("/", "."))
+            a = np.asarray(flat[key])
+            if leaf == "wq":
+                a = np.ascontiguousarray(a.astype(np.int8).transpose(3, 0, 1, 2))  # HWIO -> OHWI
+            else:
+                a = a.astype(np.float32)
+            setattr(conv, leaf, torch.tensor(a, device=conv.w.device))
     return model
 
 

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from playground3d_tpu_torch.models.nn import Conv, crop_add, upsample2x_nearest
+from playground3d_tpu_torch.models.nn import Conv, apply_conv, crop_add, upsample2x_nearest
 
 
 class FPN(nn.Module):
@@ -23,20 +23,22 @@ class FPN(nn.Module):
         self.P6 = Conv(c5_size, fs, 3, bias=True, generator=g)
         self.P7_2 = Conv(fs, fs, 3, bias=True, generator=g)
 
-    def forward(self, c3, c4, c5, dtype=torch.bfloat16):
+    def forward(self, c3, c4, c5, dtype=torch.bfloat16, conv=apply_conv):
         """NCHW (C3,C4,C5) -> [P3..P7]; the lateral 1x1 output is both
-        upsampled for the next level and 3x3-smoothed for the output."""
-        p5_x = self.P5_1(c5, dtype=dtype)
+        upsampled for the next level and 3x3-smoothed for the output.
+        ``conv(module, x, stride=, dtype=)`` replaces the convolution unit
+        (int8 quantization and its calibration plug in there)."""
+        p5_x = conv(self.P5_1, c5, dtype=dtype)
         p5_up = upsample2x_nearest(p5_x)
-        p5 = self.P5_2(p5_x, dtype=dtype)
+        p5 = conv(self.P5_2, p5_x, dtype=dtype)
 
-        p4_x = crop_add(self.P4_1(c4, dtype=dtype), p5_up)
+        p4_x = crop_add(conv(self.P4_1, c4, dtype=dtype), p5_up)
         p4_up = upsample2x_nearest(p4_x)
-        p4 = self.P4_2(p4_x, dtype=dtype)
+        p4 = conv(self.P4_2, p4_x, dtype=dtype)
 
-        p3_x = crop_add(self.P3_1(c3, dtype=dtype), p4_up)
-        p3 = self.P3_2(p3_x, dtype=dtype)
+        p3_x = crop_add(conv(self.P3_1, c3, dtype=dtype), p4_up)
+        p3 = conv(self.P3_2, p3_x, dtype=dtype)
 
-        p6 = self.P6(c5, stride=2, dtype=dtype)
-        p7 = self.P7_2(torch.relu(p6), stride=2, dtype=dtype)
+        p6 = conv(self.P6, c5, stride=2, dtype=dtype)
+        p7 = conv(self.P7_2, torch.relu(p6), stride=2, dtype=dtype)
         return [p3, p4, p5, p6, p7]

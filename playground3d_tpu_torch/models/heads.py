@@ -8,7 +8,7 @@ import math
 import torch
 from torch import nn
 
-from playground3d_tpu_torch.models.nn import Conv
+from playground3d_tpu_torch.models.nn import Conv, apply_conv
 
 N_REG_OUTPUTS = 12
 PRIOR = 0.01  # focal-loss prior for the classification bias (model.py:252)
@@ -39,29 +39,30 @@ class Heads(nn.Module):
             self.reg_out.b.zero_()
 
     @staticmethod
-    def _tower(tower, x, dtype):
+    def _tower(tower, x, dtype, conv=apply_conv):
         for c in tower:
-            x = torch.relu(c(x, dtype=dtype))
+            x = torch.relu(conv(c, x, dtype=dtype))
         return x
 
     def forward(self, features, dtype=torch.bfloat16, apply_sigmoid: bool = True,
-                compact: bool = False, score_path: bool = False):
+                compact: bool = False, score_path: bool = False, conv=apply_conv):
         """NCHW [P3..P7] -> (cls [N, A_total, K], reg [N, A_total, 12]),
         flattened per level in (y, x, anchor) order like the anchors.
 
         ``compact``: raw logits and regression in ``dtype``. ``score_path``:
         (per-anchor max logit, its class (int32), regression), the class
         reduction done per level before any concat. Otherwise float32 with
-        a sigmoid on the classes (``apply_sigmoid``)."""
+        a sigmoid on the classes (``apply_sigmoid``). ``conv(module, x,
+        stride=, dtype=)`` replaces the convolution unit."""
         A, K = self.num_anchors, self.num_classes
         cls_all, reg_all, arg_all = [], [], []
         for f in features:
             n, _, h, w = f.shape
-            ct = self._tower(self.cls_tower, f, dtype)
-            rt = ct if self.reg_tower is None else self._tower(self.reg_tower, f, dtype)
+            ct = self._tower(self.cls_tower, f, dtype, conv)
+            rt = ct if self.reg_tower is None else self._tower(self.reg_tower, f, dtype, conv)
             # NCHW -> NHWC before any reshape: the flatten order is (y, x, anchor)
-            c = self.cls_out(ct, dtype=dtype).permute(0, 2, 3, 1)
-            r = self.reg_out(rt, dtype=dtype).permute(0, 2, 3, 1)
+            c = conv(self.cls_out, ct, dtype=dtype).permute(0, 2, 3, 1)
+            r = conv(self.reg_out, rt, dtype=dtype).permute(0, 2, 3, 1)
             if score_path:
                 c5 = c.reshape(n, h, w, A, K)
                 cls_all.append(torch.amax(c5, dim=-1).reshape(n, h * w * A))

@@ -41,7 +41,13 @@ def he_normal(shape, fan_in: int, generator: Optional[torch.Generator]) -> torch
 
 class Conv(nn.Module):
     """k x k convolution with ``"SAME"`` padding; the stride is a call
-    argument, as in ``conv_apply``."""
+    argument, as in ``conv_apply``.
+
+    A conv that post-training quantization has reached (``models/quant.py``)
+    also holds ``wq`` (int8 weights, [out, k, k, in]), ``ws`` (float32
+    per-output-channel weight scale) and ``xs`` (float32 scalar, the static
+    scale of its input activations); they are ``None`` otherwise. ``forward``
+    is the float convolution either way."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, bias: bool = False,
                  generator: Optional[torch.Generator] = None):
@@ -49,6 +55,8 @@ class Conv(nn.Module):
         self.k = k
         self.w = nn.Parameter(he_normal((out_ch, in_ch, k, k), k * k * in_ch, generator))
         self.b = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        for name in ("wq", "ws", "xs"):
+            self.register_buffer(name, None)
 
     def forward(self, x: torch.Tensor, stride: int = 1, dtype=torch.bfloat16) -> torch.Tensor:
         ph = same_pads(x.shape[2], self.k, stride)
@@ -62,6 +70,13 @@ class Conv(nn.Module):
         if self.b is not None:
             out = out + self.b.to(dtype)[None, :, None, None]
         return out
+
+
+def apply_conv(conv: Conv, x: torch.Tensor, stride: int = 1, dtype=torch.bfloat16) -> torch.Tensor:
+    """The float convolution as a callable ``conv(module, x, stride=, dtype=)``:
+    the default unit of the FPN and the heads, which take another in its
+    place (``models/quant.py``)."""
+    return conv(x, stride, dtype)
 
 
 class FrozenBN(nn.Module):

@@ -19,9 +19,17 @@ LAYER_SPECS = {
 }
 
 
-def _conv_bn(conv: Conv, bn: FrozenBN, x, stride: int, dtype, relu: bool):
-    y = bn(conv(x, stride, dtype))
-    return torch.relu(y) if relu else y
+def default_conv_bn(dtype=torch.bfloat16):
+    """The conv -> frozen BN (-> relu) unit of the blocks, as a callable
+    ``cb(conv, bn, x, stride, relu)``. :meth:`ResNet.forward` takes another
+    in its place: int8 quantization and its calibration plug in there
+    (``models/quant.py``)."""
+
+    def cb(conv: Conv, bn: FrozenBN, x, stride: int = 1, relu: bool = False):
+        y = bn(conv(x, stride, dtype))
+        return torch.relu(y) if relu else y
+
+    return cb
 
 
 class BasicBlock(nn.Module):
@@ -38,12 +46,12 @@ class BasicBlock(nn.Module):
         else:
             self.down_conv = None
 
-    def forward(self, x, dtype):
-        out = _conv_bn(self.conv1, self.bn1, x, self.stride, dtype, True)
-        out = _conv_bn(self.conv2, self.bn2, out, 1, dtype, False)
+    def forward(self, x, cb):
+        out = cb(self.conv1, self.bn1, x, self.stride, True)
+        out = cb(self.conv2, self.bn2, out, 1, False)
         res = x
         if self.down_conv is not None:
-            res = _conv_bn(self.down_conv, self.down_bn, x, self.stride, dtype, False)
+            res = cb(self.down_conv, self.down_bn, x, self.stride, False)
         return torch.relu(out + res)
 
 
@@ -63,13 +71,13 @@ class Bottleneck(nn.Module):
         else:
             self.down_conv = None
 
-    def forward(self, x, dtype):
-        out = _conv_bn(self.conv1, self.bn1, x, 1, dtype, True)
-        out = _conv_bn(self.conv2, self.bn2, out, self.stride, dtype, True)
-        out = _conv_bn(self.conv3, self.bn3, out, 1, dtype, False)
+    def forward(self, x, cb):
+        out = cb(self.conv1, self.bn1, x, 1, True)
+        out = cb(self.conv2, self.bn2, out, self.stride, True)
+        out = cb(self.conv3, self.bn3, out, 1, False)
         res = x
         if self.down_conv is not None:
-            res = _conv_bn(self.down_conv, self.down_bn, x, self.stride, dtype, False)
+            res = cb(self.down_conv, self.down_bn, x, self.stride, False)
         return torch.relu(out + res)
 
 
@@ -110,21 +118,24 @@ class ResNet(nn.Module):
                 in_ch = planes * expansion
             setattr(self, f"layer{stage + 1}", nn.ModuleList(blocks))
 
-    def forward(self, x: torch.Tensor, dtype=torch.bfloat16):
+    def forward(self, x: torch.Tensor, dtype=torch.bfloat16, conv_bn=None):
         """NHWC images (s2d: raw [N,H,W,3] or packed [N,H/4,W/4,48]) ->
-        NCHW (C3, C4, C5)."""
+        NCHW (C3, C4, C5). ``conv_bn`` replaces the conv -> BN (-> relu) unit
+        of every convolution (see :func:`default_conv_bn`); the call order
+        is the contract that ``models/quant.py::_iter_conv_bn`` mirrors."""
+        cb = conv_bn if conv_bn is not None else default_conv_bn(dtype)
         if self.stem == "s2d" and x.shape[-1] == 3:
             x = space_to_depth(x, 4)
         x = x.permute(0, 3, 1, 2)  # NCHW view, channels-last memory order
         if self.stem == "s2d":
-            x = _conv_bn(self.conv1, self.bn1, x, 1, dtype, True)
+            x = cb(self.conv1, self.bn1, x, 1, True)
         else:
-            x = _conv_bn(self.conv1, self.bn1, x, 2, dtype, True)
+            x = cb(self.conv1, self.bn1, x, 2, True)
             x = max_pool(x, 3, 2)
         feats = []
         for stage in range(4):
             for blk in getattr(self, f"layer{stage + 1}"):
-                x = blk(x, dtype)
+                x = blk(x, cb)
             feats.append(x)
         return feats[1], feats[2], feats[3]
 

@@ -1,5 +1,6 @@
 """Directional RetinaNet: ResNet + FPN + heads, with decode and NMS (port
-of ``playground3d_tpu/models/retinanet.py``, float path).
+of ``playground3d_tpu/models/retinanet.py``; the int8 paths are in
+``models/quant.py``).
 
 ``forward_raw`` is the training / raw forward, ``detect_multiframe`` the
 batched multi-camera detector (reference MULTI_FRAME, model.py:311-344),
@@ -17,10 +18,12 @@ import torch
 from torch import nn
 
 from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch.models import quant
 from playground3d_tpu_torch.models.anchors import anchors_for_shape
 from playground3d_tpu_torch.models.decode import decode_regression
 from playground3d_tpu_torch.models.fpn import FPN
 from playground3d_tpu_torch.models.heads import Heads
+from playground3d_tpu_torch.models.nn import apply_conv
 from playground3d_tpu_torch.models.resnet import ResNet, fpn_sizes
 from playground3d_tpu_torch.ops.nms import batched_nms
 from playground3d_tpu_torch.ops.topk import top_k
@@ -95,14 +98,25 @@ def forward_raw(
     score_path: bool = False,
 ):
     """NHWC images -> head outputs (see :meth:`Heads.forward`); uint8
-    inputs are normalized first; heads run on pyramid levels >= min_level."""
+    inputs are normalized first; heads run on pyramid levels >= min_level.
+    A model that ``models/quant.py`` has quantized takes its int8 paths: the
+    chained backbone, int8 FPN convs, and the chained heads when ``compact``."""
     images = normalize_on_device(images)
-    c3, c4, c5 = model.backbone(images, dtype)
-    feats = model.fpn(c3, c4, c5, dtype)
+    if quant.is_quantized(model.backbone):
+        c3, c4, c5 = quant.resnet_apply_int8_chained(model.backbone, images)
+    else:
+        c3, c4, c5 = model.backbone(images, dtype)
+    # the FPN and the heads dispatch per conv on its ``wq`` buffer, so a
+    # mixed model (int8 towers, bfloat16 output convs) runs each conv right
+    heads_q = quant.is_quantized(model.heads)
+    conv = quant.quant_conv if heads_q or quant.is_quantized(model.fpn) else apply_conv
+    feats = model.fpn(c3, c4, c5, dtype, conv=conv)
     if min_level > 3:
         feats = feats[min_level - 3:]
+    if compact and heads_q:
+        return quant.head_apply_int8_chained(model.heads, feats, score_path=score_path)
     return model.heads(feats, dtype=dtype, apply_sigmoid=apply_sigmoid, compact=compact,
-                       score_path=score_path)
+                       score_path=score_path, conv=conv)
 
 
 def _image_shape_of(images: torch.Tensor, stem: str) -> Tuple[int, int]:

@@ -3,9 +3,9 @@
 Port of the TPU kernel ``playground3d_tpu/ops/pallas/crop_resize.py::
 crop_and_resize_pallas``. The source is ``csrc/crop_resize.cu`` (its header
 says what bounds it and how it is laid out). It is compiled with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface at first use,
-into ``playground3d_tpu_torch/_build/``, and bound with ``ctypes``. Nothing
-here imports a GPU package or runs ``nvcc`` when the module is imported.
+for ``sm_90a`` into a shared library with a plain C interface at first use
+and bound with ``ctypes``, by the loader all the port's kernels share
+(:mod:`playground3d_tpu_torch.ops.cuda_build`).
 
 What the host decides is in one pure function that needs no card,
 :func:`launch_plan` (tile of output rows, grid, shared-memory bytes, from
@@ -19,27 +19,29 @@ the two live in :mod:`playground3d_tpu_torch.ops.roi_align`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["LaunchPlan", "build", "check_args", "crop_and_resize_cuda", "launch_noop", "launch_plan"]
+from playground3d_tpu_torch.ops.cuda_build import KernelLibrary
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "crop_resize.cu"
-BUILD_DIR = _PKG / "_build"
+__all__ = ["LIB", "LaunchPlan", "check_args", "crop_and_resize_cuda", "launch_noop", "launch_plan"]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("crop_and_resize_f32", "crop_and_resize_u8"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
+        fn.restype = i32
+    lib.crop_and_resize_noop.argtypes = [ptr]
+    lib.crop_and_resize_noop.restype = i32
+
+
 # -fmad=false is belt and braces: the source already rounds every float op
 # explicitly, so no multiply-add can move the result off the plain version
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC",
-)
+LIB = KernelLibrary("crop_resize", _bind, extra_flags=("-fmad=false",))
+SOURCE = LIB.source
 
 # The kernel's layout constants (csrc/crop_resize.cu holds the same values).
 THREADS = 256
@@ -78,57 +80,6 @@ def launch_plan(out_size: int, n: int = 1) -> LaunchPlan:
     if n * tiles > MAX_BLOCKS:
         raise ValueError(f"crop_resize: {n} crops in {tiles} tiles each exceed {MAX_BLOCKS} blocks")
     return LaunchPlan(tile, tiles, THREADS, smem)
-
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc's output (ptxas register / shared-memory report)
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("crop_resize: nvcc not found (need the CUDA toolkit to build the kernel)")
-    return path
-
-
-def build() -> Path:
-    """Compile the kernel library if this source and these flags have not
-    been built yet; returns its path. Safe to call from several threads."""
-    global build_log
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libcrop_resize-{digest}.so"
-    with _lock:
-        if lib_path.exists():
-            return lib_path
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"crop_resize: nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, lib_path)
-        return lib_path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("crop_and_resize_f32", "crop_and_resize_u8"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
-            fn.restype = i32
-        lib.crop_and_resize_noop.argtypes = [ptr]
-        lib.crop_and_resize_noop.restype = i32
-        lib.crop_and_resize_error_string.argtypes = [i32]
-        lib.crop_and_resize_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def check_args(
@@ -189,7 +140,7 @@ def crop_and_resize_cuda(
     if n == 0:
         return out
     plan = launch_plan(out_size, n)
-    lib = _load()
+    lib = LIB.load()
     fn = lib.crop_and_resize_u8 if frames.dtype == torch.uint8 else lib.crop_and_resize_f32
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -197,7 +148,7 @@ def crop_and_resize_cuda(
             frames.data_ptr(), boxes.data_ptr(), frame_idx.data_ptr(), out.data_ptr(),
             C, H, W, ch, n, out_size, plan.tile_rows, stream,
         )
-    _raise_on(lib, err)
+    LIB.check(err)
     crop_and_resize_cuda.launches += 1
     return out
 
@@ -207,12 +158,5 @@ crop_and_resize_cuda.launches = 0
 
 def launch_noop() -> None:
     """Launch the library's empty kernel on the current stream: what one
-    launch costs on the card's clock, for timing beside the kernel."""
-    lib = _load()
-    _raise_on(lib, lib.crop_and_resize_noop(torch.cuda.current_stream().cuda_stream))
-
-
-def _raise_on(lib: ctypes.CDLL, err: int) -> None:
-    if err != 0:
-        msg = lib.crop_and_resize_error_string(err).decode()
-        raise RuntimeError(f"crop_resize: kernel launch failed: {msg} ({err})")
+    launch costs on the card's clock, for timing beside the kernels."""
+    LIB.check(LIB.load().crop_and_resize_noop(torch.cuda.current_stream().cuda_stream))

@@ -1,0 +1,94 @@
+"""Build and bind the hand-written CUDA kernels: one loader for every source
+under ``csrc/``.
+
+A :class:`KernelLibrary` names one ``.cu`` file. At first use it is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+into ``playground3d_tpu_torch/_build/`` (named by a digest of source and
+flags, so an edited source is rebuilt), and bound with ``ctypes``. Nothing
+here imports a GPU package or runs ``nvcc`` when a module is imported, and
+nothing falls back when the build fails: it raises.
+
+Every source exports ``const char* kernel_error_string(int)``; every launcher
+returns the ``cudaError_t`` of its launch, which :meth:`KernelLibrary.check`
+turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable, Optional, Sequence
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (the CUDA toolkit is needed to build the kernels)")
+    return path
+
+
+class KernelLibrary:
+    """One ``csrc/<name>.cu`` -> ``_build/lib<name>-<digest>.so`` -> ctypes.
+
+    ``bind(lib)`` sets ``argtypes``/``restype`` of the exported functions,
+    once, when the library is first loaded."""
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 extra_flags: Sequence[str] = ()):
+        self.name = name
+        self.source = CSRC_DIR / f"{name}.cu"
+        self.flags = (*NVCC_FLAGS, *extra_flags)
+        self.build_log = ""  # nvcc's output (ptxas register / shared-memory report)
+        self._bind = bind
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def build(self) -> Path:
+        """Compile the library if this source and these flags have not been
+        built yet; returns its path. Safe to call from several threads."""
+        digest = hashlib.sha256(
+            self.source.read_bytes() + " ".join(self.flags).encode()
+        ).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"lib{self.name}-{digest}.so"
+        with self._lock:
+            if lib_path.exists():
+                return lib_path
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+            proc = subprocess.run(
+                [nvcc_path(), *self.flags, "-o", str(tmp), str(self.source)],
+                capture_output=True, text=True,
+            )
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"{self.name}: nvcc failed ({proc.returncode}):\n{self.build_log}")
+            os.replace(tmp, lib_path)
+            return lib_path
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            self._bind(lib)
+            self._lib = lib
+        return self._lib
+
+    def check(self, err: int) -> None:
+        """Raise on a launcher's non-zero ``cudaError_t``."""
+        if err != 0:
+            msg = self.load().kernel_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: kernel launch failed: {msg} ({err})")

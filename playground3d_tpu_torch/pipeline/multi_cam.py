@@ -8,9 +8,16 @@ Kalman rolls against per-camera clocks and online clock-bias estimation.
 
 The JAX package runs a clip as one ``lax.scan`` with a 3-way ``lax.switch``;
 here it is a host loop that picks the branch from the global frame index
-(the host knows it, so picking costs no device read). The crop branch is
-the conv7 frame path: it crops with :func:`~playground3d_tpu_torch.ops.
-roi_align.crop_and_resize`, the hand-written CUDA kernel on the card.
+(the host knows it, so picking costs no device read).
+
+Two frame transports, chosen by the detector's stem: ``"s2d"`` frames are
+space-to-depth packed ``[C,H/4,W/4,48]`` (uint8 or float; raw ``[C,H,W,3]``
+frames are packed on the device, and planar YUV420 bytes are converted
+there by :func:`yuv420_flat_to_s2d`) and the crop branch crops them with
+:func:`~playground3d_tpu_torch.ops.crop_mxu.crop_and_resize_s2d`; ``"conv7"``
+frames are raw NHWC and are cropped with
+:func:`~playground3d_tpu_torch.ops.roi_align.crop_and_resize`. Both crops
+are hand-written CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -26,10 +33,13 @@ import torch.nn.functional as Fn
 
 from playground3d_tpu_torch import DeviceLike, resolve_device
 from playground3d_tpu_torch.geometry import transforms as T
+from playground3d_tpu_torch.models.resnet import space_to_depth
 from playground3d_tpu_torch.models.retinanet import Detections, RetinaNet, detect_multiframe, localize
+from playground3d_tpu_torch.ops.crop_mxu import crop_and_resize_s2d, max_crop_span_s2d
 from playground3d_tpu_torch.ops.iou import elementwise_iou, pairwise_iou
 from playground3d_tpu_torch.ops.roi_align import crop_and_resize
 from playground3d_tpu_torch.ops.topk import top_k
+from playground3d_tpu_torch.ops.yuv420 import yuv420_flat_to_s2d
 from playground3d_tpu_torch.pipeline.camera_bank import (
     CameraBank,
     bank_from_registry,
@@ -145,15 +155,21 @@ def make_crop_step(
     centers: torch.Tensor,  # [C,2] camera view centres in roadway coords
     kfp: KFParams,
     cfg: TrackerConfig,
+    stem: str = "conv7",
     frame_stem: str = "conv7",
 ):
-    """(state, frames [C,H,W,3], cam_times [C], ts_bias [C]) ->
-    (state', snapshot). For each of the ``cfg.crop_slots`` stalest live
-    slots (all slots when 0): nearest camera, roll to its clock, project,
-    crop, re-detect, pick the best candidate by (1-W)*IoU + W*conf,
-    Kalman-update. Only the conv7 frame path (raw NHWC frames) is ported."""
-    if frame_stem != "conv7":
-        raise NotImplementedError("the s2d frame path (crop_and_resize_s2d) is not ported yet")
+    """(state, frames, cam_times [C], ts_bias [C]) -> (state', snapshot).
+    ``frames`` is [C,H,W,3] when ``frame_stem == "conv7"`` or s2d-packed
+    [C,H/4,W/4,48] (uint8 or float) when ``frame_stem == "s2d"``; ``stem`` is
+    the crop net's own stem and decides the layout the crops are made in.
+    For each of the ``cfg.crop_slots`` stalest live slots (all slots when
+    0): nearest camera, roll to its clock, project, crop, re-detect, pick
+    the best candidate by (1-W)*IoU + W*conf, Kalman-update."""
+    for name, value in (("stem", stem), ("frame_stem", frame_stem)):
+        if value not in ("conv7", "s2d"):
+            raise ValueError(f"make_crop_step: {name} must be 'conv7' or 's2d', got {value!r}")
+    if crop_model.stem != stem:
+        raise ValueError(f"make_crop_step: stem={stem!r} but the crop net was built with {crop_model.stem!r}")
     cs = cfg.cs
     class_heights = torch.as_tensor(CLASS_HEIGHTS, device=centers.device)
 
@@ -194,17 +210,29 @@ def make_crop_step(
         w = hull[:, 2] - hull[:, 0]
         h = hull[:, 3] - hull[:, 1]
         scale = torch.maximum(w, h) * cfg.crop_expand
+        if frame_stem == "s2d":
+            # the s2d crop cannot represent a box beyond its coarsest window
+            # (992 px at the defaults): clamp before the box is built, so the
+            # crop-to-frame mapping below matches the pixels really cropped
+            scale = torch.clamp(scale, max=max_crop_span_s2d())
         cx = (hull[:, 0] + hull[:, 2]) / 2
         cy = (hull[:, 1] + hull[:, 3]) / 2
         crop_boxes = torch.stack(
             [cx - scale / 2, cy - scale / 2, cx + scale / 2, cy + scale / 2], dim=1
         )
 
-        # uint8 frames are cropped in place (the kernel converts in
-        # registers) and normalized here, as the JAX branch normalizes
-        crops = crop_and_resize(frames, crop_boxes, cam_k.to(torch.int32), out_size=cs)
-        if frames.dtype == torch.uint8:
-            crops = _normalize_crops(crops)
+        if frame_stem == "s2d":
+            crops = crop_and_resize_s2d(
+                frames, crop_boxes, cam_k.to(torch.int32), out_size=cs,
+                layout="s2d" if stem == "s2d" else "hwc",
+                normalize=frames.dtype == torch.uint8,
+            )
+        else:
+            # uint8 frames are cropped in place (the kernel converts in
+            # registers) and normalized here, as the JAX branch normalizes
+            crops = crop_and_resize(frames, crop_boxes, cam_k.to(torch.int32), out_size=cs)
+            if frames.dtype == torch.uint8:
+                crops = _normalize_crops(crops)
 
         reg_boxes, cls = localize(crop_model, crops)
         confs = torch.amax(cls, dim=2)
@@ -326,20 +354,26 @@ def make_mc_clip_step(
     kfp: KFParams,
     cfg: TrackerConfig,
     crop_model: Optional[RetinaNet] = None,
+    stem: str = "s2d",
+    crop_stem: str = "s2d",
 ):
-    """(state, ts_bias, frames [T,C,H,W,3], cam_times [T,C], frame0 int) ->
+    """(state, ts_bias, frames [T,C,...], cam_times [T,C], frame0 int) ->
     (state', ts_bias', snapshots stacked over T): frame ``i`` (global index
     ``frame0 + i``) takes the detect branch when ``i % det_step == 0``, the
     crop branch when ``i % skip_step == 0``, a passthrough snapshot
     otherwise (the reference's cadence loop, MC3D_crop_tracker.py:1051-1254).
 
     As in the JAX clip, the branch follows the global frame index and the
-    clock-bias update of a detect frame applies to the frames after it."""
-    if det_model.stem != "conv7":
-        raise NotImplementedError("only the conv7 frame path is ported")
+    clock-bias update of a detect frame applies to the frames after it.
+    ``stem`` is the detector's stem and the frames' transport ("s2d":
+    packed [T,C,H/4,W/4,48]; "conv7": raw [T,C,H,W,3]), ``crop_stem`` the
+    crop net's."""
+    if det_model.stem != stem:
+        raise ValueError(f"make_mc_clip_step: stem={stem!r} but the detector was built with {det_model.stem!r}")
     detect_step = make_mc_detect_step(det_model, bank, kfp, cfg)
     crop_step = (
-        make_crop_step(crop_model, bank, centers, kfp, cfg) if crop_model is not None else None
+        make_crop_step(crop_model, bank, centers, kfp, cfg, stem=crop_stem, frame_stem=stem)
+        if crop_model is not None else None
     )
     d, s = cfg.det_step, cfg.skip_step
 
@@ -380,9 +414,12 @@ class MultiCameraTracker:
         crop_model: Optional[RetinaNet] = None,
         detect_fn: Optional[Callable] = None,
         centers: Optional[np.ndarray] = None,
+        stem: str = "conv7",
+        crop_stem: str = "conv7",
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
+        self.stem, self.crop_stem = stem, crop_stem
         self.registry = registry
         self.cameras = list(cameras)
         if cfg is None:
@@ -402,6 +439,10 @@ class MultiCameraTracker:
         if detect_fn is None:
             if det_model is None:
                 raise ValueError("MultiCameraTracker needs det_model or detect_fn")
+            if det_model.stem != stem:
+                raise ValueError(
+                    f"MultiCameraTracker: stem={stem!r} but the detector was built with {det_model.stem!r}"
+                )
             self._detect_step = make_mc_detect_step(det_model, self.bank, self.kfp, cfg)
         else:
             self._parsed_step = make_mc_detect_step_from_detections(self.bank, self.kfp, cfg)
@@ -409,7 +450,8 @@ class MultiCameraTracker:
         self._crop_model = crop_model
         self._clip = None
         self._crop_step = (
-            make_crop_step(crop_model, self.bank, self.centers, self.kfp, cfg)
+            make_crop_step(crop_model, self.bank, self.centers, self.kfp, cfg,
+                           stem=crop_stem, frame_stem=stem)
             if crop_model is not None else None
         )
 
@@ -438,6 +480,8 @@ class MultiCameraTracker:
             np.asarray([t - self.epoch for t in times], np.float32), device=self.device
         )
         frames_t = torch.as_tensor(np.asarray(frames), device=self.device)
+        if self.stem == "s2d" and frames_t.shape[-1] == 3:
+            frames_t = space_to_depth(frames_t, 4)  # raw frames are packed on the device
 
         t0 = time.time()
         if frame_num % self.cfg.det_step == 0:
@@ -508,28 +552,42 @@ class MultiCameraTracker:
         if self._clip is None:
             self._clip = make_mc_clip_step(
                 self._det_model, self.bank, self.centers, self.kfp, self.cfg,
-                crop_model=self._crop_model,
+                crop_model=self._crop_model, stem=self.stem, crop_stem=self.crop_stem,
             )
         return self._clip
 
     @torch.no_grad()
     def track_clips(self, sources: List[Iterable], clip_len: int = 24, cutoff: int = 10**9,
-                    sync_ms: float = 20.0):
+                    sync_ms: float = 20.0, yuv_hw: Optional[Tuple[int, int]] = None):
         """Clip host loop: one clip step per ``clip_len`` frames, the next
         clip read, stacked and copied to the device by a background thread
-        while the current one runs."""
+        while the current one runs.
+
+        ``yuv_hw``: the frames' (H, W) when the sources emit flat planar
+        YUV420 bytes; colour conversion and s2d packing then run on the
+        device (:func:`yuv420_flat_to_s2d`), which halves the bytes copied
+        to it. Needs ``stem="s2d"``."""
         if self.detect_fn is not None or self._det_model is None:
             raise ValueError("track_clips needs det_model (not a detect_fn)")
+        if yuv_hw is not None and self.stem != "s2d":
+            raise ValueError(
+                "track_clips(yuv_hw=...) requires stem='s2d' (the on-device YUV conversion "
+                f"emits s2d-packed frames); this tracker has stem={self.stem!r}"
+            )
         clip = self._clip_fn()
         q: queue.Queue = queue.Queue(maxsize=2)
         done = object()
         producer_err: list = []
 
         def stage(batch_np, times_np):
-            return (
-                torch.as_tensor(batch_np).to(self.device),
-                torch.as_tensor(times_np).to(self.device),
-            )
+            ft = torch.as_tensor(batch_np).to(self.device)
+            if yuv_hw is not None and ft.ndim == 3:
+                ft = yuv420_flat_to_s2d(ft, (int(yuv_hw[0]), int(yuv_hw[1])))
+            elif self.stem == "s2d" and ft.shape[-1] == 3:
+                t, c = ft.shape[:2]
+                ft = space_to_depth(ft.reshape((t * c,) + tuple(ft.shape[2:])), 4)
+                ft = ft.reshape((t, c) + tuple(ft.shape[1:]))
+            return ft, torch.as_tensor(times_np).to(self.device)
 
         def producer():
             buf_f, buf_t = [], []

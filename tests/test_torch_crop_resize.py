@@ -153,6 +153,6 @@ def test_import_needs_no_nvcc_or_gpu():
         "os.environ['PATH'] = ''\n"
         "import playground3d_tpu_torch.ops.crop_resize as m\n"
         "import playground3d_tpu_torch.ops.roi_align\n"
-        "assert m._lib is None and shutil.which('nvcc') is None\n"
+        "assert m.LIB._lib is None and shutil.which('nvcc') is None\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

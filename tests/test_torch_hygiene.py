@@ -34,6 +34,23 @@ _STEP = textwrap.dedent(
                              centers=np.array([[500.0, 60.0]]), device="cpu")
     src = [((np.zeros((64, 96, 3), np.uint8), 1.6e9 + f / 30.0) for f in range(3))]
     assert trk.track(src, clip_len=3)["frames"] == 3
+
+    # the shipped transport: s2d stems, int8-quantized nets, YUV420 bytes in
+    from playground3d_tpu_torch.models.quant import is_quantized, quantize_detector
+    from playground3d_tpu_torch.ops import crop_mxu, crop_resize, qconv, yuv420
+
+    det = retinanet_init(g, depth=18, stem="s2d", device="cpu")
+    crop = retinanet_init(g, depth=18, stem="s2d", tower_depth=2, shared_tower=True, device="cpu")
+    det = quantize_detector(det, torch.zeros((1, 16, 24, 48), dtype=torch.uint8))
+    crop = quantize_detector(crop, torch.zeros((2, 8, 8, 48), dtype=torch.uint8))
+    assert is_quantized(det) and is_quantized(crop)
+    trk = MultiCameraTracker(reg, ["p1c1"], cfg=cfg, det_model=det, crop_model=crop,
+                             centers=np.array([[500.0, 60.0]]), stem="s2d", crop_stem="s2d",
+                             device="cpu")
+    src = [((np.full((64 * 96 * 3 // 2,), 128, np.uint8), 1.6e9 + f / 30.0) for f in range(3))]
+    assert trk.track_clips(src, clip_len=3, yuv_hw=(64, 96))["frames"] == 3
+    # importing and running on the CPU built and loaded no kernel library
+    assert all(lib._lib is None for lib in (crop_mxu.LIB, crop_resize.LIB, qconv.LIB, yuv420.LIB))
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "playground3d_tpu" or m.startswith("playground3d_tpu."))

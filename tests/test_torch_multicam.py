@@ -1,5 +1,7 @@
-"""The slice as a whole: the multi-camera clip tracker (conv7 stems, uint8
-frames) in the PyTorch port against the JAX package.
+"""The main path as a whole: the multi-camera clip tracker in the PyTorch port
+against the JAX package, on raw uint8 frames with conv7 stems, on s2d-packed
+uint8 frames with s2d stems (float and int8-quantized models), and fed planar
+YUV420 bytes through ``track_clips(yuv_hw=...)``.
 
 The scenario is the JAX package's multichip dryrun (``__graft_entry__.py``)
 on the ``toy_cameras3`` fixture: random-init ResNet-18 detector and crop
@@ -8,7 +10,11 @@ one per camera, and a cadence that takes the detect, crop and passthrough
 branches. JAX weights are carried into the port by the bridge. Per frame
 ``ids``, ``raw_mask`` and ``classes`` must be equal, ``states7`` within
 rtol/atol 1e-4; the final ``kf.x``, ``kf.P`` and ``ts_bias`` within 1e-4
-(relative, since covariances reach 1e4).
+(relative, since covariances reach 1e4). The same tolerances hold on the s2d
+path and for the quantized pair: with focal-prior output convs (zero weights,
+which quantize to zero) every logit is the bias whatever the backbone
+computes, so ties decide the detections in both packages alike, and the crop
+pixels reach nothing but the tie-broken candidates' scores.
 """
 
 import jax
@@ -18,12 +24,16 @@ import pytest
 import torch
 
 from playground3d_tpu.models import retinanet_init as jax_init
+from playground3d_tpu.models.quant import quantize_detector as jax_quantize_detector
+from playground3d_tpu.pipeline.multi_cam import MultiCameraTracker as JaxTracker
 from playground3d_tpu.pipeline.camera_bank import bank_from_registry as jax_bank
 from playground3d_tpu.pipeline.multi_cam import make_mc_clip_step as jax_clip_step
 from playground3d_tpu.pipeline.tracker_state import init_track_state as jax_init_state
 from playground3d_tpu.track.kf import default_params as jax_kf_params
 from playground3d_tpu.utils.config import TrackerConfig as JaxConfig
 from playground3d_tpu_torch.models.bridge import params_from_jax_numpy
+from playground3d_tpu_torch.models.quant import is_quantized
+from playground3d_tpu_torch.ops.crop_mxu import pack_s2d
 from playground3d_tpu_torch.pipeline.camera_bank import bank_from_registry
 from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker, make_mc_clip_step
 from playground3d_tpu_torch.pipeline.tracker_state import init_track_state
@@ -57,13 +67,28 @@ def setup(toy_cameras3):
     C = len(toy_cameras3["ranges"])
     frames = rng.integers(0, 256, (T_CLIP, C, 64, 96, 3)).astype(np.uint8)
     cam_times = (np.arange(T_CLIP)[:, None] / 30.0 + np.zeros((1, C))).astype(np.float32)
-    return dict(
+    out = dict(
         jax_det=det, jax_crop=crop,
         det=params_from_jax_numpy(to_np(det), device="cpu"),
         crop=params_from_jax_numpy(to_np(crop), device="cpu"),
         frames=frames, cam_times=cam_times,
         bias0=np.array([0.0, 0.01, -0.02], np.float32),
     )
+    # the shipped transport: the same frames s2d-packed, s2d stems, and the
+    # pair quantized by the JAX package (as bench.py quantizes its pair)
+    packed = np.stack([np.stack([pack_s2d(f) for f in cams]) for cams in frames])
+    det_s = init(jax.random.PRNGKey(0), depth=18, stem="s2d")
+    crop_s = init(jax.random.PRNGKey(1), depth=18, stem="s2d", tower_depth=2, shared_tower=True)
+    for p in (det_s, crop_s):
+        p["heads"]["cls_out"]["b"] = p["heads"]["cls_out"]["b"] + 3.0
+    det_q = jax_quantize_detector(det_s, packed[0, :1], 18, stem="s2d")
+    crop_q = jax_quantize_detector(crop_s, rng.integers(0, 256, (4, 8, 8, 48), dtype=np.uint8), 18, stem="s2d")
+    for name, jd, jc in (("s2d", det_s, crop_s), ("int8", det_q, crop_q)):
+        out[f"jax_det_{name}"], out[f"jax_crop_{name}"] = jd, jc
+        out[f"det_{name}"] = params_from_jax_numpy(to_np(jd), device="cpu")
+        out[f"crop_{name}"] = params_from_jax_numpy(to_np(jc), device="cpu")
+    out["packed"] = packed
+    return out
 
 
 def _seed(state, ranges, n_slots):
@@ -95,31 +120,40 @@ def _seed(state, ranges, n_slots):
     )
 
 
-def _run_jax(setup, toy_cameras3, knobs):
+def _models(setup, path):
+    """(suffix of the models in ``setup``, stem, the frames they take)."""
+    if path == "conv7":
+        return "", "conv7", setup["frames"]
+    return f"_{path}", "s2d", setup["packed"]
+
+
+def _run_jax(setup, toy_cameras3, knobs, path="conv7"):
+    sfx, stem, frames = _models(setup, path)
     cfg = JaxConfig(**knobs)
     clip = jax_clip_step(
-        setup["jax_det"], 18, jax_bank(toy_cameras3["registry"]),
+        setup[f"jax_det{sfx}"], 18, jax_bank(toy_cameras3["registry"]),
         jnp.asarray(toy_cameras3["centers"]), jax_kf_params(), cfg,
-        crop_params=setup["jax_crop"], crop_depth=18, stem="conv7", crop_stem="conv7",
+        crop_params=setup[f"jax_crop{sfx}"], crop_depth=18, stem=stem, crop_stem=stem,
     )
     state0 = _seed(jax_init_state(cfg.max_tracks), list(toy_cameras3["ranges"].values()), cfg.max_tracks)
     return clip(
-        state0, jnp.asarray(setup["bias0"]), jnp.asarray(setup["frames"]),
+        state0, jnp.asarray(setup["bias0"]), jnp.asarray(frames),
         jnp.asarray(setup["cam_times"]), jnp.int32(0),
     )
 
 
-def _run_port(setup, toy_cameras3, knobs):
+def _run_port(setup, toy_cameras3, knobs, path="conv7"):
+    sfx, stem, frames = _models(setup, path)
     cfg = TrackerConfig(**knobs)
     clip = make_mc_clip_step(
-        setup["det"], bank_from_registry(toy_cameras3["registry"], device="cpu"),
+        setup[f"det{sfx}"], bank_from_registry(toy_cameras3["registry"], device="cpu"),
         torch.as_tensor(toy_cameras3["centers"]), default_params(device="cpu"), cfg,
-        crop_model=setup["crop"],
+        crop_model=setup[f"crop{sfx}"], stem=stem, crop_stem=stem,
     )
     state0 = _seed(init_track_state(cfg.max_tracks, "cpu"), list(toy_cameras3["ranges"].values()),
                    cfg.max_tracks)
     return clip(
-        state0, torch.as_tensor(setup["bias0"]), torch.as_tensor(setup["frames"]),
+        state0, torch.as_tensor(setup["bias0"]), torch.as_tensor(frames),
         torch.as_tensor(setup["cam_times"]), 0,
     )
 
@@ -127,10 +161,26 @@ def _run_port(setup, toy_cameras3, knobs):
 @pytest.mark.parametrize("knobs", [BASE, dict(BASE, **SHIPPED), dict(BASE, **SHIPPED_FULL_GATE)],
                          ids=["reference", "shipped", "shipped_gate_shut"])
 def test_clip_matches_jax(setup, toy_cameras3, knobs):
-    js, jb, jsn = _run_jax(setup, toy_cameras3, knobs)
-    ps, pb, psn = _run_port(setup, toy_cameras3, knobs)
+    _check_clip(_run_jax(setup, toy_cameras3, knobs), _run_port(setup, toy_cameras3, knobs))
+
+
+@pytest.mark.parametrize("path", ["s2d", "int8"])
+def test_s2d_clip_matches_jax(setup, toy_cameras3, path):
+    """s2d-packed uint8 frames, s2d stems for both nets, the shipped knobs;
+    ``int8``: both nets quantized by the JAX package and bridged."""
+    assert is_quantized(setup[f"det_{path}"]) == is_quantized(setup[f"crop_{path}"]) == (path == "int8")
+    knobs = dict(BASE, **SHIPPED)
+    # the JAX clip itself loses the third seeded track at the first crop
+    # frame on this path (frame 2); the first two stay
+    _check_clip(_run_jax(setup, toy_cameras3, knobs, path), _run_port(setup, toy_cameras3, knobs, path),
+                live_through_crop=2)
+
+
+def _check_clip(jax_out, port_out, live_through_crop=3):
+    js, jb, jsn = jax_out
+    ps, pb, psn = port_out
     raw = np.asarray(jsn.raw_mask)
-    assert raw[:4, :3].all(), "the seeded tracks are live through the first crop frame"
+    assert raw[:4, :live_through_crop].all(), "seeded tracks are live through the first crop frame"
     for i in range(T_CLIP):
         np.testing.assert_array_equal(psn.ids[i].numpy(), np.asarray(jsn.ids[i]), err_msg=f"ids {i}")
         np.testing.assert_array_equal(psn.raw_mask[i].numpy(), raw[i], err_msg=f"raw_mask {i}")
@@ -182,3 +232,145 @@ def test_track_clips_matches_per_frame_process(setup, toy_cameras3):
         np.testing.assert_allclose(r1[3], r2[3], rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(r1[4], r2[4])
     assert sum(len(r[2]) for r in t2.rows) > 0
+
+
+def _yuv_sources(n_frames, n_cams, hw, seed=31):
+    """Per-camera streams of flat planar YUV420 frames."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, (n_frames, n_cams, hw[0] * hw[1] * 3 // 2), dtype=np.uint8)
+    return lambda: [((buf[f, ci], 1.6e9 + f / 30.0) for f in range(n_frames)) for ci in range(n_cams)]
+
+
+def test_track_clips_yuv_matches_jax(setup, toy_cameras3):
+    """Flat YUV420 bytes through ``track_clips(yuv_hw=...)``: converted and
+    packed on the device in both packages, then the s2d clip."""
+    knobs = dict(BASE, **SHIPPED)
+    cams, ranges = list(toy_cameras3["ranges"]), list(toy_cameras3["ranges"].values())
+    sources = _yuv_sources(T_CLIP, len(cams), (64, 96))
+    jt = JaxTracker(
+        toy_cameras3["registry"], cams, cfg=JaxConfig(**knobs), det_params=setup["jax_det_s2d"],
+        crop_params=setup["jax_crop_s2d"], depth=18, crop_depth=18, centers=toy_cameras3["centers"],
+        stem="s2d", crop_stem="s2d", image_hw=(64, 96),
+    )
+    jt.state = _seed(jt.state, ranges, jt.cfg.max_tracks)
+    jt.track_clips(sources(), clip_len=T_CLIP, yuv_hw=(64, 96))
+    pt = MultiCameraTracker(
+        toy_cameras3["registry"], cams, cfg=TrackerConfig(**knobs), det_model=setup["det_s2d"],
+        crop_model=setup["crop_s2d"], centers=toy_cameras3["centers"], stem="s2d", crop_stem="s2d",
+        device="cpu",
+    )
+    pt.state = _seed(pt.state, ranges, pt.cfg.max_tracks)
+    stats = pt.track_clips(sources(), clip_len=T_CLIP, yuv_hw=(64, 96))
+    assert stats["frames"] == T_CLIP == len(pt.rows) == len(jt.rows)
+    for rp, rj in zip(pt.rows, jt.rows):
+        assert rp[0] == rj[0] and rp[1] == pytest.approx(rj[1])
+        np.testing.assert_array_equal(rp[2], rj[2])
+        np.testing.assert_allclose(rp[3], rj[3], rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(rp[4], rj[4])
+    assert sum(len(r[2]) for r in pt.rows) > 0
+
+
+def test_s2d_crop_step_clamps_boxes_like_jax(setup):
+    """The crop branch alone on a 1080p s2d frame through the bench camera,
+    whose unrefined z column makes crop boxes wider than the s2d crop's
+    largest span: both packages clamp them to 992 px before the box and the
+    crop-to-frame mapping are built, and sample pyramid level 2."""
+    from playground3d_tpu.data.toy_cameras import register_bench_camera
+    from playground3d_tpu.pipeline.multi_cam import make_crop_step as jax_crop_step
+    from playground3d_tpu_torch.geometry import transforms as PT
+    from playground3d_tpu_torch.ops.crop_mxu import max_crop_span_s2d
+    from playground3d_tpu_torch.pipeline.camera_bank import state_to_im_banked
+    from playground3d_tpu_torch.pipeline.multi_cam import make_crop_step
+
+    reg, _ = register_bench_camera()
+    knobs = dict(BASE, **SHIPPED, x_range=(300.0, 800.0))
+    n_live, n_slots = 6, knobs["max_tracks"]
+    kfx = np.zeros((n_slots, 6), np.float32)
+    i = np.arange(n_live)
+    kfx[:n_live, 0], kfx[:n_live, 1] = 440.0 + 35.0 * i, 12.0 + 12.0 * i
+    kfx[:n_live, 2:5], kfx[:n_live, 5] = (18.0, 6.0, 5.0), 80.0
+    kfP = np.tile(np.eye(6, dtype=np.float32)[None] * 0.5, (n_slots, 1, 1))
+    live = np.arange(n_slots) < n_live
+    ids = np.where(live, np.arange(n_slots), -1).astype(np.int32)
+    age = np.where(live, 5, 0).astype(np.int32)
+
+    def seeded(state, conv):
+        return state._replace(
+            kf=state.kf._replace(x=conv(kfx), P=conv(kfP), mask=conv(live)), ids=conv(ids), age=conv(age),
+            conf_cnt=conv(live.astype(np.float32)), conf_sum=conv(live.astype(np.float32) * 0.9),
+        )
+
+    rng = np.random.default_rng(41)
+    frame = pack_s2d(rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8))[None]
+    centers = np.array([[565.0, 60.0]], np.float32)
+    times, bias = np.array([0.1], np.float32), np.zeros(1, np.float32)
+
+    bank = bank_from_registry(reg, device="cpu")
+    st0 = seeded(init_track_state(n_slots, "cpu"), torch.as_tensor)
+    s6 = torch.cat([st0.kf.x[:n_live, :5], st0.kf.d[:n_live, None]], 1)
+    hull = PT.im_hull_xyxy(state_to_im_banked(bank, s6, torch.zeros(n_live, dtype=torch.long)))
+    side = torch.maximum(hull[:, 2] - hull[:, 0], hull[:, 3] - hull[:, 1]) * TrackerConfig(**knobs).crop_expand
+    assert (side > max_crop_span_s2d()).sum() >= n_live // 2, "the scenario must reach the clamp"
+
+    step_p = make_crop_step(setup["crop_s2d"], bank, torch.as_tensor(centers), default_params(device="cpu"),
+                            TrackerConfig(**knobs), stem="s2d", frame_stem="s2d")
+    sp, snap_p = step_p(st0, torch.as_tensor(frame), torch.as_tensor(times), torch.as_tensor(bias))
+    step_j = jax_crop_step(setup["jax_crop_s2d"], 18, jax_bank(reg), jnp.asarray(centers), jax_kf_params(),
+                           JaxConfig(**knobs), stem="s2d", frame_stem="s2d")
+    sj, snap_j = step_j(seeded(jax_init_state(n_slots), jnp.asarray), jnp.asarray(frame), jnp.asarray(times),
+                        jnp.asarray(bias))
+    mask = np.asarray(sj.kf.mask)
+    np.testing.assert_array_equal(sp.kf.mask.numpy(), mask)
+    assert mask.sum() > 0
+    np.testing.assert_allclose(sp.kf.x.numpy()[mask], np.asarray(sj.kf.x)[mask], rtol=1e-4, atol=1e-4)
+    for f in ("fsld", "misses", "age"):
+        np.testing.assert_array_equal(getattr(sp, f).numpy(), np.asarray(getattr(sj, f)), err_msg=f)
+    np.testing.assert_array_equal(snap_p.ids.numpy(), np.asarray(snap_j.ids))
+    np.testing.assert_array_equal(snap_p.raw_mask.numpy(), np.asarray(snap_j.raw_mask))
+    # the crop measurements moved the states: the step did more than coast
+    assert not np.allclose(sp.kf.x.numpy()[mask][:, :2], kfx[mask][:, :2], atol=1e-3)
+
+
+def test_s2d_tracker_packs_raw_frames_on_the_device(setup, toy_cameras3):
+    """An s2d tracker fed raw [H,W,3] frames packs them itself, per frame
+    (``process``) and per clip (``track_clips``), and the two agree."""
+    cfg = TrackerConfig(**dict(BASE, **SHIPPED))
+    frames = setup["frames"]
+
+    def sources():
+        return [((frames[f, ci], 1.6e9 + f / 30.0) for f in range(T_CLIP)) for ci in range(frames.shape[1])]
+
+    def tracker():
+        t = MultiCameraTracker(
+            toy_cameras3["registry"], list(toy_cameras3["ranges"]), cfg=cfg, det_model=setup["det_int8"],
+            crop_model=setup["crop_int8"], centers=toy_cameras3["centers"], stem="s2d", crop_stem="s2d",
+            device="cpu",
+        )
+        t.state = _seed(t.state, list(toy_cameras3["ranges"].values()), cfg.max_tracks)
+        return t
+
+    t1, t2 = tracker(), tracker()
+    t1.track(sources(), per_frame=True)
+    t2.track_clips(sources(), clip_len=4)
+    assert [r[0] for r in t1.rows] == [r[0] for r in t2.rows] == list(range(T_CLIP))
+    for r1, r2 in zip(t1.rows, t2.rows):
+        np.testing.assert_array_equal(r1[2], r2[2])
+        np.testing.assert_allclose(r1[3], r2[3], rtol=1e-5, atol=1e-5)
+    assert sum(len(r[2]) for r in t2.rows) > 0
+
+
+def test_stem_arguments_are_checked(setup, toy_cameras3):
+    def tracker(**kw):
+        return MultiCameraTracker(
+            toy_cameras3["registry"], list(toy_cameras3["ranges"]), det_model=setup["det"],
+            crop_model=setup["crop"], centers=toy_cameras3["centers"], device="cpu", **kw,
+        )
+
+    with pytest.raises(ValueError, match="yuv_hw"):
+        tracker().track_clips([], yuv_hw=(64, 96))  # conv7 stem: no on-device YUV
+    with pytest.raises(ValueError, match="stem"):
+        tracker(stem="s2d")  # the detector was built with the conv7 stem
+    with pytest.raises(ValueError, match="stem"):
+        tracker(crop_stem="s2d")
+    with pytest.raises(ValueError, match="stem"):
+        make_mc_clip_step(setup["det"], None, None, None, TrackerConfig())  # default stem is "s2d"
