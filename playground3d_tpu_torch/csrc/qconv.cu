@@ -42,10 +42,8 @@
 // 128 x 128 tile re-reads its operands from L2 once per tile on the other
 // axis (64 MACs per byte), which bounds the wide layers at about a quarter
 // of mma.sync's own int8 peak (1,295 TOPS measured); layers with few output
-// pixels occupy a handful of SMs and stream K at one block's pace; and the
-// exactly rounded division of the int8 epilogue is a ~40-instruction routine
-// per value. Larger tiles on wgmma, split K, and a proven cheaper rounding
-// are the next steps.
+// pixels occupy a handful of SMs and stream K at one block's pace (0.55 us
+// a step). Larger tiles on wgmma and split K are the next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,6 +100,24 @@ __device__ __forceinline__ void mma_m16n8k32_s8(int (&c)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// clip(rint(fl(v / xs)), -127, 127), rint to even: the int8 value at scale xs.
+// The exactly rounded division is a routine of some forty dependent
+// instructions, and an epilogue holds 64 of them a thread, so it is kept for
+// the values that need it. With inv_xs = fl(1 / xs), q = fl(v * inv_xs) lies
+// within 2^-23 |v / xs| of the true quotient, and so does t = fl(v / xs)
+// within 2^-24 of it: |q - t| < 2.3e-5 wherever |v / xs| <= 128. So if
+// |q| >= 126.75 then |t| > 126.5 and the clipped result is +-127; else if q is
+// further than 1e-4 from the nearest half-integer, t lies on the same side of
+// it and rint(q) = rint(t). Only the one value in five thousand that is
+// closer takes the division.
+__device__ __forceinline__ float requantized(float v, float xs, float inv_xs) {
+  const float q = __fmul_rn(v, inv_xs);
+  if (fabsf(q) >= 126.75f) return copysignf(127.0f, q);
+  const float n = rintf(q);
+  if (fabsf(__fsub_rn(q, n)) <= 0.4999f) return n;
+  return fminf(fmaxf(rintf(__fdiv_rn(v, xs)), -127.0f), 127.0f);
+}
+
 template <int TN>
 __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
   constexpr int kARows = kTileM / kCopyRows;  // rows of A a thread copies per step
@@ -115,8 +131,8 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
   const uint32_t b_smem = a_smem + kStages * kAStage;
 
   const int t = threadIdx.x;
-  const long long M = static_cast<long long>(a.N) * a.Ho * a.Wo;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
+  const int M = a.N * a.Ho * a.Wo;  // output pixels; below 2^31 (the launcher checks)
+  const int m0 = blockIdx.x * kTileM;
   const int c0 = blockIdx.y * TN;
 
   // What this thread copies each step: piece q of rows r, r + kCopyRows, ... of A
@@ -130,18 +146,20 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
   uint32_t tap_ok[kARows];
 #pragma unroll
   for (int h = 0; h < kARows; ++h) {
-    const long long m = m0 + r + kCopyRows * h;
+    const int m = m0 + r + kCopyRows * h;
     const bool live = m < M;
-    const long long mm = live ? m : 0;
-    const int n = static_cast<int>(mm / (a.Ho * a.Wo));
-    const int rem = static_cast<int>(mm - static_cast<long long>(n) * a.Ho * a.Wo);
+    const int mm = live ? m : 0;
+    const int n = mm / (a.Ho * a.Wo);
+    const int rem = mm - n * a.Ho * a.Wo;
     const int oy = rem / a.Wo, ox = rem - oy * a.Wo;
     const int iy0 = oy * a.stride - a.pad_t, ix0 = ox * a.stride - a.pad_l;
     xrow[h] = a.x + ((static_cast<long long>(n) * a.H + iy0) * a.W + ix0) * a.Cin + q * 16;
     uint32_t bits = 0;
-    for (int tap = 0; tap < taps; ++tap) {
-      const int iy = iy0 + tap / a.k, ix = ix0 + tap % a.k;
-      if (live && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W) bits |= 1u << tap;
+    for (int ky = 0, tap = 0; ky < a.k; ++ky) {
+      for (int kx = 0; kx < a.k; ++kx, ++tap) {
+        const int iy = iy0 + ky, ix = ix0 + kx;
+        if (live && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W) bits |= 1u << tap;
+      }
     }
     tap_ok[h] = bits;
   }
@@ -161,13 +179,12 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
   // Start the copies of the next step not yet started into its stage, walking
   // (tap, chunk) along; past the last step only the (empty) group is committed,
   // so that the count of pending groups stays uniform.
-  int next = 0, next_tap = 0, next_chunk = 0, next_stage = 0;
+  int next = 0, next_tap = 0, next_ky = 0, next_kx = 0, next_chunk = 0, next_stage = 0;
   auto prefetch = [&]() {
     if (next < steps) {
       const int cq = next_chunk * kTileK;  // first channel of this step; this thread's piece starts q * 16 on
       const bool cin_ok = cq + q * 16 < a.Cin;
-      const int ky = next_tap / a.k, kx = next_tap - ky * a.k;
-      const long long x_off = (static_cast<long long>(ky) * a.W + kx) * a.Cin + cq;
+      const long long x_off = (static_cast<long long>(next_ky) * a.W + next_kx) * a.Cin + cq;
       const long long w_off = static_cast<long long>(next_tap) * a.Cin + cq;
 #pragma unroll
       for (int h = 0; h < kARows; ++h) {
@@ -183,6 +200,10 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
       if (++next_chunk == chunks) {
         next_chunk = 0;
         ++next_tap;
+        if (++next_kx == a.k) {
+          next_kx = 0;
+          ++next_ky;
+        }
       }
       if (++next_stage == kStages) next_stage = 0;
     }
@@ -216,7 +237,14 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<kStages - 2>();  // this step's copies have landed (this thread's)
     __syncthreads();               // ... everyone's; and the stage refilled below is no longer read
+    // (QCONV_SKIP_COPIES / QCONV_SKIP_MMA compile a part of the step out, for
+    // scripts/qconv_step_cost.cu, which times what is left; results are wrong then)
+#ifndef QCONV_SKIP_COPIES
     prefetch();
+#else
+    cp_async_commit();
+#endif
+#ifndef QCONV_SKIP_MMA
 #pragma unroll
     for (int ks = 0; ks < kTileK / 32; ++ks) {  // 32 bytes of K at a time
       uint32_t af[2][4], bf[kNTiles / 2][4];
@@ -236,6 +264,7 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
         }
       }
     }
+#endif
     if (++stage == kStages) stage = 0;
   }
 
@@ -246,51 +275,52 @@ __global__ void __launch_bounds__(kThreads) qconv_kernel(const Args a) {
   // memory to store whole 16-byte pieces of a row was built and measured: no
   // faster (PERF.md), so the fragments are stored as they are.
   const float xs = a.store == kInt8 ? __ldg(a.emit_xs) : 1.0f;
+  const float inv_xs = __frcp_rn(xs);
   const int g = lane >> 2, tg = lane & 3;
   const bool pairs = (a.Cout & 1) == 0;
   auto finish = [&](int sum, float sc, float of) -> float {
     float v = __fmul_rn(static_cast<float>(sum), sc);
     if (a.offset != nullptr) v = __fadd_rn(v, of);
     if (a.relu) v = fmaxf(v, 0.0f);
-    if (a.store == kInt8) v = fminf(fmaxf(rintf(__fdiv_rn(v, xs)), -127.0f), 127.0f);
-    return v;
+    return a.store == kInt8 ? requantized(v, xs, inv_xs) : v;
   };
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
+    // past the layer's last filter or pixel: computed on clamped indices, never stored
     const int c = c0 + wn + 8 * j + 2 * tg;
-    if (c >= a.Cout) continue;
-    const bool second = c + 1 < a.Cout;
-    const float sc0 = __ldg(a.scale + c), sc1 = second ? __ldg(a.scale + c + 1) : 0.0f;
-    const float of0 = a.offset != nullptr ? __ldg(a.offset + c) : 0.0f;
-    const float of1 = (a.offset != nullptr && second) ? __ldg(a.offset + c + 1) : 0.0f;
+    const bool first = c < a.Cout, second = c + 1 < a.Cout;
+    const int ca = min(c, a.Cout - 1), cb = min(c + 1, a.Cout - 1);
+    const float sc0 = __ldg(a.scale + ca), sc1 = __ldg(a.scale + cb);
+    const float of0 = a.offset != nullptr ? __ldg(a.offset + ca) : 0.0f;
+    const float of1 = a.offset != nullptr ? __ldg(a.offset + cb) : 0.0f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int e0 = 0; e0 < 2; ++e0) {
-        const long long m = m0 + wm + 16 * i + g + 8 * e0;
-        if (m >= M) continue;
-        const long long o = m * a.Cout + c;
+        const int m = m0 + wm + 16 * i + g + 8 * e0;
+        const bool row = m < M && first;
+        const long long o = static_cast<long long>(m) * a.Cout + c;
         const int s0 = acc[i][j][2 * e0], s1 = acc[i][j][2 * e0 + 1];
         if (a.store == kAcc) {
-          static_cast<int*>(a.out)[o] = s0;
-          if (second) static_cast<int*>(a.out)[o + 1] = s1;
+          if (row) static_cast<int*>(a.out)[o] = s0;
+          if (row && second) static_cast<int*>(a.out)[o + 1] = s1;
           continue;
         }
         const float v0 = finish(s0, sc0, of0), v1 = finish(s1, sc1, of1);
         if (a.store == kBf16) {
           __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + o;
-          if (pairs) {
+          if (row && pairs) {
             *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
-          } else {
+          } else if (row) {
             out[0] = __float2bfloat16_rn(v0);
             if (second) out[1] = __float2bfloat16_rn(v1);
           }
         } else {
           int8_t* out = static_cast<int8_t*>(a.out) + o;
           const int q0 = static_cast<int>(v0), q1 = static_cast<int>(v1);
-          if (pairs) {
+          if (row && pairs) {
             *reinterpret_cast<uint16_t*>(out) = static_cast<uint16_t>((q0 & 255) | ((q1 & 255) << 8));
-          } else {
+          } else if (row) {
             out[0] = static_cast<int8_t>(q0);
             if (second) out[1] = static_cast<int8_t>(q1);
           }
@@ -338,6 +368,7 @@ int qconv(const void* x, const void* w, const void* scale, const void* offset, c
   a.N = N; a.H = H; a.W = W; a.Cin = Cin; a.Cout = Cout; a.k = k; a.stride = stride;
   a.Ho = Ho; a.Wo = Wo; a.pad_t = pad_t; a.pad_l = pad_l; a.relu = relu; a.store = store;
   const long long M = static_cast<long long>(N) * Ho * Wo;
+  if (M > 2147483647LL - kTileM) return static_cast<int>(cudaErrorInvalidValue);
   const long long gx = (M + kTileM - 1) / kTileM;
   const int tn = Cout > kTileNarrow ? kTileWide : kTileNarrow;  // ops/qconv.py::launch_plan's rule
   const int gy = (Cout + tn - 1) / tn;
