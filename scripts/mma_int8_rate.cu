@@ -1,6 +1,6 @@
 // What rate the int8 tensor-core instruction that csrc/qconv.cu is built on,
 // mma.sync.m16n8k32 (s8 x s8 -> s32), reaches on the card when nothing else
-// is in its way: every warp issues it back to back on 16 independent
+// is in its way: every warp runs it back to back on 16 independent
 // accumulators, from registers, with no memory traffic. It is the ceiling to
 // hold qconv.cu's measured rate against (PERF.md section 6).
 //
