@@ -739,6 +739,12 @@ QCONV_CHECK_SHAPES = (  # N, H, W, Cin, Cout, k, stride
     (1, 135, 240, 256, 256, 3, 1), (1, 135, 67, 128, 72, 3, 1), (2, 67, 135, 256, 108, 3, 2),
     (1, 135, 240, 512, 128, 1, 1), (1, 67, 67, 1024, 256, 1, 2), (1, 270, 480, 256, 64, 1, 1),
     (1, 17, 30, 2048, 256, 3, 2), (32, 7, 7, 512, 512, 3, 1), (1, 20, 30, 144, 40, 3, 1),
+    # split K: FPN P6 (34x60 2048->256 s2), a 1x1 crop map, 144 steps over 29 splits, 256-wide tiles split;
+    # a partial channel chunk
+    (1, 34, 60, 2048, 256, 3, 2), (32, 1, 1, 256, 256, 3, 1), (1, 7, 9, 2048, 256, 3, 1),
+    (1, 20, 30, 2048, 2048, 3, 1), (1, 9, 15, 48, 256, 3, 1),
+    # narrow N: 108 and 72 filters at N = 112 and 80 on small maps, and an odd filter count (scalar stores)
+    (1, 34, 60, 256, 108, 3, 1), (32, 4, 4, 256, 72, 3, 1), (1, 7, 9, 32, 33, 3, 1),
 )
 
 
@@ -763,7 +769,8 @@ _CACHE: dict = {}
 def record_qconv_shapes(device):
     """Every call of the int8 conv kernel in one detect frame and one crop
     frame of the main path, by shape: {branch: {(N,H,W,Cin,Cout,k,stride,
-    relu, has_offset, int8_out): launches}}."""
+    relu, has_offset, int8_out, residual): launches}}, residual "none",
+    "int8" or "bf16" (a block's tail fused into its last conv)."""
     import collections
 
     import torch
@@ -778,10 +785,11 @@ def record_qconv_shapes(device):
     real = quant.qconv  # the one entry models/quant.py calls the int8 conv through
     branch = ["detect"]
 
-    def recording(x, wq, scale, offset=None, stride=1, relu=False, emit_xs=None):
-        key = (*x.shape, wq.shape[0], wq.shape[1], stride, bool(relu), offset is not None, emit_xs is not None)
+    def recording(x, wq, scale, offset=None, stride=1, relu=False, emit_xs=None, res=None, res_xs=None):
+        kind = "none" if res is None else ("int8" if res.dtype == torch.int8 else "bf16")
+        key = (*x.shape, wq.shape[0], wq.shape[1], stride, bool(relu), offset is not None, emit_xs is not None, kind)
         seen[branch[0]][key] += 1
-        return real(x, wq, scale, offset, stride, relu, emit_xs)
+        return real(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs)
 
     quant.qconv = recording
     try:
@@ -796,9 +804,48 @@ def record_qconv_shapes(device):
     return seen
 
 
+def qconv_blocks(device):
+    """Two whole bottleneck blocks of the quantized detector at 1080p, the
+    tail fused into conv3's epilogue on the card, against the unfused chain
+    of plain convs on the card: layer2[1] (135x240x512, identity residual:
+    int8 in, int8 out) and layer2[0] (270x480x256 in, ``down_conv``'s
+    bfloat16 residual, stride 2). Every value must be equal."""
+    import torch
+
+    from playground3d_tpu_torch.models import quant as Q
+    from playground3d_tpu_torch.ops import qconv as QC
+
+    _, _, _, (det_q, _), _ = shipped_models(device)
+    bb = det_q.backbone
+    gen = torch.Generator().manual_seed(9)
+    for name, bp, hw, out_xs in (("layer2[1]", bb.layer2[1], (135, 240), bb.layer2[2].conv1.xs),
+                                 ("layer2[0]", bb.layer2[0], (270, 480), bb.layer2[1].conv1.xs)):
+        cin = bp.conv1.w.shape[1]
+        q = torch.randint(-127, 128, (1, *hw, cin), generator=gen, dtype=torch.int8).to(device)
+        cur = ("i8", q.permute(0, 3, 1, 2), bp.conv1.xs)
+        launches = QC.qconv_cuda.launches
+        got = Q._chain_block(bp, cur, out_xs, basic=False)
+        fused_launches = QC.qconv_cuda.launches - launches
+        real = Q.qconv
+        Q.qconv = QC.qconv_plain
+        try:
+            want = Q._chain_block_unfused(bp, cur, out_xs, basic=False)
+        finally:
+            Q.qconv = real
+        torch.cuda.synchronize()
+        differ = int((got[1].float() != want[1].float()).sum())
+        log(f"kernels: qconv whole bottleneck {name} on [1,{hw[0]},{hw[1]},{cin}] int8 -> {list(got[1].shape)} "
+            f"{str(got[1].dtype)[6:]}: fused on the card ({fused_launches} qconv launches) against the unfused "
+            f"plain chain on the card: {differ} of {got[1].numel()} values differ (must be 0)")
+        if got[0] != want[0] or got[1].shape != want[1].shape or differ:
+            fail(f"qconv bottleneck {name}: fused differs from unfused ({differ} values)")
+
+
 def kernels_qconv(device, flush, noop_ms):
-    """``qconv.cu``: exactness at odd and edge shapes, then the time of every
-    conv shape that the quantized pair launches on the main path."""
+    """``qconv.cu``: exactness at odd and edge shapes (accumulators, the
+    eight plain epilogues, the residual epilogues) and on whole blocks, then
+    the time of every conv shape that the quantized pair launches on the
+    main path."""
     import torch
     import torch.nn.functional as F
 
@@ -814,15 +861,26 @@ def kernels_qconv(device, flush, noop_ms):
         offset = torch.randn(cout, generator=gen).to(device)
         return x, wq, scale, offset
 
+    def residual(kind, shape):
+        if kind == "int8":
+            return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(device), res_xs
+        if kind == "bf16":
+            return (torch.randn(shape, generator=gen) * 3).to(torch.bfloat16).to(device), None
+        return None, None
+
     xs = torch.tensor(0.043, device=device)
+    res_xs = torch.tensor(0.0371, device=device)
     worst = 0.0
+    uneven = 0
     for N, Hh, Ww, cin, cout, k, stride in QCONV_CHECK_SHAPES:
         x, wq, scale, offset = operands(N, Hh, Ww, cin, cout, k)
+        plan = QC.launch_plan(N, Hh, Ww, cin, cout, k, stride)
+        uneven += plan.steps % plan.splits != 0
         acc = QC.qconv_cuda(x, wq, scale, offset, stride, store=QC.ACC)
         ref = QC.conv_int32_plain(x, wq, stride)
         torch.cuda.synchronize()
         acc_equal = bool(torch.equal(acc, ref))
-        differ = 0
+        differ = res_differ = 0
         for relu in (False, True):
             for emit in (None, xs):
                 for off in (offset, None):
@@ -831,26 +889,54 @@ def kernels_qconv(device, flush, noop_ms):
                     torch.cuda.synchronize()
                     differ += int((got.float() != want.float()).sum())
                     worst = max(worst, float((got.float() - want.float()).abs().max()))
-        log(f"kernels: qconv x [{N},{Hh},{Ww},{cin}] w [{cout},{k},{k},{cin}] stride {stride}: int32 "
+        for kind in ("int8", "bf16"):
+            res, rxs = residual(kind, tuple(ref.shape))
+            for emit in (None, xs):
+                got = QC.qconv(x, wq, scale, offset, stride, False, emit, res, rxs)
+                want = QC.epilogue_plain(ref, scale, offset, False, emit, res, rxs)
+                torch.cuda.synchronize()
+                res_differ += int((got.float() != want.float()).sum())
+                worst = max(worst, float((got.float() - want.float()).abs().max()))
+        log(f"kernels: qconv x [{N},{Hh},{Ww},{cin}] w [{cout},{k},{k},{cin}] stride {stride} (tile N {plan.tile_n}, "
+            f"{plan.tiles_m * plan.tiles_n} tiles, K {plan.steps} steps over {plan.splits} splits): int32 "
             f"accumulators {'equal' if acc_equal else 'DIFFER'} (max |acc| {int(ref.abs().max())}), int8 and "
-            f"bfloat16 outputs over 8 epilogues: {differ} values differ from the plain version (must be 0)")
-        if not acc_equal or differ:
-            fail(f"qconv {N}x{Hh}x{Ww}x{cin}->{cout} k{k} s{stride}: accumulators equal={acc_equal}, {differ} outputs differ")
+            f"bfloat16 outputs over 8 epilogues: {differ} values differ, over 4 residual epilogues (int8 and "
+            f"bfloat16 residual, int8 and bfloat16 out): {res_differ} differ (must be 0)")
+        if not acc_equal or differ or res_differ:
+            fail(f"qconv {N}x{Hh}x{Ww}x{cin}->{cout} k{k} s{stride}: accumulators equal={acc_equal}, "
+                 f"{differ} + {res_differ} outputs differ")
+    if not uneven:
+        fail("qconv: no check shape splits K unevenly")
+    qconv_blocks(device)
 
     # every shape of the main path, from a hook on the wrapper
     seen = record_qconv_shapes(device)
     shapes = sorted(set(seen["detect"]) | set(seen["crop"]))
     rows = []
+    host_us = None
     for key in shapes:
-        N, Hh, Ww, cin, cout, k, stride, relu, has_off, int8_out = key
+        N, Hh, Ww, cin, cout, k, stride, relu, has_off, int8_out, res_kind = key
         x, wq, scale, offset = operands(N, Hh, Ww, cin, cout, k)
         off, emit = (offset if has_off else None), (xs if int8_out else None)
-        kernel_ms = gpu_ms(lambda: QC.qconv_cuda(x, wq, scale, off, stride, relu, emit), iters=20)
+        plan = QC.launch_plan(N, Hh, Ww, cin, cout, k, stride)
+        res, rxs = residual(res_kind, (N, plan.ho, plan.wo, cout))
+
+        def run():
+            return QC.qconv_cuda(x, wq, scale, off, stride, relu, emit, res, rxs)
+
+        kernel_ms = gpu_ms(run, iters=20)
         ref = QC.conv_int32_plain(x, wq, stride)
-        got = QC.qconv_cuda(x, wq, scale, off, stride, relu, emit)
-        if not torch.equal(got, QC.epilogue_plain(ref, scale, off, relu, emit)):
+        got = run()
+        if not torch.equal(got, QC.epilogue_plain(ref, scale, off, relu, emit, res, rxs)):
             fail(f"qconv main-path shape {key}: output differs from the plain version")
-        plain_ms = gpu_ms(lambda: QC.qconv_plain(x, wq, scale, off, stride, relu, emit), iters=3)
+        if host_us is None:  # the host's part of a launch: wrapper, checks, plan, cached weight map, launch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                run()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        plain_ms = gpu_ms(lambda: QC.qconv_plain(x, wq, scale, off, stride, relu, emit, res, rxs), iters=3)
         # the library call: the bf16 channels-last convolution of the same
         # shape (what the float path runs there), operands already cast and padded
         ph, pw = same_pads(Hh, k, stride), same_pads(Ww, k, stride)
@@ -858,40 +944,58 @@ def kernels_qconv(device, flush, noop_ms):
             memory_format=torch.channels_last)
         wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         library_ms = gpu_ms(lambda: F.conv2d(xb, wb, stride=stride), iters=20)
+        # a second yardstick where one exists: at k = 1, stride 1 the int32
+        # accumulators are one int8 matrix product (epilogue excluded)
+        int_mm_ms = None
+        if k == 1 and stride == 1 and N * Hh * Ww > 16:
+            xm, wm = x.view(N * Hh * Ww, cin), wq.view(cout, cin).t()
+            if not torch.equal(torch._int_mm(xm, wm).view(ref.shape), ref):
+                fail(f"qconv main-path shape {key}: torch._int_mm differs from the plain accumulators")
+            int_mm_ms = gpu_ms(lambda: torch._int_mm(xm, wm), iters=20)
         ho, wo = got.shape[1], got.shape[2]
         macs = N * ho * wo * cout * cin * k * k
-        nbytes = x.numel() + wq.numel() + got.numel() * got.element_size() + cout * 8
+        nbytes = (x.numel() + wq.numel() + got.numel() * got.element_size() + cout * 8
+                  + (res.numel() * res.element_size() if res is not None else 0))
         t_ops, t_bytes = 2 * macs / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         rows.append(dict(
             N=N, H=Hh, W=Ww, Cin=cin, Cout=cout, k=k, stride=stride, relu=relu, offset=has_off,
-            out="int8" if int8_out else "bf16", per_detect=seen["detect"][key], per_crop=seen["crop"][key],
-            macs=macs, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            out="int8" if int8_out else "bf16", residual=res_kind, per_detect=seen["detect"][key],
+            per_crop=seen["crop"][key], tile_n=plan.tile_n, splits=plan.splits, macs=macs, ms=kernel_ms,
+            plain_ms=plain_ms, library_ms=library_ms, int_mm_ms=int_mm_ms,
             bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
         ))
-        del x, wq, ref, got, xb, wb
+        del x, wq, ref, got, xb, wb, res
     log(f"kernels: qconv on the main path: {len(rows)} distinct calls (warm, mean of 20 between CUDA events; "
-        f"library = F.conv2d bf16 channels_last on cast and padded operands; an empty kernel {noop_ms * 1e3:.2f} us)")
-    log("kernels: qconv   N   H   W  Cin Cout k s relu off  out |det crop|  kernel us  bf16 conv us  plain us  "
-        "bound us (by)   TMAC/s")
+        f"library = F.conv2d bf16 channels_last on cast and padded operands; int_mm = torch._int_mm, the "
+        f"accumulators alone, at k = 1 stride 1; an empty kernel {noop_ms * 1e3:.2f} us; host time of one "
+        f"launch {host_us:.1f} us)")
+    log("kernels: qconv   N   H   W  Cin Cout k s relu off  out  res |det crop| tileN splits  kernel us  "
+        "bf16 conv us  int_mm us  plain us  bound us (by)   TMAC/s")
     for r in rows:
+        mm = f"{r['int_mm_ms'] * 1e3:10.2f}" if r["int_mm_ms"] is not None else f"{'-':>10s}"
         log(f"kernels: qconv {r['N']:3d} {r['H']:3d} {r['W']:3d} {r['Cin']:4d} {r['Cout']:4d} {r['k']} {r['stride']} "
-            f"{int(r['relu']):4d} {int(r['offset']):3d} {r['out']:>4s} |{r['per_detect']:3d} {r['per_crop']:4d}| "
-            f"{r['ms'] * 1e3:10.2f} {r['library_ms'] * 1e3:13.2f} {r['plain_ms'] * 1e3:9.1f} "
-            f"{r['bound_ms'] * 1e3:9.3f} ({r['bound_by'][:5]}) {r['macs'] / r['ms'] / 1e9:8.2f}")
+            f"{int(r['relu']):4d} {int(r['offset']):3d} {r['out']:>4s} {r['residual']:>4s} |{r['per_detect']:3d} "
+            f"{r['per_crop']:4d}| {r['tile_n']:5d} {r['splits']:6d} {r['ms'] * 1e3:10.2f} {r['library_ms'] * 1e3:13.2f} "
+            f"{mm} {r['plain_ms'] * 1e3:9.1f} {r['bound_ms'] * 1e3:9.3f} ({r['bound_by'][:5]}) "
+            f"{r['macs'] / r['ms'] / 1e9:8.2f}")
     totals = {}
     for branch, per in (("detect", "per_detect"), ("crop", "per_crop")):
         tot = {f: sum(r[per] * r[f] for r in rows) for f in ("ms", "plain_ms", "library_ms", "bound_ms", "macs")}
         tot["launches"] = sum(r[per] for r in rows)
+        tot["fused"] = sum(r[per] for r in rows if r["residual"] != "none")
         tot["by_ops"] = sum(r[per] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        mm = [r for r in rows if r[per] and r["int_mm_ms"] is not None]
+        tot["int_mm"] = (sum(r[per] * r["ms"] for r in mm), sum(r[per] * r["int_mm_ms"] for r in mm), len(mm))
         totals[branch] = tot
-        log(f"kernels: qconv total per {branch} frame: {tot['launches']} launches, {tot['macs'] / 1e9:.1f} GMAC, "
-            f"kernel {tot['ms']:.3f} ms, bf16 convs of the same shapes {tot['library_ms']:.3f} ms, plain "
-            f"{tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
+        log(f"kernels: qconv total per {branch} frame: {tot['launches']} launches ({tot['fused']} with a block's "
+            f"tail fused), {tot['macs'] / 1e9:.1f} GMAC, kernel {tot['ms']:.3f} ms, bf16 convs of the same shapes "
+            f"{tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
             f"({tot['by_ops'] / max(tot['bound_ms'], 1e-12) * 100:.0f}% of it from shapes bound by operations), "
-            f"{tot['bound_ms'] / tot['ms'] * 100:.1f}% of bound")
+            f"{tot['bound_ms'] / tot['ms'] * 100:.1f}% of bound; the {tot['int_mm'][2]} k=1 stride-1 shapes: kernel "
+            f"{tot['int_mm'][0]:.3f} ms, torch._int_mm {tot['int_mm'][1]:.3f} ms")
     os.makedirs("_outputs", exist_ok=True)
     with open(os.path.join("_outputs", "qconv_shapes.json"), "w") as fh:
-        json.dump({"rows": rows, "totals": totals}, fh, indent=1)
+        json.dump({"rows": rows, "totals": totals, "host_us_per_launch": host_us}, fh, indent=1)
     det = totals["detect"]
     # the record is of one detect frame's int8 convs, all shapes together
     return {
@@ -1033,8 +1137,14 @@ def profile_branches(trk, frames_dev, device, label: str, top: int = 6):
         if busy <= 0:
             log(f"profile ({label}): {name}: the profiler saw no device time (not measured)")
             continue
+        parts = {}
+        for part, words in (("qconv", ("qconv_kernel",)), ("elementwise", ("elementwise",))):
+            ks = [e for e in kern if any(w in e.key for w in words)]
+            parts[part] = (sum(e.self_device_time_total for e in ks) / 1e3, sum(e.count for e in ks))
         log(f"profile ({label}): {name}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-            f"({busy / wall_us * 100:.0f}%), {sum(e.count for e in kern)} kernel launches")
+            f"({busy / wall_us * 100:.0f}%), {sum(e.count for e in kern)} kernel launches; qconv_kernel "
+            f"{parts['qconv'][0]:.3f} ms over {parts['qconv'][1]}, PyTorch's elementwise kernels "
+            f"{parts['elementwise'][0]:.3f} ms over {parts['elementwise'][1]}")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
             log(f"profile ({label}): {name}:   {e.self_device_time_total / 1e3:7.3f} ms  x{e.count:<4d} {e.key[:90]}")
 

@@ -32,9 +32,11 @@ semantics.
 Roundings to keep: ``round`` is half-to-even; ``x / xs`` is a true division;
 a chained int8 tensor becomes float as ``bfloat16(q) * bfloat16(scale)``; the
 epilogue's scale and offset are folded once per conv in float32 on the
-device (:func:`_folded`) and handed to the kernel. The quantize-input,
-dequantize and residual-requantize steps that stand alone are plain tensor
-ops.
+device (:func:`_folded`) and handed to the kernel. Where the last conv of a
+ResNet block is quantized, the block's tail (dequantize the residual, add,
+relu, requantize) runs in that conv's epilogue (:func:`_chain_block`); the
+quantize-input step, and the tail of blocks whose last conv stays bfloat16
+(:func:`_chain_block_unfused`), are plain tensor ops.
 """
 
 from __future__ import annotations
@@ -158,11 +160,13 @@ def _folded(conv: Conv, bn: Optional[FrozenBN], s_in: torch.Tensor):
     return scale, offset
 
 
-def _qconv_nchw(conv, bn, xq, s_in, stride, relu, emit_xs) -> torch.Tensor:
+def _qconv_nchw(conv, bn, xq, s_in, stride, relu, emit_xs, res=None, res_xs=None) -> torch.Tensor:
     """The int8 conv on an NCHW view (channels-last memory, as every
-    activation of the networks) -> NCHW view."""
+    activation of the networks) -> NCHW view; ``res`` is an NCHW view too."""
     scale, offset = _folded(conv, bn, s_in)
-    y = qconv(xq.permute(0, 2, 3, 1), conv.wq, scale, offset, stride, relu, emit_xs)
+    if res is not None:
+        res = res.permute(0, 2, 3, 1)
+    y = qconv(xq.permute(0, 2, 3, 1), conv.wq, scale, offset, stride, relu, emit_xs, res, res_xs)
     return y.permute(0, 3, 1, 2)
 
 
@@ -212,6 +216,14 @@ def _chain_requant(x_float: torch.Tensor, emit_xs: Optional[torch.Tensor]) -> Ch
     return ("i8", _quantize_act(x_float, emit_xs), emit_xs)
 
 
+def _int8_input(conv: Conv, cur: Chained):
+    """(int8 tensor, its scale) for a quantized conv: a float value is
+    quantized at the conv's own input scale."""
+    if cur[0] == "f":
+        return _quantize_act(cur[1], conv.xs), conv.xs
+    return cur[1], cur[2]
+
+
 def _chain_any(conv, bn, cur, stride, relu, emit_xs, dtype) -> Chained:
     if conv.wq is None:
         y = conv(_chain_f(cur), stride, dtype)
@@ -220,11 +232,7 @@ def _chain_any(conv, bn, cur, stride, relu, emit_xs, dtype) -> Chained:
         if relu:
             y = torch.relu(y)
         return _chain_requant(y, emit_xs)
-    if cur[0] == "f":
-        xq, s_in = _quantize_act(cur[1], conv.xs), conv.xs
-    else:
-        xq, s_in = cur[1], cur[2]
-    out = _qconv_nchw(conv, bn, xq, s_in, stride, relu, emit_xs)
+    out = _qconv_nchw(conv, bn, *_int8_input(conv, cur), stride, relu, emit_xs)
     return ("f", out) if emit_xs is None else ("i8", out, emit_xs)
 
 
@@ -238,6 +246,45 @@ def _chain_qconv(conv, bn, cur, stride, relu, emit_xs) -> Chained:
 def _chain_qconv_b(conv, cur, stride, relu, emit_xs, dtype=torch.bfloat16) -> Chained:
     """Biased-conv twin of :func:`_chain_qconv` (FPN and head convs)."""
     return _chain_any(conv, None, cur, stride, relu, emit_xs, dtype)
+
+
+def _chain_block_unfused(bp, cur: Chained, out_xs: Optional[torch.Tensor], basic: bool) -> Chained:
+    """One ResNet block on a chained value, its tail as separate tensor ops,
+    as the JAX package's ``block`` does it: ``relu(last conv's bfloat16
+    output + residual)``, requantized at ``out_xs`` (the next block's input
+    scale) or bfloat16. The residual is the block input or ``down_conv``'s
+    bfloat16 output. It runs the blocks whose last conv stays bfloat16, and
+    is the definition :func:`_chain_block` is held to."""
+    if basic:
+        h = _chain_qconv(bp.conv1, bp.bn1, cur, bp.stride, True, _xs_of(bp.conv2))
+        hf = _chain_f(_chain_qconv(bp.conv2, bp.bn2, h, 1, False, None))
+    else:
+        h = _chain_qconv(bp.conv1, bp.bn1, cur, 1, True, _xs_of(bp.conv2))
+        h = _chain_qconv(bp.conv2, bp.bn2, h, bp.stride, True, _xs_of(bp.conv3))
+        hf = _chain_f(_chain_qconv(bp.conv3, bp.bn3, h, 1, False, None))
+    if bp.down_conv is not None:
+        res = _chain_f(_chain_qconv(bp.down_conv, bp.down_bn, cur, bp.stride, False, None))
+    else:
+        res = _chain_f(cur)
+    return _chain_requant(torch.relu(hf + res), out_xs)
+
+
+def _chain_block(bp, cur: Chained, out_xs: Optional[torch.Tensor], basic: bool) -> Chained:
+    """:func:`_chain_block_unfused`, with the tail in the last conv's
+    epilogue (one launch) where that conv is quantized: ``down_conv`` runs
+    first, and its bfloat16 output, or the int8 block input, is the
+    epilogue's residual. The plain version computes the tail with the same
+    tensor ops, so both give the same bits."""
+    last, last_bn = (bp.conv2, bp.bn2) if basic else (bp.conv3, bp.bn3)
+    if last.wq is None:
+        return _chain_block_unfused(bp, cur, out_xs, basic)
+    h = _chain_qconv(bp.conv1, bp.bn1, cur, bp.stride if basic else 1, True, _xs_of(bp.conv2))
+    if not basic:
+        h = _chain_qconv(bp.conv2, bp.bn2, h, bp.stride, True, _xs_of(bp.conv3))
+    res = cur if bp.down_conv is None else _chain_qconv(bp.down_conv, bp.down_bn, cur, bp.stride, False, None)
+    out = _qconv_nchw(last, last_bn, *_int8_input(last, h), 1, False, out_xs,
+                      res[1], res[2] if res[0] == "i8" else None)
+    return ("f", out) if out_xs is None else ("i8", out, out_xs)
 
 
 @torch.no_grad()
@@ -291,20 +338,6 @@ def resnet_apply_int8_chained(backbone: ResNet, x: torch.Tensor):
         cur = _chain_qconv(backbone.conv1, backbone.bn1, ("f", x), 2, True, None)
         cur = ("f", max_pool(_chain_f(cur), 3, 2))
 
-    def block(bp, cur, out_xs):
-        if basic:
-            h = _chain_qconv(bp.conv1, bp.bn1, cur, bp.stride, True, _xs_of(bp.conv2))
-            hf = _chain_f(_chain_qconv(bp.conv2, bp.bn2, h, 1, False, None))
-        else:
-            h = _chain_qconv(bp.conv1, bp.bn1, cur, 1, True, _xs_of(bp.conv2))
-            h = _chain_qconv(bp.conv2, bp.bn2, h, bp.stride, True, _xs_of(bp.conv3))
-            hf = _chain_f(_chain_qconv(bp.conv3, bp.bn3, h, 1, False, None))
-        if bp.down_conv is not None:
-            res = _chain_f(_chain_qconv(bp.down_conv, bp.down_bn, cur, bp.stride, False, None))
-        else:
-            res = _chain_f(cur)
-        return _chain_requant(torch.relu(hf + res), out_xs)
-
     feats = []
     stages = [getattr(backbone, f"layer{i + 1}") for i in range(4)]
     for stage_i, blocks in enumerate(stages):
@@ -318,7 +351,7 @@ def resnet_apply_int8_chained(backbone: ResNet, x: torch.Tensor):
                 out_xs = _xs_of(stages[1][0].conv1)
             else:
                 out_xs = None
-            cur = block(bp, cur, out_xs)
+            cur = _chain_block(bp, cur, out_xs, basic)
         if stage_i >= 1:
             feats.append(_chain_f(cur))
     return feats[0], feats[1], feats[2]
