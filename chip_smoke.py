@@ -270,6 +270,30 @@ def gpu_ms(fn, iters: int = 50, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def kernel_split(fn, names, iters: int = 20, flush=None) -> dict:
+    """Mean device time in ms, per call of ``fn()``, of the kernels whose
+    names hold each of ``names``, from torch.profiler (None where it saw no
+    device time). Kernels that overlap count each in full."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for name in names:
+        total = sum(e.self_device_time_total for e in kern if name in e.key)
+        out[name] = total / iters / 1e3 if total > 0 else None
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -537,6 +561,25 @@ def s2d_box_sets(gen, device, hw, frame_count, main_boxes):
     last = torch.tensor([[w - 4.0, h - 4.0, w, h], [w - 300.0, h - 5.0, w + 40.0, h + 200.0],
                          [0.0, h - 1000.0, 992.0, h - 8.0], [w - 992.0, 0.0, w, 992.0]], device=device)
     yield "edge boxes", torch.cat([eb, last]).contiguous(), cams(eb.shape[0] + 4)
+    yield from s2d_far_box_sets(gen, device, hw, frame_count)
+
+
+def s2d_far_box_sets(gen, device, hw, frame_count, n=32):
+    """(label, boxes, cam_idx) far from the main path's: upsampling (spans of
+    8-60 px, many output rows on one source row) and spans of 2-4x the top
+    level's cap at the default window (the rows of a tile lie far apart;
+    taps past the window have weight zero), some with swapped corners."""
+    import torch
+
+    h, w = hw
+    c = torch.rand(n, 2, generator=gen) * torch.tensor([w, h])
+    cam = torch.randint(0, frame_count, (n,), generator=gen, dtype=torch.int32).to(device)
+    s = torch.rand(n, 2, generator=gen) * 52.0 + 8.0
+    yield "upsampling spans 8-60 px", torch.cat([c - s / 2, c + s / 2], 1).to(device).contiguous(), cam
+    s = (torch.rand(n, 2, generator=gen) * 2.0 + 2.0) * 992.0
+    b = torch.cat([c - s / 2, c + s / 2], 1)
+    b[::4] = b[::4][:, [2, 3, 0, 1]]  # corners swapped
+    yield "spans 2-4x the top level's cap", b.to(device).contiguous(), cam
 
 
 def s2d_crop_bytes(frames, boxes, cam, S, win_cells=64, n_levels=3, level_bytes=2) -> int:
@@ -642,6 +685,14 @@ def kernels_crop_s2d(device, flush, noop_ms):
         hold(f"uint8 normalize bf16 {layout}, crop_case boxes", frames2, cb, cam2, 0.0, out_size=S,
              layout=layout, normalize=True)
         hold(f"float bf16 {layout}, crop_case boxes", ff, cb, cam2, 0.0, out_size=37, layout=layout)
+        # S = 1 and 37: column groups with a tail, scalar stores
+        for size in (1, 37):
+            for label, b, cam in s2d_far_box_sets(gen, device, (H, W), 2):
+                hold(f"uint8 normalize bf16 {layout} S={size}, 2 cameras, {label}", frames2, b, cam, 0.0,
+                     out_size=size, layout=layout, normalize=True)
+    for label, b, cam in s2d_far_box_sets(gen, device, (H, W), 2):
+        hold(f"float float32 hwc, 2 cameras, {label}", ff, b, cam, 1e-6, out_size=S, layout="hwc",
+             dtype=torch.float32)
     for layout in ("s2d", "hwc", "chw"):
         hold(f"uint8 normalize float32 {layout}, crop_case boxes", frames2, cb, cam2, 1e-6, out_size=S,
              layout=layout, dtype=torch.float32, normalize=True)
@@ -654,6 +705,21 @@ def kernels_crop_s2d(device, flush, noop_ms):
     hold("uint8 normalize bf16 hwc, odd cells, window 64 (frame below the window)", odd, ob, ocam, 0.0,
          out_size=37, layout="hwc", normalize=True)
     hold("uint8 bf16 s2d, one level", odd, ob, ocam, 0.0, out_size=28, win_cells=16, n_levels=1)
+    # five levels: levels 3 and 4 built from the ones above, as they are, while
+    # the pyramid holds them normalized; float frames normalized at bfloat16
+    # (each value checked for a near-zero quotient)
+    hold("uint8 normalize bf16 s2d, five levels, window 16", frames2, cb, cam2, 0.0, out_size=S, win_cells=16,
+         n_levels=5, normalize=True)
+    hold("uint8 bf16 hwc, five levels, window 16", frames2, cb, cam2, 0.0, out_size=37, layout="hwc", win_cells=16,
+         n_levels=5)
+    hold("float normalize float32 s2d, five levels, window 16", ff, cb, cam2, 1e-6, out_size=S, win_cells=16,
+         n_levels=5, dtype=torch.float32, normalize=True)
+    hold("float normalize bf16 s2d, crop_case boxes", ff, cb, cam2, 0.0, out_size=S, normalize=True)
+    # staged rows wider than 85 cells (a thread stages two cells of a row) and
+    # more than 48 KB of shared memory a block (the launcher raises the limit)
+    for dtype, tol in ((torch.bfloat16, 0.0), (torch.float32, 1e-6)):
+        hold(f"uint8 normalize {str(dtype)[6:]} s2d, one level, window 128", frames2, cb, cam2, tol, out_size=S,
+             win_cells=128, n_levels=1, dtype=dtype, normalize=True)
 
     # times at the main path's call: uint8 [1,270,480,48], 32 boxes of 992 px,
     # normalize, bfloat16, packed crops
@@ -664,6 +730,10 @@ def kernels_crop_s2d(device, flush, noop_ms):
 
     cold = [gpu_ms(run, flush=flush) for _ in range(3)]
     kernel_ms, warm_ms = float(np.median(cold)), gpu_ms(run)
+    split = kernel_split(run, ("pyramid_kernel", "sample_kernel"), flush=flush)
+    case_cold = float(np.median([
+        gpu_ms(lambda: crop_mxu.crop_and_resize_s2d_cuda(frames1, cb, cam, S, normalize=True), flush=flush)
+        for _ in range(3)]))
     plain_ms = gpu_ms(lambda: crop_mxu.crop_and_resize_s2d_plain(frames1, main_boxes, cam, S, normalize=True),
                       iters=10, flush=flush)
     lib = pooled_grid_sample_call(frames1, main_boxes, S)
@@ -675,7 +745,10 @@ def kernels_crop_s2d(device, flush, noop_ms):
     log(f"kernels: crop_and_resize_s2d at [1,{H // 4},{W // 4},48] uint8, {n} crops of {S}x{S} (packed), "
         f"main-path boxes: pyramid + sampling (2 kernels, one call) {kernel_ms * 1e3:.2f} us "
         f"(L2 cold, median of 3 x 50: {' '.join(f'{c * 1e3:.2f}' for c in cold)}; {warm_ms * 1e3:.2f} us warm; "
-        f"an empty kernel {noop_ms * 1e3:.2f} us), avg_pool2d x 2 + grid_sample on the unpacked float32 frame "
+        f"an empty kernel {noop_ms * 1e3:.2f} us; by kernel under the profiler, L2 cold, overlapping: "
+        + ", ".join(f"{k} {'not measured' if v is None else format(v * 1e3, '.2f') + ' us'}" for k, v in split.items())
+        + f"; the whole call at crop_case boxes {case_cold * 1e3:.2f} us), "
+        f"avg_pool2d x 2 + grid_sample on the unpacked float32 frame "
         f"{library_ms * 1e3:.2f} us, plain version {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
         f"({nbytes} bytes at 3.35 TB/s), {bound_ms / kernel_ms * 100:.1f}% of bound")
     return {

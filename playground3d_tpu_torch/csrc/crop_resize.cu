@@ -13,11 +13,11 @@
 // Bound on this card: bytes (the output, plus each distinct pixel the
 // samples touch, once), but the work is so small (32 crops of 112x112x3
 // are 4.8 MB out) that the card's memory rate decides nothing. Measured on
-// an H100 (PERF.md section 6), what did limit the first version of this
-// kernel was, in order: type-conversion instructions (13 per output
-// element, at an eighth of the float32 rate), then the chain of dependent
-// trips to memory in each block and the number of blocks that chain was
-// paid in. The design:
+// an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6), what did limit
+// the first version of this kernel was, in order: type-conversion
+// instructions (13 per output element, at an eighth of the float32 rate),
+// then the chain of dependent trips to memory in each block and the number
+// of blocks that chain was paid in. The design:
 //
 //  * One block per (crop, tile of output rows): the box, the frame index and
 //    everything that depends only on the crop are read and computed once

@@ -49,7 +49,7 @@ from playground3d_tpu_torch.utils.constants import IMAGENET_MEAN, IMAGENET_STD
 __all__ = [
     "LIB", "LaunchPlan", "check_args", "crop_and_resize_s2d", "crop_and_resize_s2d_cuda",
     "crop_and_resize_s2d_plain", "launch_plan", "level_shapes", "max_crop_span_s2d", "pack_s2d",
-    "s2d_halve",
+    "s2d_halve", "sample_shared_bytes",
 ]
 
 LAYOUTS = ("s2d", "hwc", "chw")
@@ -267,32 +267,52 @@ def crop_and_resize_s2d_plain(
 THREADS = 256
 TILE_ROWS = 8  # output rows per block
 MAX_LEVELS = 8
-MAX_OUT_SIZE = 1024  # the column table is static shared memory
+MAX_OUT_SIZE = 1024
+MAX_SHARED_BYTES = 232448  # shared memory a block may have on the H100
+PYRAMID_CELLS = 64  # level-1 cells of one cell row per pyramid block (4 threads each)
 MAX_BLOCKS = 2**31 - 1
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.crop_resize_s2d.argtypes = [ptr] * 6 + [i32] * 11 + [ptr, ptr]
+    lib.crop_resize_s2d.argtypes = [ptr] * 6 + [i32] * 12 + [ptr, ptr]
     lib.crop_resize_s2d.restype = i32
 
 
 LIB = KernelLibrary("crop_resize_s2d", _bind)
 
 
+def sample_shared_bytes(out_size: int, win_cells: int = 64, dtype=torch.bfloat16, frames_dtype=torch.uint8) -> int:
+    """Dynamic shared memory of the sampling kernel: the column table (two
+    staged-pixel indices and two weights per output column, ``out_size``
+    rounded up to 4), the row table (a source offset and a weight for each of
+    2 * ``TILE_ROWS`` staged rows) and two areas of staged rows, each row as
+    wide as the window (4 * ``win_cells`` pixels of 3 values): the frames'
+    values as copied (a crop of level 0) and the ``dtype`` values the taps
+    read. The host does not see the boxes, so the rows are sized for the
+    widest."""
+    value_bytes = 2 if dtype == torch.bfloat16 else 4
+    frame_bytes = 1 if frames_dtype == torch.uint8 else 4
+    return (16 * -(-out_size // 4) * 4 + 8 * 2 * TILE_ROWS
+            + 2 * TILE_ROWS * 12 * win_cells * (frame_bytes + value_bytes))
+
+
 class LaunchPlan(NamedTuple):
     tiles: int  # blocks per crop in the sampling kernel
     blocks: int  # its grid
+    shared_bytes: int  # its dynamic shared memory
     pyramid_blocks: Tuple[int, ...]  # grids of the pyramid kernels: levels 1 and 2 together, then one per deeper level
     level_offsets: Tuple[int, ...]  # element offset of each level in the pyramid buffer (level 0: 0, unused)
     pyramid_elems: int  # elements of the pyramid buffer (levels 1..)
 
 
-def launch_plan(C: int, Hs: int, Ws: int, n: int, out_size: int, n_levels: int = 3) -> LaunchPlan:
+def launch_plan(C: int, Hs: int, Ws: int, n: int, out_size: int, n_levels: int = 3, win_cells: int = 64,
+                dtype=torch.bfloat16, frames_dtype=torch.uint8) -> LaunchPlan:
     """What the host decides for one call, from shapes alone: the sampling
-    grid (one block per crop and tile of ``TILE_ROWS`` output rows), the
-    pyramid kernels' grids (one thread per level-1 cell builds levels 1 and 2;
-    a deeper level takes one thread per element) and where each level lies in
+    grid (one block per crop and tile of ``TILE_ROWS`` output rows) and its
+    shared memory (:func:`sample_shared_bytes`), the pyramid kernels' grids
+    (a block per ``PYRAMID_CELLS`` level-1 cells of one cell row builds
+    levels 1 and 2; a deeper level takes one thread per element) and where each level lies in
     the scratch buffer. Raises ValueError for what the kernel does not take."""
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"crop_resize_s2d: n_levels must be in 1..{MAX_LEVELS}, got {n_levels}")
@@ -300,11 +320,17 @@ def launch_plan(C: int, Hs: int, Ws: int, n: int, out_size: int, n_levels: int =
         raise ValueError(f"crop_resize_s2d: out_size must be in 1..{MAX_OUT_SIZE}, got {out_size}")
     if n < 1:
         raise ValueError(f"crop_resize_s2d: nothing to launch for n={n}")
+    shared = sample_shared_bytes(out_size, win_cells, dtype, frames_dtype)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"crop_resize_s2d: win_cells={win_cells} stages {shared} bytes of shared memory a block "
+            f"at out_size={out_size}, {dtype}, {frames_dtype} frames; the card allows {MAX_SHARED_BYTES}"
+        )
     tiles = -(-out_size // TILE_ROWS)
     if n * tiles > MAX_BLOCKS:
         raise ValueError(f"crop_resize_s2d: {n} crops in {tiles} tiles each exceed {MAX_BLOCKS} blocks")
     offsets, total = [0], 0
-    pyramid_blocks = [-(-C * (Hs // 2) * (Ws // 2) // THREADS)] if n_levels > 1 else []
+    pyramid_blocks = [C * (Hs // 2) * -(-(Ws // 2) // PYRAMID_CELLS)] if n_levels > 1 else []
     for k, (hl, wl) in enumerate(level_shapes(Hs, Ws, n_levels)[1:], start=1):
         elems = C * hl * wl * 48
         if elems < 1:
@@ -313,7 +339,7 @@ def launch_plan(C: int, Hs: int, Ws: int, n: int, out_size: int, n_levels: int =
         if k >= 3:
             pyramid_blocks.append(-(-elems // THREADS))
         total += elems
-    return LaunchPlan(tiles, n * tiles, tuple(pyramid_blocks), tuple(offsets), total)
+    return LaunchPlan(tiles, n * tiles, shared, tuple(pyramid_blocks), tuple(offsets), total)
 
 
 def check_args(frames_s2d, boxes, cam_idx, out_size, win_cells, n_levels, layout, dtype) -> None:
@@ -339,7 +365,7 @@ def check_args(frames_s2d, boxes, cam_idx, out_size, win_cells, n_levels, layout
     if frames_s2d.numel() >= 2**31 or n * out_size * out_size * 3 >= 2**31:
         raise ValueError("crop_resize_s2d: frames or output exceed 2^31 elements")
     if n:
-        launch_plan(*frames_s2d.shape[:3], n, out_size, n_levels)
+        launch_plan(*frames_s2d.shape[:3], n, out_size, n_levels, win_cells, dtype, frames_s2d.dtype)
 
 
 def crop_and_resize_s2d_cuda(
@@ -348,8 +374,8 @@ def crop_and_resize_s2d_cuda(
     normalize: bool = False,
 ) -> torch.Tensor:
     """Launch the kernels on the current stream (the pyramid, then the
-    sampling: two launches at the default three levels) -> float32 crops in
-    ``layout``.
+    sampling, which starts while the pyramid is written: two launches at the
+    default three levels) -> float32 crops in ``layout``.
     ``crop_and_resize_s2d_cuda.launches`` counts the calls that launched."""
     if frames_s2d.device.type != "cuda":
         raise ValueError(f"crop_resize_s2d: the CUDA kernel takes CUDA tensors, got {frames_s2d.device}")
@@ -360,7 +386,7 @@ def crop_and_resize_s2d_cuda(
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    plan = launch_plan(C, Hs, Ws, n, S, n_levels)
+    plan = launch_plan(C, Hs, Ws, n, S, n_levels, win_cells, dtype, frames_s2d.dtype)
     pyramid = torch.empty((max(plan.pyramid_elems, 1),), dtype=dtype, device=dev)
     offsets = (ctypes.c_longlong * MAX_LEVELS)(*plan.level_offsets)
     mean, std = _normalize_constants(dtype, "cpu")
@@ -371,7 +397,8 @@ def crop_and_resize_s2d_cuda(
             frames_s2d.data_ptr(), pyramid.data_ptr(), ctypes.cast(offsets, ctypes.c_void_p),
             boxes.data_ptr(), cam_idx.data_ptr(), out.data_ptr(), C, Hs, Ws, n, S, win_cells,
             n_levels, LAYOUTS.index(layout), int(frames_s2d.dtype == torch.uint8),
-            int(dtype == torch.bfloat16), int(bool(normalize)), ctypes.cast(norm6, ctypes.c_void_p),
+            int(dtype == torch.bfloat16), int(bool(normalize)), plan.shared_bytes,
+            ctypes.cast(norm6, ctypes.c_void_p),
             torch.cuda.current_stream().cuda_stream,
         )
     LIB.check(err)

@@ -58,7 +58,8 @@ MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory one block may ask for
 MAX_BLOCKS_Y = 65535
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SPLITS = 32
-# the plan's cost model (measured on the H100 by scripts/qconv_block_timeline.py; PERF.md), by tile width:
+# the plan's cost model (measured by scripts/qconv_block_timeline.py on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; PERF.md), by tile width:
 STEP_US = {256: 0.6, 128: 0.4}  # one K step of a block (128 channels of one tap); 128 for every width below 256
 EPILOGUE_US = {256: 7.0, 128: 3.5}  # a block's parked tile and epilogue
 SPLIT_US = 3.0  # what splitting adds whatever the tile: the reductions' latency, the counter, the read-back

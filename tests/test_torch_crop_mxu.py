@@ -218,11 +218,16 @@ def test_launch_plan(C, Hs, Ws, n, S, levels):
     plan = P.launch_plan(C, Hs, Ws, n, S, levels)
     assert plan.tiles == -(-S // P.TILE_ROWS) and plan.blocks == n * plan.tiles
     shapes = P.level_shapes(Hs, Ws, levels)
-    # one kernel builds levels 1 and 2 (a thread per level-1 cell), one more per deeper level
+    # one kernel builds levels 1 and 2 (a block per PYRAMID_CELLS level-1
+    # cells of a cell row, a thread per pixel row of each), one more per deeper level
     assert len(plan.level_offsets) == levels and len(plan.pyramid_blocks) == (levels > 1) + max(levels - 3, 0)
+    assert P.THREADS == 4 * P.PYRAMID_CELLS
     if levels > 1:
-        cells1 = C * shapes[1][0] * shapes[1][1]
-        assert plan.pyramid_blocks[0] * P.THREADS >= cells1 > (plan.pyramid_blocks[0] - 1) * P.THREADS
+        rows, cells = C * shapes[1][0], shapes[1][1]
+        assert plan.pyramid_blocks[0] % rows == 0
+        per_row = plan.pyramid_blocks[0] // rows
+        assert per_row * P.PYRAMID_CELLS >= cells > (per_row - 1) * P.PYRAMID_CELLS
+    assert plan.shared_bytes == P.sample_shared_bytes(S)
     total = 0
     for k in range(1, levels):
         assert plan.level_offsets[k] == total
@@ -234,13 +239,50 @@ def test_launch_plan(C, Hs, Ws, n, S, levels):
     assert plan.pyramid_elems == total
     if (Hs, Ws) == (270, 480):
         assert shapes == [(270, 480), (135, 240), (67, 120)]  # 1080p: level 2 drops a cell row
+        assert plan.pyramid_blocks == (540,)  # 135 cell rows of 4 blocks: ~4 blocks of 256 an SM of 132
 
 
-@pytest.mark.parametrize("kw", [dict(n_levels=9), dict(out_size=2000), dict(n=0), dict(Hs=1, n_levels=2)])
-def test_launch_plan_refuses(kw):
+@pytest.mark.parametrize("frames_dtype", [torch.uint8, torch.float32], ids=["u8", "f32frames"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("win_cells", [3, 4, 16, 37, 64])
+def test_sample_shared_bytes_fit_every_size(win_cells, dtype, frames_dtype):
+    """The staged rows are sized for the widest a crop can stage (the
+    window, 4 * win_cells pixels of 3 values), once as the frames' type and
+    once as the compute type; the column table for S rounded up to 4. Every
+    S up to MAX_OUT_SIZE fits a block, and both areas start on a 16-byte
+    boundary (vector copies and loads)."""
+    value_bytes = 2 if dtype == torch.bfloat16 else 4
+    frame_bytes = 1 if frames_dtype == torch.uint8 else 4
+    rows = 2 * P.TILE_ROWS * 12 * win_cells
+    for S in range(1, P.MAX_OUT_SIZE + 1):
+        got = P.sample_shared_bytes(S, win_cells, dtype, frames_dtype)
+        assert got <= P.MAX_SHARED_BYTES
+        tables = got - rows * (frame_bytes + value_bytes)
+        assert tables == 16 * (-(-S // 4) * 4) + 8 * 2 * P.TILE_ROWS and tables % 16 == 0
+        assert (tables + rows * frame_bytes) % 16 == 0
+        assert P.launch_plan(1, 64, 64, 3, S, 3, win_cells, dtype, frames_dtype).shared_bytes == got
+    assert P.sample_shared_bytes(112, 64) == 38784  # the main path's call
+
+
+@pytest.mark.parametrize("dtype,frames_dtype,win_cells", [(torch.float32, torch.float32, 141),
+                                                          (torch.bfloat16, torch.uint8, 375)])
+def test_launch_plan_refuses_a_window_that_does_not_fit(dtype, frames_dtype, win_cells):
+    S = P.MAX_OUT_SIZE
+    assert P.sample_shared_bytes(S, win_cells - 1, dtype, frames_dtype) <= P.MAX_SHARED_BYTES
+    P.launch_plan(1, 16, 16, 1, S, 2, win_cells - 1, dtype, frames_dtype)
+    with pytest.raises(ValueError, match="win_cells=.*shared memory"):
+        P.launch_plan(1, 16, 16, 1, S, 2, win_cells, dtype, frames_dtype)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(n_levels=9), "n_levels"), (dict(out_size=2000), "out_size"), (dict(n=0), "nothing to launch"),
+    (dict(Hs=1, n_levels=2), "empty"), (dict(win_cells=500), "shared memory"),
+    (dict(n=2**28, out_size=1024), "blocks"),
+])
+def test_launch_plan_refuses(kw, match):
     args = dict(C=1, Hs=16, Ws=16, n=1, out_size=16, n_levels=2)
     args.update(kw)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=match):
         P.launch_plan(**args)
 
 
@@ -251,3 +293,9 @@ def test_kernel_source_holds_the_same_constants():
     consts = {m.group(1): int(m.group(2)) for m in re.finditer(r"constexpr int (\w+) = (\d+);", src)}
     assert consts["kThreads"] == P.THREADS and consts["kTileRows"] == P.TILE_ROWS
     assert consts["kMaxLevels"] == P.MAX_LEVELS and consts["kMaxOutSize"] == P.MAX_OUT_SIZE
+    assert consts["kMaxSharedBytes"] == P.MAX_SHARED_BYTES and consts["kPyramidCells"] == P.PYRAMID_CELLS
+    # the shared-memory formula the launcher checks the plan's bytes against
+    assert "return 16 * ((S + 3) & ~3);" in src and "kRowTableBytes = 8 * 2 * kTileRows;" in src
+    assert "return 12 * win_cells;" in src
+    assert ("col_table_bytes(S) + kRowTableBytes + 2 * kTileRows * stage_pitch(win_cells) * (frame_bytes + value_bytes)"
+            in src)
