@@ -27,7 +27,15 @@ result line):
              and planar YUV420 bytes converted on the card. Before that, the
              card's clip is held against the CPU's on a small input for each
              transport and for a quantized pair;
-4. report  - the ``kernels`` JSON line, the card's name and power limit, and
+4. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
+             against the CPU at 64x96 (conv7 + float, s2d + int8); the shipped
+             int8 ResNet-50 s2d detector on 24 uint8 s2d-packed 1080p frames
+             through ``SingleCameraTracker.track`` (``qconv.cu`` exactly 102
+             launches a frame, no crop or YUV kernel, the CSV written and read
+             back); then ``apps/track.py --mode single`` (real conv7 detector,
+             rendered 1080p frames) and ``--mode multi --oracle``, both with
+             ``--eval``;
+5. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
@@ -1350,6 +1358,192 @@ def phase_main(device):
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# the single camera
+# ---------------------------------------------------------------------------
+
+
+def steer_detector(det, reg, hw, car):
+    """Aim the detector's regression bias so that each anchor of cell (0, 0)
+    decodes to the image box of ``car`` [x, y, l, w, h, dir] (with zero
+    output convs every box is its bias): the frames then yield boxes that
+    parse to roadway states, and tracks are born, matched and updated."""
+    import torch
+
+    from playground3d_tpu_torch.data.synthetic import aimed_regression_bias
+
+    bias = aimed_regression_bias(reg.P[0, 0], car, hw)
+    with torch.no_grad():
+        det.heads.reg_out.b.copy_(torch.as_tensor(bias))
+    return det
+
+
+def single_small_reference(device):
+    """``SingleCameraTracker`` on the card against the CPU at 64x96 with a
+    ResNet-18 detector (conv7 + float, and s2d + int8 quantized once on the
+    CPU and copied), 8 frames: ids, masks and classes equal, states within
+    1e-3 ft."""
+    import torch
+
+    from playground3d_tpu_torch.models.quant import quantize_detector
+    from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
+
+    hw = (64, 96)
+    reg = bench_registry(*hw)
+    cfg = tracker_config(small=True)
+    raw = np.random.default_rng(12).integers(0, 256, (8,) + hw + (3,), dtype=np.uint8)
+    for label, stem, int8 in (("conv7 + float", "conv7", False), ("s2d + int8", "s2d", True)):
+        det, _ = build_models("cpu", (16.0, 16.0), small=True, stem=stem)
+        det = steer_detector(det, reg, hw, car=(330.0, 30.0, 18.0, 6.0, 5.0, 1.0))
+        frames = raw
+        if int8:
+            det = quantize_detector(det, torch.as_tensor(pack_frames(raw[:1])))
+            frames = pack_frames(raw)
+        out = {}
+        for dev in ("cpu", device):
+            d = det if dev == "cpu" else copy.deepcopy(det).to(dev)
+            trk = SingleCameraTracker(reg, "p1c1", cfg=cfg, det_model=d, stem=stem, device=dev)
+            snaps = [trk.process_frame(frames[k], 1.6e9 + k / 30.0, k) for k in range(len(frames))]
+            out[str(dev)] = {k: torch.stack([getattr(s, k).cpu() for s in snaps])
+                             for k in ("ids", "raw_mask", "mask", "classes", "states7")}
+        cpu, gpu = out["cpu"], out[str(device)]
+        for k in ("ids", "raw_mask", "mask", "classes"):
+            if not torch.equal(cpu[k], gpu[k]):
+                fail(f"single camera small ({label}): {k} differs between the card and the CPU")
+        live = cpu["raw_mask"]
+        if int(live.sum()) == 0:
+            fail(f"single camera small ({label}): no live tracks")
+        diff = float((cpu["states7"] - gpu["states7"])[live].abs().max())
+        log(f"single: small run (8 frames, 64x96; {label}) card vs CPU: ids/masks/classes equal, "
+            f"{int(live.sum())} live slot-frames, states7 max_abs_diff {diff:.3g} (tolerance 1e-3)")
+        if not diff <= 1e-3:
+            fail(f"single camera small ({label}): states7 differ by {diff}")
+
+
+def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
+    """The shipped detector on uint8 s2d-packed 1080p frames through
+    ``SingleCameraTracker.track`` at the main path's knobs: the ResNet-50 s2d
+    detector of :func:`shipped_models` (same seed, class bias +3), its
+    regression bias aimed at a car on the road (the shipped one's boxes
+    parse to states that the lifecycle drops at once, so no track would
+    outlive its frame), int8-quantized on the same packed frame. Launch
+    counts set to 0 just before the timed frames and read just after; the
+    CSV written and read back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from playground3d_tpu_torch.evaluation.csv_io import load_i24_csv
+    from playground3d_tpu_torch.models.quant import quantize_detector
+    from playground3d_tpu_torch.ops.topk import HostSyncs
+    from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
+
+    reg, cfg, _, _, calib = shipped_models(device)
+    det, _ = build_models(device, (56.0, 56.0), stem="s2d")
+    det_q = quantize_detector(steer_detector(det, reg, (H, W), car=(480.0, 54.0, 18.0, 6.0, 5.0, 1.0)),
+                              calib[None])
+    per_detect = sum(record_qconv_shapes(device)["detect"].values())
+    raw = np.random.default_rng(3).integers(0, 256, (n_warm + n_frames, H, W, 3), dtype=np.uint8)
+    packed = pack_frames(raw)
+    stream = [(packed[k], 1.6e9 + k / 30.0) for k in range(len(packed))]
+
+    warm = SingleCameraTracker(reg, "p1c1", cfg=cfg, det_model=det_q, stem="s2d", device=device)
+    warm.track(stream[:n_warm])
+    torch.cuda.synchronize()
+
+    trk = SingleCameraTracker(reg, "p1c1", cfg=cfg, det_model=det_q, stem="s2d", device=device)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    syncs0, loops0 = HostSyncs.count, dict(HostSyncs.by_loop)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    stats = trk.track(stream[n_warm:])
+    e.record()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    syncs = HostSyncs.count - syncs0
+    loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
+    ms = s.elapsed_time(e)
+
+    if stats["frames"] != n_frames or len(trk.rows) != n_frames:
+        fail(f"single: {stats['frames']} frames tracked, {len(trk.rows)} rows, expected {n_frames}")
+    if launches["qconv"] != n_frames * per_detect:
+        fail(f"single: qconv launched {launches['qconv']} times, expected {n_frames} x {per_detect}")
+    if launches["crop_and_resize"] or launches["crop_and_resize_s2d"] or launches["yuv420_flat_to_s2d"]:
+        fail(f"single: the single camera launched a crop or YUV kernel: {launches}")
+    live_pairs = sum(len(row[2]) for row in trk.rows)
+    for row in trk.rows:
+        if not np.isfinite(row[3]).all():
+            fail(f"single: non-finite states at frame {row[0]}")
+    if live_pairs == 0:
+        fail("single: the detector produced no tracks")
+    os.makedirs("_outputs", exist_ok=True)
+    path = os.path.join("_outputs", "single_cam.csv")
+    trk.write_results_csv(path)
+    _, data = load_i24_csv(path)
+    n_rows = sum(len(rows) for rows in data.values())
+    if n_rows != live_pairs:
+        fail(f"single: the CSV holds {n_rows} rows for {live_pairs} live (id, frame) pairs")
+
+    timers = {k: v for k, v in stats.items() if k not in ("frames", "fps")}
+    fps = n_frames / ms * 1e3
+    log(f"single: {n_frames} frames of 1x{H}x{W} uint8 s2d-packed, s2d + int8 ResNet-50, in {ms:.1f} ms "
+        f"(CUDA events) = {fps:.2f} frames/s; host syncs {syncs} ({syncs / n_frames:.2f} per frame; by loop "
+        f"{loops}); drain {timers['drain'] / sum(timers.values()) * 100:.1f}% of the stage "
+        f"timers ({', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timers.items())})")
+    log(f"single: kernel launches {launches} ({per_detect} qconv a frame); {live_pairs} live (id, frame) "
+        f"pairs = CSV rows read back")
+
+    frame_dev = stream[0][0]
+    trk.process_frame(frame_dev, stream[-1][1] + 1 / 30.0, n_frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trk.process_frame(frame_dev, stream[-1][1] + 2 / 30.0, n_frames + 1)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    if busy > 0:
+        log(f"single: profile of one frame: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+            f"({busy / wall_us * 100:.0f}%)")
+    else:
+        log("single: profile of one frame: the profiler saw no device time (not measured)")
+
+
+def single_app():
+    """``apps/track.py`` on the card, in-process: ``--mode single`` with the
+    real detector (conv7 + float ResNet-50, the app's default) on rendered
+    1080p frames, and ``--mode multi --oracle``, both with ``--eval``."""
+    from playground3d_tpu_torch.apps import track
+    from playground3d_tpu_torch.ops.topk import HostSyncs
+
+    os.makedirs("_outputs", exist_ok=True)
+    for mode, extra in (("single", ["--frames", "4"]), ("multi", ["--oracle", "--frames", "30"])):
+        out = os.path.join("_outputs", f"track_{mode}.csv")
+        gt = out + ".gt.csv"
+        for f in (out, gt):
+            if os.path.exists(f):
+                os.remove(f)
+        t0, loops0 = time.time(), dict(HostSyncs.by_loop)
+        metrics = track.main(["--mode", mode, "--out", out, "--eval"] + extra)
+        loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
+        if not (os.path.exists(out) and os.path.exists(gt)):
+            fail(f"single: apps.track --mode {mode} wrote no CSV or no GT CSV")
+        if not metrics or "MOTA" not in metrics or "TP" not in metrics:
+            fail(f"single: apps.track --mode {mode} --eval gave no MOT metrics")
+        log(f"single: apps.track --mode {mode} {' '.join(extra)} --eval on the card: {time.time() - t0:.1f} s, "
+            f"host syncs by loop {loops}; TP {metrics['TP']}, FP {metrics['FP']}, FN {metrics['FN']}, "
+            f"MOTA {metrics['MOTA']:.3f}")
+
+
+def phase_single(device):
+    """The single camera: card against CPU on a small input, the shipped
+    int8 detector at full width, then the tracking app's two modes."""
+    single_small_reference(device)
+    single_full_width(device)
+    single_app()
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1380,6 +1574,7 @@ def main() -> None:
         log(f"total: {time.time() - t0:.1f} s (kernels only: no result line)")
         return
     launches = phase_main(device)
+    phase_single(device)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["launches"] < 1:

@@ -2,10 +2,11 @@
 
 ``params_from_jax_numpy`` takes the JAX parameter tree as numpy arrays
 (nested dicts and lists, conv weights HWIO, frozen-BN scale/offset/mean/var)
-and ``load_npz`` the flat ``/``-joined npz that ``models/nn.py::save_params``
-writes. Both fill a :class:`~playground3d_tpu_torch.models.retinanet.RetinaNet`
-whose architecture matches the tree. Conv weights go HWIO -> OIHW; channel
-order is kept, so the heads' (anchor, class) packing survives. A quantized
+and fills a :class:`~playground3d_tpu_torch.models.retinanet.RetinaNet`
+whose architecture matches the tree; ``models/nn.py::load_params`` reads the
+flat ``/``-joined npz that either package's ``save_params`` writes through
+it. Conv weights go HWIO -> OIHW; channel order is kept, so the heads'
+(anchor, class) packing survives. A quantized
 tree (``models/quant.py``) carries ``wq`` (int8, HWIO -> [out,k,k,in]),
 ``ws`` and ``xs`` beside the float weights of its quantized convs: they land
 in the buffers of the same names, so both packages run the same integers.
@@ -117,10 +118,3 @@ def model_from_flat(flat: Mapping[str, np.ndarray], device: DeviceLike = None) -
 def params_from_jax_numpy(tree: Any, device: DeviceLike = None) -> RetinaNet:
     """JAX ``retinanet_init`` tree (numpy leaves) -> RetinaNet."""
     return model_from_flat(flatten_tree(tree), device)
-
-
-def load_npz(path: str, device: DeviceLike = None) -> RetinaNet:
-    """``models/nn.py::save_params`` npz -> RetinaNet."""
-    with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
-    return model_from_flat(flat, device)

@@ -16,13 +16,19 @@ Two details keep the numerics of ``jax.lax.conv_general_dilated``:
   emits that dtype, and the bias is added after the conv in that dtype, as
   ``conv_apply`` does (``nn.py:64-74``); frozen BN is ``x*a + b`` with
   ``a``/``b`` folded in float32 and then cast.
+
+:func:`save_params` and :func:`load_params` read and write the JAX package's
+checkpoint format: a flat ``.npz`` keyed by the ``/``-joined paths of the
+parameter tree, list indices as path components, ``None`` leaves skipped.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -117,3 +123,76 @@ def crop_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = min(a.shape[2], b.shape[2])
     w = min(a.shape[3], b.shape[3])
     return a[:, :, :h, :w] + b[:, :, :h, :w]
+
+
+# ---------------------------------------------------------------------------
+# checkpoints in the JAX package's format
+# ---------------------------------------------------------------------------
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
+    """{"a/0/b": array} -> nested dicts, with lists where every key of a
+    level is an index (the tree ``save_params`` flattened)."""
+    root: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = root
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out) and sorted(map(int, out)) == list(range(len(out))):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return lists(root)
+
+
+def save_params(path: str, model: nn.Module) -> None:
+    """Write ``model`` as the JAX package's ``save_params`` writes its tree:
+    float tensors under their tree paths with conv weights HWIO, and the
+    int8 state of quantized convs (``wq`` HWIO, ``ws``, ``xs``). Atomic:
+    a temporary file in the same directory, then a rename."""
+    flat = {}
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        a = t.detach().cpu().numpy()
+        if name.endswith(".w"):
+            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif name.endswith(".wq"):
+            a = a.transpose(1, 2, 3, 0)  # [out,k,k,in] -> HWIO
+        flat[name.replace(".", "/")] = a
+    tmp = f"{path}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "wb") as fh:
+            np.savez(fh, **flat)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def load_params(path: str, like: nn.Module):
+    """Load a checkpoint written by either package's ``save_params`` into a
+    new RetinaNet shaped like ``like`` and on its device: the flat keys are
+    rebuilt into the nested tree and carried across by
+    :func:`~playground3d_tpu_torch.models.bridge.params_from_jax_numpy`.
+    Raises unless the checkpoint holds exactly ``like``'s tensors."""
+    from playground3d_tpu_torch.models.bridge import flatten_tree, params_from_jax_numpy
+
+    with np.load(path, allow_pickle=False) as z:
+        tree = _unflatten({k: z[k] for k in z.files})
+    expected = {name.replace(".", "/") for name, _ in list(like.named_parameters()) + list(like.named_buffers())}
+    got = set(flatten_tree(tree))
+    if got != expected:
+        raise ValueError(
+            f"{path}: checkpoint does not match the model: missing {sorted(expected - got)[:5]} "
+            f"extra {sorted(got - expected)[:5]}"
+        )
+    return params_from_jax_numpy(tree, device=next(like.parameters()).device)

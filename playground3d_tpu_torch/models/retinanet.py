@@ -145,9 +145,13 @@ def detect_multiframe(
 ) -> Detections:
     """Batched multi-camera detection: per-anchor max class logit over all
     N frames, exact top-k (lower index first on ties), sigmoid and decode
-    of the survivors, camera-grouped NMS on the 2D boxes (cols 16:20)."""
-    if approx_topk:
-        raise ValueError("approx_topk is the TPU's approx_max_k; the port's top-k is exact")
+    of the survivors, camera-grouped NMS on the 2D boxes (cols 16:20).
+
+    ``approx_topk`` is accepted and runs the same exact top-k. The JAX
+    function then calls ``jax.lax.approx_max_k``, which is approximate
+    (recall 0.99) only on the TPU and returns ``lax.top_k``'s indices on
+    other backends; the port has no TPU path, so both flags give JAX's
+    off-TPU result."""
     n = images.shape[0]
     levels = tuple(range(min_level, 8))
     anchors = _anchors(_image_shape_of(images, model.stem), levels, images.device)

@@ -16,7 +16,7 @@ import torch
 
 from playground3d_tpu_torch.ops.topk import HostSyncs
 
-__all__ = ["assign_auction", "assign_hungarian"]
+__all__ = ["assign_auction", "assign_hungarian", "matches_from_assignment"]
 
 NEG = -1e9
 
@@ -54,7 +54,7 @@ def assign_auction(
     row_of_col = torch.full((k,), -1, dtype=torch.int64, device=dev)
     col_of_row = torch.full((k,), -1, dtype=torch.int64, device=dev)
 
-    while it < max_iters and HostSyncs.read(torch.any(col_of_row < 0) | (eps > eps_final)):
+    while it < max_iters and HostSyncs.read(torch.any(col_of_row < 0) | (eps > eps_final), "auction"):
         bidding = col_of_row < 0
         value = b - price[None, :]
         best_j = torch.argmax(value, dim=1)
@@ -117,3 +117,17 @@ def assign_hungarian(benefit: np.ndarray, maximize: bool = True) -> np.ndarray:
     r, c = linear_sum_assignment(benefit, maximize=maximize)
     out[r] = c
     return out
+
+
+def matches_from_assignment(
+    col_of_row: np.ndarray, benefit: np.ndarray, min_benefit: float
+) -> np.ndarray:
+    """[l,2] (row, col) pairs with benefit >= min_benefit - the reference's
+    post-assignment distance cutoff (minimal_3D_track.py:611-623)."""
+    rows = np.nonzero(col_of_row >= 0)[0]
+    out = []
+    for r in rows:
+        c = col_of_row[r]
+        if benefit[r, c] >= min_benefit:
+            out.append((r, c))
+    return np.array(out, dtype=np.int64).reshape(-1, 2)

@@ -47,7 +47,7 @@ def nms(
     beats = (order_j | tie) & (iou > iou_threshold) & mask[:, None] & mask[None, :]
 
     keep, prev, i = mask, ~mask, 0
-    while i < n_iter and HostSyncs.read(torch.any(keep != prev)):
+    while i < n_iter and HostSyncs.read(torch.any(keep != prev), "nms"):
         keep, prev = ~torch.any(beats & keep[:, None], dim=0) & mask, keep
         i += 1
 

@@ -1,5 +1,5 @@
 """Top-k with ``jax.lax.top_k``'s tie order, and the host-sync counter of
-the data-dependent loops.
+the data-dependent loops and the trackers' drains.
 
 ``torch.topk`` promises no order among equal values; ``lax.top_k`` puts the
 lower index first. With random-init heads every logit ties, so the tie order
@@ -8,8 +8,10 @@ decides the whole detection set: a stable descending sort gives it.
 
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -22,11 +24,21 @@ def top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class HostSyncs:
     """Counts the device->host reads that steer a loop on the host (the NMS
-    fixed point and the auction rounds): each one waits for the device."""
+    fixed point and the auction rounds) and the single-camera tracker's
+    per-frame drain: each one waits for the device. ``count`` is the total,
+    ``by_loop`` the same reads by the name of the loop that made them."""
 
     count = 0
+    by_loop: "collections.Counter[str]" = collections.Counter()
 
     @classmethod
-    def read(cls, flag: torch.Tensor) -> bool:
+    def read(cls, flag: torch.Tensor, loop: str) -> bool:
         cls.count += 1
+        cls.by_loop[loop] += 1
         return bool(flag)
+
+    @classmethod
+    def fetch(cls, t: torch.Tensor, loop: str = "drain") -> np.ndarray:
+        cls.count += 1
+        cls.by_loop[loop] += 1
+        return t.cpu().numpy()

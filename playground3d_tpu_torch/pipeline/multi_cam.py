@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as Fn
 
 from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch.evaluation import geometry_np as G
+from playground3d_tpu_torch.evaluation.csv_io import TrackRecord, write_results_csv
 from playground3d_tpu_torch.geometry import transforms as T
 from playground3d_tpu_torch.models.resnet import space_to_depth
 from playground3d_tpu_torch.models.retinanet import Detections, RetinaNet, detect_multiframe, localize
@@ -56,11 +58,13 @@ from playground3d_tpu_torch.pipeline.tracker_state import (
     parse_detections_pre,
     snapshot,
     space_nms_parsed,
+    stack_snapshots,
 )
 from playground3d_tpu_torch.track.kf import KFParams, default_params, kf_predict, kf_update, kf_view
 from playground3d_tpu_torch.utils.config import TrackerConfig, camera_centers, tracking_x_range
 from playground3d_tpu_torch.utils.constants import (
     CLASS_HEIGHTS,
+    CLASS_NAMES,
     IMAGENET_MEAN,
     IMAGENET_STD,
     NUM_CLASSES,
@@ -343,10 +347,6 @@ def make_mc_detect_step_from_detections(bank: CameraBank, kfp: KFParams, cfg: Tr
     return step
 
 
-def _stack_snaps(snaps: List[Snapshot]) -> Snapshot:
-    return Snapshot(*(torch.stack(xs) for xs in zip(*snaps)))
-
-
 def make_mc_clip_step(
     det_model: RetinaNet,
     bank: CameraBank,
@@ -392,7 +392,7 @@ def make_mc_clip_step(
             else:
                 snap = snapshot(st, torch.mean(t), kfp, cfg)
             snaps.append(snap)
-        return st, tb, _stack_snaps(snaps)
+        return st, tb, stack_snapshots(snaps)
 
     return clip
 
@@ -635,3 +635,35 @@ class MultiCameraTracker:
             raise producer_err[0]
         wall = time.time() - start
         return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}
+
+    # -- output --------------------------------------------------------------
+    def records(self, camera: Optional[str] = None) -> List[TrackRecord]:
+        """The rows as CSV records in ``camera``'s image (the first camera by
+        default), each with the clock biases of its frame."""
+        cam = camera or self.cameras[0]
+        c = self.registry.index(cam)
+        out = []
+        for k, (frame_num, t_abs, ids, states, classes) in enumerate(self.rows):
+            if len(ids) == 0:
+                continue
+            im = G.state_to_im_banked(states, self.registry.P[c, 0], self.registry.P[c, 1])
+            space = G.state_to_space(states)
+            bias = list(np.round(self.ts_bias_log[k], 6)) if self.ts_bias_log else None
+            for i in range(len(ids)):
+                out.append(
+                    TrackRecord(
+                        frame=frame_num,
+                        timestamp=t_abs,
+                        obj_id=int(ids[i]),
+                        class_name=CLASS_NAMES[int(classes[i])],
+                        state7=states[i],
+                        im_corners=im[i],
+                        space_footprint=space[i, 0:4, :2],
+                        camera=cam,
+                        ts_bias=bias,
+                    )
+                )
+        return out
+
+    def write_results_csv(self, path: str, camera: Optional[str] = None) -> None:
+        write_results_csv(path, self.records(camera), ts_bias_cameras=self.cameras)

@@ -6,9 +6,9 @@ slots, ids, frames-since-last-detection, class votes, per-slot times. Times
 are float32 offsets from a host-held epoch. Functions return new tuples and
 never write into their inputs, as in the JAX package.
 
-  * :func:`parse_detections_pre` / :func:`space_nms_parsed` - confidence
-    cutoff, per-camera image NMS, im->state, cross-camera roadway NMS
-    (MC3D_crop_tracker.py:319-383)
+  * :func:`parse_detections` (= :func:`parse_detections_pre` then
+    :func:`space_nms_parsed`) - confidence cutoff, per-camera image NMS,
+    im->state, cross-camera roadway NMS (MC3D_crop_tracker.py:319-383)
   * :func:`associate_and_update` - match, roll, update, births
     (MC3D_crop_tracker.py:1099-1137, 385-461)
   * :func:`lifecycle` - deaths, anomalies, overlap pruning (MC3D:463-556)
@@ -17,7 +17,7 @@ never write into their inputs, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -158,6 +158,13 @@ def space_nms_parsed(parsed: ParsedDetections, cfg: TrackerConfig) -> ParsedDete
         state=parsed.state[idx2], scores=parsed.scores[idx2], classes=parsed.classes[idx2],
         cam_idx=parsed.cam_idx[idx2], times=parsed.times[idx2], mask=mask2,
     )
+
+
+def parse_detections(
+    det: Detections, bank: CameraBank, cam_times: torch.Tensor, cfg: TrackerConfig
+) -> ParsedDetections:
+    """Full reference parse pipeline (MC3D_crop_tracker.py:319-383)."""
+    return space_nms_parsed(parse_detections_pre(det, bank, cam_times, cfg), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +381,12 @@ def lifecycle(
         ids=torch.where(keep_id, state.ids, torch.full_like(state.ids, -1)),
         fsld=fsld,
     )
+
+
+def stack_snapshots(snaps: List[Snapshot]) -> Snapshot:
+    """Per-frame snapshots -> one snapshot of [T,...] fields (the stacked
+    output of the JAX package's clip scans)."""
+    return Snapshot(*(torch.stack(xs) for xs in zip(*snaps)))
 
 
 def snapshot(

@@ -38,8 +38,26 @@ CLASS_NAMES = (
 
 NUM_CLASSES = len(CLASS_NAMES)  # 8
 
-# Height prior per class id, feet (reference homography.py:191-202).
-CLASS_HEIGHTS = np.array([4.0, 5.0, 6.0, 5.0, 12.0, 12.0, 4.0, 3.0], dtype=np.float32)
+# name -> int, including the "truck" alias (reference homography.py:218-226)
+CLASS_IDS = {name: i for i, name in enumerate(CLASS_NAMES)}
+CLASS_IDS["truck"] = CLASS_IDS["truck (other)"]
+
+# Height prior per class, feet (reference homography.py:191-202).
+_CLASS_HEIGHTS = {
+    "sedan": 4.0,
+    "midsize": 5.0,
+    "van": 6.0,
+    "pickup": 5.0,
+    "semi": 12.0,
+    "truck (other)": 12.0,
+    "truck": 12.0,
+    "motorcycle": 4.0,
+    "trailer": 3.0,
+    "other": 5.0,
+}
+
+# Height prior per class id, feet.
+CLASS_HEIGHTS = np.array([_CLASS_HEIGHTS[name] for name in CLASS_NAMES], dtype=np.float32)
 
 # [L, W, H] prior per class id, feet (reference homography.py:205-216).
 CLASS_DIMS = np.array(
@@ -67,3 +85,19 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 # Nominal camera frame period (reference kf.py:39).
 DT_DEFAULT = 1.0 / 30.0
+
+# Frame geometry used throughout the reference (1080p processing resolution).
+FRAME_WIDTH = 1920
+FRAME_HEIGHT = 1080
+
+
+def class_heights_for(labels) -> np.ndarray:
+    """[d] height priors for integer class ids or string names
+    (reference homography.py:502-517 ``guess_heights``)."""
+    out = np.empty(len(labels), dtype=np.float32)
+    for i, lab in enumerate(labels):
+        if isinstance(lab, str):
+            out[i] = _CLASS_HEIGHTS.get(lab, _CLASS_HEIGHTS["other"])
+        else:
+            out[i] = CLASS_HEIGHTS[int(lab)]
+    return out

@@ -11,10 +11,10 @@ from playground3d_tpu.models import retinanet_init as jax_init
 from playground3d_tpu.models.nn import save_params
 from playground3d_tpu_torch.models.bridge import (
     flatten_tree,
-    load_npz,
     params_from_jax_numpy,
     to_jax_layout,
 )
+from playground3d_tpu_torch.models.nn import load_params
 
 # the suite runs in several worker processes at once: one intra-op thread
 # each keeps torch's small CPU ops from oversubscribing the cores
@@ -46,7 +46,7 @@ def test_roundtrip(tmp_path, depth, stem, shared):
 
     path = str(tmp_path / "p.npz")
     save_params(path, tree)
-    back_npz = to_jax_layout(load_npz(path, device="cpu"))
+    back_npz = to_jax_layout(load_params(path, model))
     for k, v in flat.items():
         np.testing.assert_array_equal(back_npz[k], v, err_msg=k)
 

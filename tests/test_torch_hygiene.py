@@ -6,6 +6,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,6 +61,45 @@ _STEP = textwrap.dedent(
 )
 
 
+_SINGLE = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    import torch
+    from playground3d_tpu_torch.apps import track
+    from playground3d_tpu_torch.data import synthetic, timestamps, toy_cameras, video
+    from playground3d_tpu_torch.evaluation import ap, coco_eval, csv_io, datareader, geometry_np, mot
+    from playground3d_tpu_torch.models.nn import load_params, save_params
+    from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
+    from playground3d_tpu_torch.utils.config import TrackerConfig
+    from playground3d_tpu_torch.utils.profiling import StageTimers
+
+    reg, ranges, _, _ = toy_cameras.toy_camera_chain(1)
+    scene = synthetic.SyntheticScene(n_objects=4, seed=1)
+    rng = np.random.default_rng(0)
+    det = lambda frames: synthetic.oracle_detections(scene, 0.0, reg.P[0, 0], 8, rng=rng, device="cpu")
+    trk = SingleCameraTracker(reg, "p1c1", cfg=TrackerConfig(max_tracks=8, max_dets=8), detect_fn=det,
+                              device="cpu")
+    trk.process_frame(np.zeros((4, 4, 3), np.float32), 1.6e9, 0)
+    assert len(trk.rows) == 1
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "playground3d_tpu" or m.startswith("playground3d_tpu."))
+    print("BAD", bad)
+    assert not bad, bad
+    """
+)
+
+
+def test_single_camera_loads_no_jax_and_nothing_of_the_jax_package():
+    """The slice's new modules and one oracle single-camera step."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SINGLE], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
+
+
 def test_port_loads_no_jax_and_nothing_of_the_jax_package():
     out = subprocess.run(
         [sys.executable, "-c", _STEP], capture_output=True, text=True, timeout=300
@@ -74,17 +114,25 @@ def _entry_points():
     from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
     from playground3d_tpu_torch.pipeline.tracker_state import init_track_state
     from playground3d_tpu_torch.track.kf import default_params
+    from playground3d_tpu_torch.apps import track
+    from playground3d_tpu_torch.data.synthetic import SyntheticScene, oracle_detections
+    from playground3d_tpu_torch.data.toy_cameras import toy_camera_chain
+    from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
 
     return {
         "retinanet_init": lambda: retinanet_init(depth=18),
         "default_params": lambda: default_params(),
         "init_track_state": lambda: init_track_state(4),
         "MultiCameraTracker": lambda: MultiCameraTracker(CameraRegistry(), [], detect_fn=print),
+        "SingleCameraTracker": lambda: SingleCameraTracker(toy_camera_chain(1)[0], "p1c1", detect_fn=print),
+        "oracle_detections": lambda: oracle_detections(SyntheticScene(), 0.0, np.eye(3, 4), 16),
+        "track_app": lambda: track.main(["--oracle", "--frames", "1"]),
     }
 
 
 @pytest.mark.parametrize(
-    "name", ["retinanet_init", "default_params", "init_track_state", "MultiCameraTracker"]
+    "name", ["retinanet_init", "default_params", "init_track_state", "MultiCameraTracker",
+             "SingleCameraTracker", "oracle_detections", "track_app"]
 )
 def test_default_device_raises_without_cuda(monkeypatch, name):
     """Entry points default to the card; without CUDA they raise instead

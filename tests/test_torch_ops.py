@@ -97,9 +97,10 @@ def test_batched_nms_exact(rng, kind):
 
 def test_nms_counts_one_host_sync_per_round(rng):
     boxes, scores, mask = _nms_case(rng, "chain")
-    before = HostSyncs.count
+    before, nms_before = HostSyncs.count, HostSyncs.by_loop["nms"]
     PN.nms(_t(boxes), _t(scores), _t(mask), 0.3, max_keep=8)
     assert HostSyncs.count - before >= 2
+    assert HostSyncs.by_loop["nms"] - nms_before == HostSyncs.count - before
 
 
 def _benefit(rng, n, m, kind):
