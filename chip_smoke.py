@@ -15,7 +15,10 @@ result line):
              ``crop_resize.cu`` (raw frames), ``crop_resize_s2d.cu`` (s2d
              frames, every pyramid level), ``yuv420_s2d.cu`` and ``qconv.cu``
              (every conv shape that the quantized detector and crop net
-             launch at 1080p, listed by a hook);
+             launch at 1080p, listed by a hook), ``nms.cu`` and
+             ``auction.cu`` (the tracker's NMS and auction loops, at the main
+             path's sizes and at edges; equal to the plain loops, round
+             counts included);
 3. main    - the multi-camera tracker at full width through
              ``MultiCameraTracker.track_clips``: one 1080p camera, ResNet-50
              detector (FPN/heads 256 wide), ResNet-18 crop net, 24-frame
@@ -24,15 +27,19 @@ result line):
              frames, s2d stems, both nets int8-quantized), then for
              comparison in the same run: s2d frames with float nets, raw
              frames with conv7 stems and float nets (the path the port ran first),
-             and planar YUV420 bytes converted on the card. Before that, the
-             card's clip is held against the CPU's on a small input for each
-             transport and for a quantized pair;
+             and planar YUV420 bytes converted on the card. Each runs its
+             branches as captured CUDA graphs, three times, and each run
+             must equal the eager clip on the card and read the card once a
+             clip (``track_clips``' lagged drain) and nowhere inside it.
+             Before that, the card's clip is held against the CPU's on a
+             small input for each transport and for a quantized pair;
 4. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
              against the CPU at 64x96 (conv7 + float, s2d + int8); the shipped
              int8 ResNet-50 s2d detector on 24 uint8 s2d-packed 1080p frames
              through ``SingleCameraTracker.track`` (``qconv.cu`` exactly 102
-             launches a frame, no crop or YUV kernel, the CSV written and read
-             back); then ``apps/track.py --mode single`` (real conv7 detector,
+             launches a frame, no crop or YUV kernel, one host read a frame,
+             the NMS and auction rounds read from the card's counters, the
+             CSV written and read back); then ``apps/track.py --mode single`` (real conv7 detector,
              rendered 1080p frames) and ``--mode multi --oracle``, both with
              ``--eval``;
 5. report  - the ``kernels`` JSON line, the card's name and power limit, and
@@ -235,12 +242,12 @@ def seed_tracks(state, n_seed: int):
     )
 
 
-def make_tracker(reg, det, crop, cfg, device, n_seed):
+def make_tracker(reg, det, crop, cfg, device, n_seed, graphs=None):
     from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
 
     trk = MultiCameraTracker(reg, ["p1c1"], cfg=cfg, det_model=det, crop_model=crop,
                              centers=np.array([[565.0, 60.0]], np.float32), stem=det.stem,
-                             crop_stem=crop.stem, device=device)
+                             crop_stem=crop.stem, device=device, graphs=graphs)
     trk.state = seed_tracks(trk.state, n_seed)
     return trk
 
@@ -312,6 +319,8 @@ KERNEL_MODULES = (
     "playground3d_tpu_torch.ops.crop_mxu",
     "playground3d_tpu_torch.ops.yuv420",
     "playground3d_tpu_torch.ops.qconv",
+    "playground3d_tpu_torch.ops.nms",
+    "playground3d_tpu_torch.ops.assignment",
 )
 
 
@@ -1088,6 +1097,199 @@ def kernels_qconv(device, flush, noop_ms):
     }
 
 
+# ---- nms.cu and auction.cu --------------------------------------------------
+
+
+def nms_cases(rng):
+    """(label, boxes [n,4], scores [n], mask [n], thr, max_keep, n_iter,
+    groups or None) at the main path's sizes (512 candidates into the
+    detector's camera-grouped NMS, 48 detections into the parse NMS, 64
+    slots into the lifecycle's) and at edges."""
+    def rand_boxes(n, lo=0.0, span=1800.0, size=(20.0, 300.0)):
+        xy = rng.uniform(lo, lo + span, (n, 2))
+        return np.concatenate([xy, xy + rng.uniform(*size, (n, 2))], 1).astype(np.float32)
+
+    i = np.arange(512)
+    car = np.stack([8.0 * (i % 64), 8.0 * (i // 64), 8.0 * (i % 64) + 180.0, 8.0 * (i // 64) + 90.0], 1)
+    x = np.arange(64, dtype=np.float32) * 3.0  # neighbours at IoU 0.54: a round for every other box
+    chain = np.stack([x, np.zeros(64), x + 10.0, np.full(64, 10.0)], 1).astype(np.float32)
+    tied = lambda n: np.full(n, 0.5, np.float32)  # noqa: E731
+    some = lambda n, p=0.85: rng.uniform(0, 1, n) < p  # noqa: E731
+    return [
+        ("one car box at 8 px steps, all scores tied (the single camera's 512)", car.astype(np.float32),
+         tied(512), np.ones(512, bool), 0.5, 48, None, np.zeros(512, np.int32)),
+        ("512 random candidates, one camera", rand_boxes(512), rng.uniform(0, 1, 512).astype(np.float32),
+         some(512), 0.5, 48, None, np.zeros(512, np.int32)),
+        ("48 detections, tied scores, negative coordinates, 3 cameras", rand_boxes(48, lo=-900.0),
+         (rng.integers(0, 3, 48) / 2).astype(np.float32), some(48), 0.3, 48, None,
+         rng.integers(0, 3, 48).astype(np.int32)),
+        ("48 detections, random", rand_boxes(48), rng.uniform(0, 1, 48).astype(np.float32), some(48), 0.3,
+         48, None, None),
+        ("64 slots by age (ties)", rand_boxes(64, size=(5.0, 400.0)), rng.integers(0, 6, 64).astype(np.float32),
+         some(64, 0.6), 0.2, 64, None, None),
+        ("a suppression chain capped at 5 rounds", chain, np.linspace(1.0, 0.1, 64).astype(np.float32),
+         np.ones(64, bool), 0.3, 64, 5, None),
+        ("a suppression chain to its fixed point", chain, np.linspace(1.0, 0.1, 64).astype(np.float32),
+         np.ones(64, bool), 0.3, 64, None, None),
+        ("max_keep 80 > n 48", rand_boxes(48), rng.uniform(0, 1, 48).astype(np.float32), some(48), 0.3, 80,
+         None, None),
+        ("all masked", rand_boxes(64), rng.uniform(0, 1, 64).astype(np.float32), np.zeros(64, bool), 0.3, 64,
+         None, None),
+        ("a single box", rand_boxes(1), np.ones(1, np.float32), np.ones(1, bool), 0.3, 4, None, None),
+        ("no box", np.zeros((0, 4), np.float32), np.zeros(0, np.float32), np.zeros(0, bool), 0.3, 5, None, None),
+        ("1,024 random boxes", rand_boxes(1024), rng.uniform(0, 1, 1024).astype(np.float32),
+         some(1024), 0.4, 300, None, None),
+        ("4,096 candidates, tied scores (TrackerConfig's default pre_topk), 3 cameras", rand_boxes(4096),
+         np.full(4096, 0.5, np.float32), some(4096), 0.5, 128, None, rng.integers(0, 3, 4096).astype(np.int32)),
+        ("8,192 random boxes (the kernel's cap)", rand_boxes(8192), rng.uniform(0, 1, 8192).astype(np.float32),
+         some(8192), 0.5, 256, None, None),
+    ]
+
+
+def kernels_nms(device, flush, noop_ms):
+    """``nms.cu``: every case against the plain version on the card (keep
+    indices and masks equal, its rounds equal to the plain loop's host
+    reads), then times at the main path's sizes."""
+    import torch
+
+    from playground3d_tpu_torch.ops import nms as N
+    from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
+
+    rng = np.random.default_rng(41)
+    tensors = {}
+    for label, boxes, scores, mask, thr, max_keep, n_iter, groups in nms_cases(rng):
+        b, sc, m = (torch.as_tensor(a, device=device) for a in (boxes, scores, mask))
+        if groups is not None:  # batched_nms: its shift is tensor ops, then the kernel
+            b = N.group_shift(b, torch.as_tensor(groups, device=device), m)
+        DeviceRounds.reset()
+        got_i, got_m = N.nms(b, sc, m, thr, max_keep, n_iter)
+        rounds = DeviceRounds.read()["nms"]
+        reads0 = HostSyncs.by_loop["nms"]
+        ref_i, ref_m = N.nms_plain(b, sc, m, thr, max_keep, n_iter)
+        reads = HostSyncs.by_loop["nms"] - reads0
+        torch.cuda.synchronize()
+        ok = torch.equal(got_i, ref_i) and torch.equal(got_m, ref_m) and got_i.dtype == ref_i.dtype
+        log(f"kernels: nms, {label} (n {len(boxes)}, max_keep {max_keep}, n_iter {n_iter}): keep indices and "
+            f"masks {'equal to' if ok else 'DIFFER from'} the plain version's ({int(got_m.sum())} kept); "
+            f"{rounds} rounds on the card, {reads} host reads by the plain loop")
+        if not ok or rounds != reads:
+            fail(f"nms ({label}): the kernel differs from the plain version (rounds {rounds} vs {reads})")
+        tensors[label] = (b.contiguous(), sc, m, thr, max_keep, n_iter, rounds)
+
+    labels = [case[0] for case in nms_cases(np.random.default_rng(41))]
+    times = {}
+    for label in (labels[0], labels[3], labels[4]):  # n 512, 48, 64: the main path's three sizes
+        b, sc, m, thr, max_keep, n_iter, rounds = tensors[label]
+        kernel_ms = gpu_ms(lambda: N.nms_cuda(b, sc, m, thr, max_keep, n_iter), iters=50)
+        plain_ms = gpu_ms(lambda: N.nms_plain(b, sc, m, thr, max_keep, n_iter), iters=3)
+        n = b.shape[0]
+        nbytes = n * (16 + 4 + 1) + max_keep * (4 + 1)
+        # one IoU a pair (13 float32 ops), the rank compares, and a round's word ANDs; bytes: the
+        # inputs and outputs once (the beats table is the kernels' own, kept in L2)
+        ops = n * n * 13 + n * n + rounds * n * -(-n // 32)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
+        times[n] = (kernel_ms, plain_ms, bound_ms, ops, nbytes, rounds)
+        log(f"kernels: nms at n {n} ({rounds} rounds): kernel {kernel_ms * 1e3:.2f} us (an empty kernel "
+            f"{noop_ms * 1e3:.2f} us), plain version {plain_ms * 1e3:.1f} us (one host read a round), bound "
+            f"{bound_ms * 1e3:.4f} us ({ops} float32 ops at 67 TFLOP/s; {nbytes} bytes), "
+            f"{bound_ms / kernel_ms * 100:.2f}% of bound; no library call (torchvision is not installed)")
+    kernel_ms, plain_ms, bound_ms, ops, nbytes, _ = times[512]
+    return {
+        "name": "nms", "route": "cuda", "source": "playground3d_tpu_torch/csrc/nms.cu",
+        "replaces": "playground3d_tpu/ops/nms.py:92",
+        "max_abs_err": 0.0, "bound_by": "operations" if ops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+    }
+
+
+def auction_cases(rng):
+    """(label, benefit [n,m], row_mask, col_mask, max_iters): the tracker's
+    64 x 48 IoU and edges, both sides of the shared-memory limit."""
+    def iou_like(n, m, p=0.85):
+        return np.where(rng.uniform(0, 1, (n, m)) > p, rng.uniform(0, 1, (n, m)), 0.0).astype(np.float32)
+
+    some = lambda n, p=0.8: rng.uniform(0, 1, n) < p  # noqa: E731
+    ties = (rng.integers(0, 3, (64, 48)) / 2.0).astype(np.float32)
+    return [
+        ("64 x 48, tie-heavy", ties, some(64), some(48), 5000),
+        ("64 x 48, IoU-like", iou_like(64, 48), some(64), some(48), 5000),
+        ("64 x 48, dense", rng.uniform(0, 1, (64, 48)).astype(np.float32), some(64), some(48), 5000),
+        ("64 x 48, tie-heavy, capped at 7 rounds", ties, some(64), some(48), 7),
+        ("48 x 64, dense", rng.uniform(0, 1, (48, 64)).astype(np.float32), some(48), some(64), 5000),
+        ("64 x 48, all rows masked", iou_like(64, 48), np.zeros(64, bool), some(48), 5000),
+        ("1 x 1", np.full((1, 1), 0.7, np.float32), np.ones(1, bool), np.ones(1, bool), 5000),
+        ("300 x 260, dense (benefit formed on the fly)", rng.uniform(0, 1, (300, 260)).astype(np.float32),
+         some(300), some(260), 5000),
+        ("200 x 1024, IoU-like (the kernel's cap)", iou_like(200, 1024, 0.97), some(200), some(1024), 2000),
+    ]
+
+
+def kernels_auction(device, flush, noop_ms):
+    """``auction.cu``: every case against the plain version on the card
+    (assignments equal, its rounds equal to the plain loop's host reads)
+    and the uncapped ones against scipy's optimum, then times at the
+    tracker's 64 x 48."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from playground3d_tpu_torch.ops import assignment as A
+    from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
+
+    rng = np.random.default_rng(43)
+    main = None
+    for label, b, rm, cm, max_iters in auction_cases(rng):
+        bt, rt, ct = (torch.as_tensor(a, device=device) for a in (b, rm, cm))
+        DeviceRounds.reset()
+        got = A.assign_auction(bt, rt, ct, max_iters)
+        rounds = DeviceRounds.read()["auction"]
+        reads0 = HostSyncs.by_loop["auction"]
+        ref = A.assign_auction_plain(bt, rt, ct, max_iters)
+        reads = HostSyncs.by_loop["auction"] - reads0
+        ok = torch.equal(got, ref)
+        g = got.cpu().numpy()
+        masked = np.where(rm[:, None] & cm[None, :], b, 0.0)
+        r, c = linear_sum_assignment(masked, maximize=True)
+        best = float(masked[r, c].sum())
+        total = float(sum(masked[i, j] for i, j in enumerate(g) if j >= 0))
+        # optimal within the auction's eps slack once it converged (a run
+        # stopped by max_iters, in either version alike, is not held to it)
+        optimal = rounds >= max_iters or total >= best - 1e-3 * max(best, 1.0)
+        log(f"kernels: auction, {label}: assignment {'equal to' if ok else 'DIFFERS from'} the plain "
+            f"version's ({int((g >= 0).sum())} rows assigned, benefit {total:.4f}, scipy's optimum "
+            f"{best:.4f}); {rounds} rounds on the card, {reads} host reads by the plain loop")
+        if not ok or rounds != reads or not optimal:
+            fail(f"auction ({label}): kernel {'equal' if ok else 'differs'}, rounds {rounds} vs {reads}, "
+                 f"benefit {total} vs optimum {best}")
+        if main is None:
+            main = (bt, rt, ct, rounds, masked)
+
+    bt, rt, ct, rounds, masked = main
+    kernel_ms = gpu_ms(lambda: A.assign_auction_cuda(bt, rt, ct), iters=50)
+    plain_ms = gpu_ms(lambda: A.assign_auction_plain(bt, rt, ct), iters=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        host = torch.where(rt[:, None] & ct[None, :], bt, torch.zeros_like(bt)).cpu().numpy()
+        linear_sum_assignment(host, maximize=True)
+    library_ms = (time.perf_counter() - t0) / 20 * 1e3
+    n, m = bt.shape
+    k = max(n, m)
+    nbytes = n * m * 4 + n + m + n * 4
+    ops = rounds * k * k * 4  # a round: every row's values twice (best, second), a subtract and a compare each
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
+    log(f"kernels: auction at 64 x 48 tie-heavy ({rounds} rounds): kernel {kernel_ms * 1e3:.2f} us (an empty "
+        f"kernel {noop_ms * 1e3:.2f} us), plain version {plain_ms * 1e3:.1f} us (one host read a round), "
+        f"scipy.optimize.linear_sum_assignment with the copy to the host {library_ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.4f} us ({ops} float32 ops at 67 TFLOP/s; {nbytes} bytes), "
+        f"{bound_ms / kernel_ms * 100:.2f}% of bound")
+    return {
+        "name": "auction", "route": "cuda", "source": "playground3d_tpu_torch/csrc/auction.cu",
+        "replaces": "playground3d_tpu/ops/assignment.py:138",
+        "max_abs_err": 0.0, "bound_by": "operations" if ops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+    }
+
+
 def phase_kernels(device):
     """Every kernel against its plain version, with times -> the entries of
     the ``kernels`` line (their ``launches`` come from the main phase)."""
@@ -1099,7 +1301,8 @@ def phase_kernels(device):
     noop_ms = gpu_ms(crop_resize.launch_noop)
     log(f"kernels: an empty kernel takes {noop_ms * 1e3:.2f} us between CUDA events "
         f"(that much of every launch below is the launch itself)")
-    return [fn(device, flush, noop_ms) for fn in (kernels_crop_resize, kernels_crop_s2d, kernels_yuv, kernels_qconv)]
+    return [fn(device, flush, noop_ms) for fn in (kernels_crop_resize, kernels_crop_s2d, kernels_yuv, kernels_qconv,
+                                                   kernels_nms, kernels_auction)]
 
 
 def phase_small_reference(device):
@@ -1159,39 +1362,6 @@ def phase_small_reference(device):
             fail(f"small clip ({label}): no live tracks")
 
 
-def branch_times(trk, frames_dev, device):
-    """Time and host syncs of one detect, one crop and one passthrough frame
-    on the tracker's final state, each run alone: CUDA events around the
-    branch, so the time includes the card waiting on the host."""
-    import torch
-
-    from playground3d_tpu_torch.ops.topk import HostSyncs
-    from playground3d_tpu_torch.pipeline.tracker_state import snapshot
-
-    t = torch.zeros(1, device=device)
-    bias = torch.zeros(1, device=device)
-    runs = {
-        "detect": lambda: trk._detect_step(trk.state, frames_dev, t, bias),
-        "crop": lambda: trk._crop_step(trk.state, frames_dev, t, bias),
-        "passthrough": lambda: snapshot(trk.state, t[0], trk.kfp, trk.cfg),
-    }
-    out = {}
-    for name, fn in runs.items():
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        syncs0 = HostSyncs.count
-        for _ in range(5):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            torch.cuda.synchronize()
-            times.append(s.elapsed_time(e))
-        out[name] = (float(np.median(times)), (HostSyncs.count - syncs0) / 5)
-    return out
-
-
 def profile_branches(trk, frames_dev, device, label: str, top: int = 6):
     """One detect and one crop frame under torch.profiler: the card's busy
     share of the branch's wall time and its largest kernels by device time."""
@@ -1232,77 +1402,213 @@ def profile_branches(trk, frames_dev, device, label: str, top: int = 6):
 
 def kernel_counters():
     """name in the ``kernels`` line -> the wrapper that counts its launches."""
-    from playground3d_tpu_torch.ops import crop_mxu, crop_resize, qconv, yuv420
+    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, nms, qconv, yuv420
 
     return {
         "crop_and_resize": crop_resize.crop_and_resize_cuda,
         "crop_and_resize_s2d": crop_mxu.crop_and_resize_s2d_cuda,
         "yuv420_flat_to_s2d": yuv420.yuv420_flat_to_s2d_cuda,
         "qconv": qconv.qconv_cuda,
+        "nms": nms.nms_cuda,
+        "auction": assignment.assign_auction_cuda,
     }
 
 
-def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail: bool = False):
-    """One configuration of the main path: a warm-up clip of ``n_warm``
-    frames on a tracker of its own, then all of ``frames`` (a multiple of
-    24) through ``track_clips`` with every launch count set to 0 just
-    before and read just after. Checks what came out; returns the frames/s,
-    the launch counts and the tracker."""
+def graph_nodes(graph) -> int:
+    """Nodes of a captured CUDA graph (kernels, copies, fills), from the
+    CUDA library (libcuda's ``cuGraphGetNodes``; the clip keeps its graphs)."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err != 0:
+        fail(f"cuGraphGetNodes returned {err}")
+    return int(n.value)
+
+
+def graph_detail(clip, label: str):
+    """Per branch of the captured clip: graph nodes, the launches it
+    credits, a replay's time (CUDA events, median of 5), and the card's busy
+    time and kernels in one replay under the profiler. Replays run on the
+    clip's static buffers (the timed runs are over)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    medians = {}
+    for runner in clip.runners.values():
+        for name, (graph, tally) in runner.graphs.items():
+            times = []  # graph.replay() alone credits no launch: these replays are measurement
+            for _ in range(5):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                graph.replay()
+                e.record()
+                torch.cuda.synchronize()
+                times.append(s.elapsed_time(e))
+            medians[name] = replay_ms = float(np.median(times))
+            line = (f"main ({label}): graph {name}: {graph_nodes(graph)} nodes, kernel launches credited "
+                    f"{ {k.__name__: v for k, v in tally.items()} }, replay {replay_ms:.3f} ms median of 5 "
+                    f"(CUDA events)")
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+            busy_ms = sum(ev.self_device_time_total for ev in kern) / 1e3
+            line += (f"; one replay under the profiler: card busy {busy_ms:.3f} ms ({busy_ms / replay_ms * 100:.0f}% "
+                     f"of the replay's time), {sum(ev.count for ev in kern)} kernels" if busy_ms > 0
+                     else "; the profiler saw no device time (card busy not measured)")
+            log(line)
+    return medians
+
+
+def clip_outcome(trk, conf_cnt0):
+    """(births, crop measurements) of a tracker after its clips."""
+    births = int(trk.state.next_id) - N_SEED
+    return births, float((trk.state.conf_cnt - conf_cnt0).clamp(min=0).sum())
+
+
+def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail: bool = False,
+              repeats: int = 3):
+    """One configuration of the main path through ``track_clips``:
+
+    * a warm-up clip of ``n_warm`` frames (all three branches) on a tracker
+      of its own captures the three CUDA graphs;
+    * the eager clip on the card (``graphs=False``) over all of ``frames``
+      (a multiple of 24), the reference;
+    * ``repeats`` runs of the captured clip over the same frames, each on a
+      fresh tracker that shares the warm-up's graphs, with PyTorch's
+      sync-debug mode on: each must equal the eager run (ids, masks,
+      classes equal, states7 and the final kf.x within 1e-4; births and
+      crop measurements equal) and read the card exactly once a clip and
+      nowhere else. Every launch count is set to 0 just before the first
+      and read just after; they must equal the eager run's.
+
+    Returns the median frames/s, the launch counts and the frame counts."""
+    import warnings
+
     import torch
 
-    from playground3d_tpu_torch.ops.topk import HostSyncs
+    from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
 
     reg, cfg = bench_registry(), tracker_config()
+    counters = kernel_counters()
     warm = make_tracker(reg, det, crop, cfg, device, N_SEED)
     warm.track_clips(sources(frames[:n_warm]), clip_len=n_warm, yuv_hw=yuv_hw)
     torch.cuda.synchronize()
+    clip = warm._clip_fn()
+    captured = sorted(name for runner in clip.runners.values() for name in runner.graphs)
+    if captured != ["crop", "detect", "passthrough"]:
+        fail(f"main ({label}): the warm-up captured {captured}, not the three branches")
 
-    trk = make_tracker(reg, det, crop, cfg, device, N_SEED)
-    conf_cnt0 = trk.state.conf_cnt.clone()
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    syncs0 = HostSyncs.count
+    def timed(trk, watch_syncs: bool = False):
+        for fn in counters.values():
+            fn.launches = 0
+        DeviceRounds.reset()
+        syncs0, loops0 = HostSyncs.count, dict(HostSyncs.by_loop)
+        conf_cnt0 = trk.state.conf_cnt.clone()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        s.record()
+        # PyTorch's sync-debug mode warns at every call that waits for the
+        # card (.item(), .cpu(), a blocking copy, a stream or device sync)
+        torch.cuda.set_sync_debug_mode("warn" if watch_syncs else 0)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                stats = trk.track_clips(sources(frames), clip_len=T_CLIP, yuv_hw=yuv_hw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        e.record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        syncing = [f"{w.filename}:{w.lineno}" for w in caught if "synchronizing CUDA operation" in str(w.message)]
+        if syncing:
+            fail(f"main ({label}): {len(syncing)} synchronizing calls inside track_clips, at {sorted(set(syncing))}")
+        loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
+        return dict(fps=frames.shape[0] / s.elapsed_time(e) * 1e3, wall=wall, stats=stats,
+                    launches={name: fn.launches for name, fn in counters.items()},
+                    syncs=HostSyncs.count - syncs0, loops=loops, rounds=DeviceRounds.read(),
+                    outcome=clip_outcome(trk, conf_cnt0), trk=trk)
+
     torch.cuda.reset_peak_memory_stats()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.time()
-    s.record()
-    stats = trk.track_clips(sources(frames), clip_len=T_CLIP, yuv_hw=yuv_hw)
-    e.record()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    syncs = HostSyncs.count - syncs0
-    ms = s.elapsed_time(e)
-    n_frames = stats["frames"]
+    ref = timed(make_tracker(reg, det, crop, cfg, device, N_SEED, graphs=False))
+    n_frames, n_clips = frames.shape[0], -(-frames.shape[0] // T_CLIP)
+    eager = ref["trk"]
+    if len(eager.rows) != n_frames:
+        fail(f"main ({label}): the eager clip gave {len(eager.rows)} rows for {n_frames} frames")
 
-    # what came out: every frame a row, finite states, detections, crops
-    if n_frames != frames.shape[0] or len(trk.rows) != n_frames:
-        fail(f"main ({label}): {n_frames} frames tracked, {len(trk.rows)} rows, expected {frames.shape[0]}")
-    for row in trk.rows:
-        if not np.isfinite(row[3]).all():
-            fail(f"main ({label}): non-finite states at frame {row[0]}")
+    runs = []
+    for r in range(repeats):
+        trk = make_tracker(reg, det, crop, cfg, device, N_SEED)
+        trk._clip = clip
+        run = timed(trk, watch_syncs=True)
+        if run["syncs"] != n_clips or run["loops"] != {"drain": n_clips}:
+            fail(f"main ({label}): {run['syncs']} host reads ({run['loops']}) for {n_clips} clips; "
+                 f"exactly one a clip is the contract")
+        if len(trk.rows) != n_frames:
+            fail(f"main ({label}): {len(trk.rows)} rows for {n_frames} frames")
+        worst = 0.0
+        for rg, re_ in zip(trk.rows, eager.rows):
+            if rg[0] != re_[0] or not (np.array_equal(rg[2], re_[2]) and np.array_equal(rg[4], re_[4])):
+                fail(f"main ({label}): frame {rg[0]}: ids or classes of the graph clip differ from the eager clip")
+            if not np.isfinite(rg[3]).all():
+                fail(f"main ({label}): non-finite states at frame {rg[0]}")
+            if len(rg[3]):
+                worst = max(worst, float(np.abs(rg[3] - re_[3]).max()))
+        live = eager.state.kf.mask
+        if not torch.equal(trk.state.kf.mask, live) or not torch.equal(trk.state.ids, eager.state.ids):
+            fail(f"main ({label}): the final masks or ids of the graph clip differ from the eager clip")
+        kfx = float((trk.state.kf.x - eager.state.kf.x)[live].abs().max()) if live.any() else 0.0
+        if not (worst <= 1e-4 and kfx <= 1e-4):
+            fail(f"main ({label}): states7 differ by {worst}, kf.x by {kfx} between graph and eager clips")
+        if run["outcome"] != ref["outcome"] or run["rounds"] != ref["rounds"]:
+            fail(f"main ({label}): births / crop measurements {run['outcome']} or rounds {run['rounds']} differ "
+                 f"from the eager clip's {ref['outcome']} / {ref['rounds']}")
+        if r == 0 and run["launches"] != ref["launches"]:
+            fail(f"main ({label}): the graph run credited {run['launches']} launches, the eager run made "
+                 f"{ref['launches']}")
+        run["diff"] = (worst, kfx)
+        runs.append(run)
+
     crop_frames = [k for k in range(n_frames) if k % cfg.det_step and k % cfg.skip_step == 0]
-    live_at_crop = [len(trk.rows[k][2]) for k in crop_frames]
-    births = int(trk.state.next_id) - N_SEED
-    crop_measured = float((trk.state.conf_cnt - conf_cnt0).clamp(min=0).sum())
+    n_detect = sum(1 for k in range(n_frames) if k % cfg.det_step == 0)
+    live_at_crop = [len(eager.rows[k][2]) for k in crop_frames]
+    births, crop_measured = ref["outcome"]
     if births <= 0:
         fail(f"main ({label}): the detector produced no births")
     if min(live_at_crop) == 0 or crop_measured <= 0:
         fail(f"main ({label}): crop frames found no live tracks ({live_at_crop}) or updated none")
-    n_detect = sum(1 for k in range(n_frames) if k % cfg.det_step == 0)
-    fps = n_frames / ms * 1e3
-    log(f"main ({label}): {n_frames} frames ({n_detect} detect, {len(crop_frames)} crop) of 1x{H}x{W} "
-        f"in {ms:.1f} ms (CUDA events) = {fps:.2f} frames/s; host wall {wall:.2f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"main ({label}): births {births}, live tracks at crop frames {live_at_crop}, crop measurements "
-        f"{crop_measured:.0f}, host syncs {syncs}, kernel launches {launches}")
+    fps = [run["fps"] for run in runs]
+    first = runs[0]
+    log(f"main ({label}): {n_frames} frames ({n_detect} detect, {len(crop_frames)} crop) of 1x{H}x{W}, "
+        f"{n_clips} clips: graphs {float(np.median(fps)):.2f} frames/s median of {repeats} "
+        f"({', '.join(f'{f:.2f}' for f in fps)}; CUDA events), eager {ref['fps']:.2f} frames/s; host wall "
+        f"{first['wall']:.2f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"main ({label}): graph runs equal the eager run: ids/raw_mask/classes equal, states7 within "
+        f"{max(run['diff'][0] for run in runs):.3g}, final kf.x within {max(run['diff'][1] for run in runs):.3g} "
+        f"(tolerance 1e-4); births {births}, crop measurements {crop_measured:.0f}, live tracks at crop "
+        f"frames {live_at_crop}")
+    timers = {k: v for k, v in first["stats"].items() if k not in ("frames", "fps", "crop")}
+    log(f"main ({label}): host time in the first graph run (wall {first['wall'] * 1e3:.1f} ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timers.items())
+        + " (stage: the producer thread filling pinned buffers and queueing the copies; detect: enqueueing "
+        "the clips; drain: waiting for and unpacking the reads)")
+    log(f"main ({label}): host reads {first['syncs']} ({first['loops']}; the eager run {ref['syncs']}), none "
+        f"inside a clip (sync-debug mode); device rounds {first['rounds']} "
+        f"({first['rounds']['nms'] / n_frames:.2f} NMS and {first['rounds']['auction'] / n_frames:.2f} auction "
+        f"a frame); kernel launches {first['launches']}")
+    replay = graph_detail(clip, label)
+    n_pass = n_frames - n_detect - len(crop_frames)
+    branch_ms = n_detect * replay["detect"] + len(crop_frames) * replay["crop"] + n_pass * replay["passthrough"]
+    log(f"main ({label}): the branches' replays alone take {branch_ms:.2f} ms for these {n_frames} frames "
+        f"({n_frames / branch_ms * 1e3:.1f} frames/s if nothing else ran); the timed runs took "
+        + ", ".join(f"{n_frames / run['fps'] * 1e3:.2f}" for run in runs) + " ms")
     if detail:
         frames_dev = torch.as_tensor(frames[:1]).to(device)  # [C=1,...]
-        for name, (bms, bsyncs) in branch_times(trk, frames_dev, device).items():
-            log(f"main ({label}): branch {name}: {bms:.2f} ms median of 5 (CUDA events), {bsyncs:.0f} host syncs")
-        profile_branches(trk, frames_dev, device, label)
-    return fps, launches, len(crop_frames), n_detect
+        profile_branches(eager, frames_dev, device, label + ", eager")
+    return float(np.median(fps)), first["launches"], len(crop_frames), n_detect
 
 
 def phase_main(device):
@@ -1328,10 +1634,12 @@ def phase_main(device):
         fail(f"main: qconv launched {launches['qconv']} times, expected {n_detect} x {per_detect} + {n_crop} x {per_crop}")
     if launches["crop_and_resize"] or launches["yuv420_flat_to_s2d"]:
         fail(f"main: the s2d path launched a kernel of another path: {launches}")
+    if launches["nms"] < 1 or launches["auction"] < 1:
+        fail(f"main: the NMS or auction kernel was launched no time: {launches}")
     report = {"s2d + int8": fps}
-    path_launches = {k: launches[k] for k in ("crop_and_resize_s2d", "qconv")}
+    path_launches = {k: launches[k] for k in ("crop_and_resize_s2d", "qconv", "nms", "auction")}
 
-    # comparisons, one timed clip each after a short warm-up
+    # comparisons, one clip each after a short warm-up
     fps_f, l_f, n_crop_f, _ = run_clips("s2d + float", det_f, crop_f, packed[:T_CLIP], device, 6)
     if l_f["qconv"] or l_f["crop_and_resize_s2d"] != n_crop_f:
         fail(f"main: the float s2d path's launches are off: {l_f}")
@@ -1353,8 +1661,8 @@ def phase_main(device):
     report["yuv + int8"] = fps_y
     path_launches["yuv420_flat_to_s2d"] = l_y["yuv420_flat_to_s2d"]
 
-    log("main: frames/s side by side, one call, one card (numbers, not a result: the host decides and "
-        "spreads by tens of percent between runs): " + ", ".join(f"{k} {v:.2f}" for k, v in report.items()))
+    log("main: frames/s of the captured clips side by side, medians, one call, one card: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in report.items()))
     return path_launches
 
 
@@ -1435,7 +1743,7 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
 
     from playground3d_tpu_torch.evaluation.csv_io import load_i24_csv
     from playground3d_tpu_torch.models.quant import quantize_detector
-    from playground3d_tpu_torch.ops.topk import HostSyncs
+    from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
     from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
 
     reg, cfg, _, _, calib = shipped_models(device)
@@ -1456,11 +1764,13 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
     for fn in counters.values():
         fn.launches = 0
     syncs0, loops0 = HostSyncs.count, dict(HostSyncs.by_loop)
+    DeviceRounds.reset()
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     s.record()
     stats = trk.track(stream[n_warm:])
     e.record()
     torch.cuda.synchronize()
+    rounds = DeviceRounds.read()
     launches = {name: fn.launches for name, fn in counters.items()}
     syncs = HostSyncs.count - syncs0
     loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
@@ -1472,6 +1782,8 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
         fail(f"single: qconv launched {launches['qconv']} times, expected {n_frames} x {per_detect}")
     if launches["crop_and_resize"] or launches["crop_and_resize_s2d"] or launches["yuv420_flat_to_s2d"]:
         fail(f"single: the single camera launched a crop or YUV kernel: {launches}")
+    if syncs != n_frames or loops != {"drain": n_frames}:
+        fail(f"single: {syncs} host reads ({loops}) for {n_frames} frames; one a frame (the drain) is the contract")
     live_pairs = sum(len(row[2]) for row in trk.rows)
     for row in trk.rows:
         if not np.isfinite(row[3]).all():
@@ -1490,7 +1802,9 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
     fps = n_frames / ms * 1e3
     log(f"single: {n_frames} frames of 1x{H}x{W} uint8 s2d-packed, s2d + int8 ResNet-50, in {ms:.1f} ms "
         f"(CUDA events) = {fps:.2f} frames/s; host syncs {syncs} ({syncs / n_frames:.2f} per frame; by loop "
-        f"{loops}); drain {timers['drain'] / sum(timers.values()) * 100:.1f}% of the stage "
+        f"{loops}); NMS rounds {rounds['nms'] / n_frames:.2f} and auction rounds {rounds['auction'] / n_frames:.2f} "
+        f"a frame on the card (its counters, read once); drain {timers['drain'] / sum(timers.values()) * 100:.1f}% "
+        f"of the stage "
         f"timers ({', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timers.items())})")
     log(f"single: kernel launches {launches} ({per_detect} qconv a frame); {live_pairs} live (id, frame) "
         f"pairs = CSV rows read back")
@@ -1515,7 +1829,7 @@ def single_app():
     real detector (conv7 + float ResNet-50, the app's default) on rendered
     1080p frames, and ``--mode multi --oracle``, both with ``--eval``."""
     from playground3d_tpu_torch.apps import track
-    from playground3d_tpu_torch.ops.topk import HostSyncs
+    from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
 
     os.makedirs("_outputs", exist_ok=True)
     for mode, extra in (("single", ["--frames", "4"]), ("multi", ["--oracle", "--frames", "30"])):
@@ -1525,8 +1839,10 @@ def single_app():
             if os.path.exists(f):
                 os.remove(f)
         t0, loops0 = time.time(), dict(HostSyncs.by_loop)
+        DeviceRounds.reset()
         metrics = track.main(["--mode", mode, "--out", out, "--eval"] + extra)
         loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
+        loops.update({f"{k} rounds on the card": v for k, v in DeviceRounds.read().items()})
         if not (os.path.exists(out) and os.path.exists(gt)):
             fail(f"single: apps.track --mode {mode} wrote no CSV or no GT CSV")
         if not metrics or "MOTA" not in metrics or "TP" not in metrics:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from playground3d_tpu_torch import device_constant
+
 _SIGNS = (
     (-1.0, -1.0, 1.0),
     (-1.0, 1.0, 1.0),
@@ -38,7 +40,7 @@ def decode_regression(regression: torch.Tensor, anchors: torch.Tensor) -> torch.
     wv = reg[..., 4:6]
     hv = reg[..., 6:8]
 
-    S = torch.tensor(_SIGNS, dtype=reg.dtype, device=reg.device)
+    S = device_constant(_SIGNS, reg.device, reg.dtype)
     corners = (
         c[..., None, :]
         + S[:, 0, None] * lv[..., None, :]

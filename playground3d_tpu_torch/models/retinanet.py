@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch import DeviceLike, device_constant, resolve_device
 from playground3d_tpu_torch.models import quant
 from playground3d_tpu_torch.models.anchors import anchors_for_shape
 from playground3d_tpu_torch.models.decode import decode_regression
@@ -83,8 +83,8 @@ def normalize_on_device(images: torch.Tensor) -> torch.Tensor:
     if images.dtype != torch.uint8:
         return images
     reps = images.shape[-1] // 3
-    mean = torch.as_tensor(np.tile(IMAGENET_MEAN, reps), device=images.device)
-    std = torch.as_tensor(np.tile(IMAGENET_STD, reps), device=images.device)
+    mean = device_constant(np.tile(IMAGENET_MEAN, reps), images.device)
+    std = device_constant(np.tile(IMAGENET_STD, reps), images.device)
     return (images.to(torch.float32) / 255.0 - mean) / std
 
 

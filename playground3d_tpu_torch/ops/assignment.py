@@ -3,22 +3,110 @@ of ``playground3d_tpu/ops/assignment.py``).
 
 The auction is Bertsekas' forward auction with epsilon scaling on the
 squared-up, masked benefit, with the JAX package's near-zero diagonal dummy
-tie-break. The JAX ``while_loop`` becomes a host loop that reads one flag
-from the device per round (counted in
-:class:`~playground3d_tpu_torch.ops.topk.HostSyncs`); every round is the
-same float32 arithmetic in the same order, so the result is the JAX one.
+tie-break. The JAX package runs it in a ``while_loop`` on the device. Here
+:func:`assign_auction` launches the hand-written kernel
+``csrc/auction.cu`` for tensors on the card (the whole loop in one block,
+no host read; its rounds go to
+:class:`~playground3d_tpu_torch.ops.topk.DeviceRounds`), and runs
+:func:`assign_auction_plain`, a host loop that reads one flag from the
+device per round (counted in
+:class:`~playground3d_tpu_torch.ops.topk.HostSyncs`), for tensors on the
+CPU. Every round is the same float32 arithmetic in the same order in both,
+so they agree with each other and with JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from playground3d_tpu_torch.ops.topk import HostSyncs
+from playground3d_tpu_torch.ops.cuda_build import KernelLibrary, count_launch
+from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
 
-__all__ = ["assign_auction", "assign_hungarian", "matches_from_assignment"]
+__all__ = [
+    "LIB", "assign_auction", "assign_auction_cuda", "assign_auction_plain", "assign_hungarian",
+    "launch_plan", "matches_from_assignment",
+]
 
 NEG = -1e9
+
+# The kernel's layout constants (csrc/auction.cu holds the same values).
+MAX_K = 1024  # max(n, m): one block
+SMEM_MAX_K = 224  # up to here the squared-up benefit is formed in shared memory
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.auction.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr]
+    lib.auction.restype = i32
+
+
+# -fmad=false is belt and braces: the source rounds every float op explicitly
+LIB = KernelLibrary("auction", _bind, extra_flags=("-fmad=false",))
+
+
+class LaunchPlan(NamedTuple):
+    k: int  # max(n, m), the side of the squared-up problem
+    threads: int  # a warp a row up to 32 warps
+    benefit_in_shared: bool  # else formed on the fly from device memory
+    shared_bytes: int
+
+
+def launch_plan(n: int, m: int) -> LaunchPlan:
+    """How the kernel is launched for an [n, m] benefit (the C launcher
+    applies the same rule and refuses a mismatch). Raises ValueError for an
+    empty problem or max(n, m) above :data:`MAX_K`."""
+    k = max(n, m)
+    if min(n, m) < 0 or not 1 <= k <= MAX_K:
+        raise ValueError(f"auction: the kernel takes max(n, m) from 1 to {MAX_K}, got [{n}, {m}]")
+    in_shared = k <= SMEM_MAX_K
+    return LaunchPlan(k, min(1024, 32 * k), in_shared, (k * k * 4 if in_shared else 0) + 10 * k * 4 + 16)
+
+
+def assign_auction_cuda(
+    benefit: torch.Tensor,
+    row_mask: torch.Tensor,
+    col_mask: torch.Tensor,
+    max_iters: int = 5000,
+) -> torch.Tensor:
+    """Launch the kernel on the current stream -> [n] int32. Takes benefit
+    [n,m] float32, row_mask [n] and col_mask [m] bool, contiguous, on one
+    CUDA device, max(n, m) <= :data:`MAX_K`. ``assign_auction_cuda.launches``
+    counts the launches; the rounds go to ``DeviceRounds``."""
+    if benefit.device.type != "cuda":
+        raise ValueError(f"auction: the CUDA kernel takes CUDA tensors, got {benefit.device}")
+    if benefit.dtype != torch.float32 or benefit.ndim != 2:
+        raise ValueError(f"auction: benefit must be float32 [n,m], got {benefit.dtype} {tuple(benefit.shape)}")
+    n, m = benefit.shape
+    plan = launch_plan(n, m)
+    for name, t, size in (("row_mask", row_mask, n), ("col_mask", col_mask, m)):
+        if t.dtype != torch.bool or tuple(t.shape) != (size,):
+            raise ValueError(f"auction: {name} must be bool [{size}], got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("benefit", benefit), ("row_mask", row_mask), ("col_mask", col_mask)):
+        if not t.is_contiguous():
+            raise ValueError(f"auction: {name} must be contiguous")
+        if t.device != benefit.device:
+            raise ValueError(f"auction: {name} is on {t.device}, benefit on {benefit.device}")
+    if max_iters < 0:
+        raise ValueError(f"auction: max_iters must be >= 0, got {max_iters}")
+    dev = benefit.device
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = LIB.load()
+    with torch.cuda.device(dev):
+        err = lib.auction(
+            benefit.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), n, m, max_iters, out.data_ptr(),
+            DeviceRounds.pointer(dev, "auction"), plan.threads, plan.shared_bytes,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    LIB.check(err)
+    count_launch(assign_auction_cuda)
+    return out
+
+
+assign_auction_cuda.launches = 0
 
 
 def assign_auction(
@@ -31,7 +119,24 @@ def assign_auction(
 
     benefit [n,m]; row_mask [n] / col_mask [m] mark real entries. Returns
     [n] int32: the column of each row, -1 for unassigned or masked rows.
+    The CUDA kernel for tensors on the card, the plain version for tensors
+    on the CPU.
     """
+    if benefit.device.type == "cuda":
+        return assign_auction_cuda(benefit.contiguous(), row_mask.contiguous(), col_mask.contiguous(), max_iters)
+    if benefit.device.type == "cpu":
+        return assign_auction_plain(benefit, row_mask, col_mask, max_iters)
+    raise ValueError(f"assign_auction: no implementation for device {benefit.device}")
+
+
+def assign_auction_plain(
+    benefit: torch.Tensor,
+    row_mask: torch.Tensor,
+    col_mask: torch.Tensor,
+    max_iters: int = 5000,
+) -> torch.Tensor:
+    """The plain version: the JAX function's ops, its ``while_loop`` as a
+    host loop reading one flag a round. Any device."""
     n, m = benefit.shape
     k = max(n, m)
     dev, dt = benefit.device, benefit.dtype

@@ -43,7 +43,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from playground3d_tpu_torch.ops.cuda_build import KernelLibrary
+from playground3d_tpu_torch.ops.cuda_build import KernelLibrary, count_launch
 from playground3d_tpu_torch.utils.constants import IMAGENET_MEAN, IMAGENET_STD
 
 __all__ = [
@@ -402,7 +402,7 @@ def crop_and_resize_s2d_cuda(
             torch.cuda.current_stream().cuda_stream,
         )
     LIB.check(err)
-    crop_and_resize_s2d_cuda.launches += 1
+    count_launch(crop_and_resize_s2d_cuda)
     return out
 
 

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from playground3d_tpu_torch.ops.cuda_build import KernelLibrary
+from playground3d_tpu_torch.ops.cuda_build import KernelLibrary, count_launch
 
 __all__ = ["LIB", "LaunchPlan", "check_args", "crop_and_resize_cuda", "launch_noop", "launch_plan"]
 
@@ -149,7 +149,7 @@ def crop_and_resize_cuda(
             C, H, W, ch, n, out_size, plan.tile_rows, stream,
         )
     LIB.check(err)
-    crop_and_resize_cuda.launches += 1
+    count_launch(crop_and_resize_cuda)
     return out
 
 

@@ -11,6 +11,12 @@ nothing falls back when the build fails: it raises.
 Every source exports ``const char* kernel_error_string(int)``; every launcher
 returns the ``cudaError_t`` of its launch, which :meth:`KernelLibrary.check`
 turns into an exception.
+
+Every wrapper counts its launches in ``wrapper.launches`` through
+:func:`count_launch`. A launch made while this thread captures a CUDA graph
+runs nothing yet: inside :func:`launches_recorded` it is tallied instead, and
+the graph's owner adds the tally with :func:`credit` at every replay, so the
+counts say what the card ran.
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Callable, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -92,3 +100,35 @@ class KernelLibrary:
         if err != 0:
             msg = self.load().kernel_error_string(err).decode()
             raise RuntimeError(f"{self.name}: kernel launch failed: {msg} ({err})")
+
+
+_recording = threading.local()
+
+
+def count_launch(wrapper: Callable) -> None:
+    """One launch of ``wrapper``'s kernel: counted in ``wrapper.launches``,
+    or tallied when this thread is inside :func:`launches_recorded`."""
+    tally = getattr(_recording, "tally", None)
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally[wrapper] += 1
+
+
+@contextmanager
+def launches_recorded() -> Iterator["Counter[Callable]"]:
+    """Tally this thread's launches instead of counting them (for a graph
+    capture, which launches nothing); yields the tally."""
+    if getattr(_recording, "tally", None) is not None:
+        raise RuntimeError("launches_recorded: already recording on this thread")
+    _recording.tally = Counter()
+    try:
+        yield _recording.tally
+    finally:
+        _recording.tally = None
+
+
+def credit(tally: "Counter[Callable]") -> None:
+    """Count a recorded tally as launched (a graph replay)."""
+    for wrapper, n in tally.items():
+        wrapper.launches += n

@@ -4,26 +4,65 @@
 Greedy score-ordered NMS as the fixed point of
 ``keep[i] <- not any_j (beats[j, i] and keep[j])`` from all-true, with
 ``beats[j, i] = (score_j > score_i, or equal and j < i) and IoU > thr``.
-The JAX package runs it in a ``while_loop``; here it is a host loop that
-reads one flag from the device per round (counted in
-:class:`~playground3d_tpu_torch.ops.topk.HostSyncs`).
+The JAX package runs it in a ``while_loop`` on the device. Here
+:func:`nms` launches the hand-written kernels of ``csrc/nms.cu`` for tensors
+on the card (the beats bits by a grid, then the whole loop and the
+compaction in one block, no host read; its rounds go to
+:class:`~playground3d_tpu_torch.ops.topk.DeviceRounds`),
+and runs :func:`nms_plain`, a host loop that reads one flag a round
+(counted in :class:`~playground3d_tpu_torch.ops.topk.HostSyncs`), for
+tensors on the CPU. The two agree bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
+from playground3d_tpu_torch.ops.cuda_build import KernelLibrary, count_launch
 from playground3d_tpu_torch.ops.iou import pairwise_iou
-from playground3d_tpu_torch.ops.topk import HostSyncs, top_k
+from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs, top_k
 
-__all__ = ["nms", "batched_nms"]
+__all__ = ["LIB", "batched_nms", "group_shift", "launch_plan", "nms", "nms_cuda", "nms_plain"]
 
 NEG_INF = -1e30
 
+# The kernels' layout constants (csrc/nms.cu holds the same values).
+MAX_BOXES = 8192  # MAX_PER_THREAD boxes for each of the loop block's 1,024 threads
+MAX_PER_THREAD = 8
 
-def nms(
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.nms.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float, i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.nms.restype = i32
+
+
+# -fmad=false is belt and braces: the source rounds every float op explicitly
+LIB = KernelLibrary("nms", _bind, extra_flags=("-fmad=false",))
+
+
+class LaunchPlan(NamedTuple):
+    threads: int  # of the loop block, a multiple of 32, at most 1,024
+    per_thread: int  # boxes each loop thread owns
+    words: int  # 32-bit words of beats bits per box
+    workspace_words: int  # the [words, n] beats table in device memory
+
+
+def launch_plan(n: int) -> LaunchPlan:
+    """How the kernels are launched for ``n`` boxes (the C launcher applies
+    the same rule and refuses a mismatch). Raises ValueError above
+    :data:`MAX_BOXES`."""
+    if not 0 <= n <= MAX_BOXES:
+        raise ValueError(f"nms: the kernel takes 0 to {MAX_BOXES} boxes, got {n}")
+    threads = min(1024, max(32, -(-n // 32) * 32))
+    words = -(-n // 32)
+    return LaunchPlan(threads, max(1, -(-n // threads)), words, words * n)
+
+
+def nms_plain(
     boxes: torch.Tensor,
     scores: torch.Tensor,
     mask: torch.Tensor,
@@ -31,9 +70,8 @@ def nms(
     max_keep: int = 100,
     n_iter: Optional[int] = None,
 ):
-    """boxes [N,4] xyxy; scores [N]; mask [N] -> (keep_idx [max_keep]
-    int32, keep_mask [max_keep] bool), kept indices in decreasing-score
-    order (lower index first on ties), 0-padded where keep_mask is False."""
+    """The plain version: the JAX function's ops, its ``while_loop`` as a
+    host loop reading one flag a round. Any device."""
     n = boxes.shape[0]
     if n_iter is None:
         n_iter = n
@@ -62,6 +100,82 @@ def nms(
     return keep_idx, keep_mask
 
 
+def nms_cuda(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    mask: torch.Tensor,
+    iou_threshold: float,
+    max_keep: int = 100,
+    n_iter: Optional[int] = None,
+):
+    """Launch the kernels on the current stream -> (keep_idx [max_keep]
+    int32, keep_mask [max_keep] bool). Takes boxes [n,4] float32 contiguous
+    on a 16-byte boundary, scores [n] float32, mask [n] bool, all on one
+    CUDA device, n <= :data:`MAX_BOXES`. ``nms_cuda.launches`` counts the
+    launches; the rounds go to ``DeviceRounds``."""
+    if boxes.device.type != "cuda":
+        raise ValueError(f"nms: the CUDA kernel takes CUDA tensors, got {boxes.device}")
+    n = boxes.shape[0]
+    plan = launch_plan(n)
+    if boxes.dtype != torch.float32 or boxes.ndim != 2 or boxes.shape[1] != 4:
+        raise ValueError(f"nms: boxes must be float32 [n,4], got {boxes.dtype} {tuple(boxes.shape)}")
+    if scores.dtype != torch.float32 or tuple(scores.shape) != (n,):
+        raise ValueError(f"nms: scores must be float32 [{n}], got {scores.dtype} {tuple(scores.shape)}")
+    if mask.dtype != torch.bool or tuple(mask.shape) != (n,):
+        raise ValueError(f"nms: mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
+    for name, t in (("boxes", boxes), ("scores", scores), ("mask", mask)):
+        if not t.is_contiguous():
+            raise ValueError(f"nms: {name} must be contiguous")
+        if t.device != boxes.device:
+            raise ValueError(f"nms: {name} is on {t.device}, boxes on {boxes.device}")
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms: boxes must start on a 16-byte boundary (read as float4)")
+    if n_iter is None:
+        n_iter = n
+    if max_keep < 0 or n_iter < 0:
+        raise ValueError(f"nms: max_keep and n_iter must be >= 0, got {max_keep}, {n_iter}")
+    dev = boxes.device
+    keep_idx = torch.empty((max_keep,), dtype=torch.int32, device=dev)
+    keep_mask = torch.empty((max_keep,), dtype=torch.bool, device=dev)
+    beat = torch.empty((max(plan.workspace_words, 1),), dtype=torch.int32, device=dev)
+    lib = LIB.load()
+    with torch.cuda.device(dev):
+        err = lib.nms(
+            boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(), n, iou_threshold, n_iter, max_keep,
+            keep_idx.data_ptr(), keep_mask.data_ptr(), DeviceRounds.pointer(dev, "nms"), beat.data_ptr(),
+            plan.threads, torch.cuda.current_stream().cuda_stream,
+        )
+    LIB.check(err)
+    count_launch(nms_cuda)
+    return keep_idx, keep_mask
+
+
+nms_cuda.launches = 0
+
+
+def nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    mask: torch.Tensor,
+    iou_threshold: float,
+    max_keep: int = 100,
+    n_iter: Optional[int] = None,
+):
+    """boxes [N,4] xyxy; scores [N]; mask [N] -> (keep_idx [max_keep]
+    int32, keep_mask [max_keep] bool), kept indices in decreasing-score
+    order (lower index first on ties), 0-padded where keep_mask is False.
+    The CUDA kernel for tensors on the card, the plain version for tensors
+    on the CPU."""
+    if boxes.device.type == "cuda":
+        b = boxes.contiguous()
+        if b.data_ptr() % 16:
+            b = b.clone()
+        return nms_cuda(b, scores.contiguous(), mask.contiguous(), iou_threshold, max_keep, n_iter)
+    if boxes.device.type == "cpu":
+        return nms_plain(boxes, scores, mask, iou_threshold, max_keep, n_iter)
+    raise ValueError(f"nms: no implementation for device {boxes.device}")
+
+
 def batched_nms(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -73,12 +187,19 @@ def batched_nms(
 ):
     """Per-group NMS by coordinate offsets: boxes are shifted to a
     non-negative origin and offset by group * span, so groups never overlap
-    even with negative coordinates (reference model.py:49-56)."""
+    even with negative coordinates (reference model.py:49-56). The shift is
+    tensor ops on either device (:func:`group_shift`); the suppression is
+    :func:`nms`."""
+    return nms(group_shift(boxes, groups, mask), scores, mask, iou_threshold, max_keep=max_keep, n_iter=n_iter)
+
+
+def group_shift(boxes: torch.Tensor, groups: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``batched_nms``'s boxes: shifted to a non-negative origin, then
+    offset by group * (coordinate span + 1)."""
     zero = torch.zeros_like(boxes)
     valid = torch.where(mask[:, None], boxes, zero)
     max_c = torch.max(valid)
     min_c = torch.min(valid)
     span = max_c - min_c + 1.0
     offset = groups.to(boxes.dtype) * span
-    shifted = (boxes - min_c) + offset[:, None]
-    return nms(shifted, scores, mask, iou_threshold, max_keep=max_keep, n_iter=n_iter)
+    return (boxes - min_c) + offset[:, None]

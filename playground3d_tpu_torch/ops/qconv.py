@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from playground3d_tpu_torch.models.nn import same_pads
-from playground3d_tpu_torch.ops.cuda_build import KernelLibrary
+from playground3d_tpu_torch.ops.cuda_build import KernelLibrary, count_launch
 
 __all__ = ["LIB", "LaunchPlan", "check_args", "conv_int32_plain", "epilogue_plain", "launch_plan",
            "modelled_us", "qconv", "qconv_cuda", "qconv_plain", "split_range"]
@@ -279,7 +279,7 @@ def qconv_cuda(x, wq, scale, offset=None, stride: int = 1, relu: bool = False, e
             int(bool(relu)), store, res_kind, plan.tile_n, plan.splits, torch.cuda.current_stream().cuda_stream,
         )
     LIB.check(err)
-    qconv_cuda.launches += 1
+    count_launch(qconv_cuda)
     return out
 
 

@@ -1,5 +1,6 @@
-"""Top-k with ``jax.lax.top_k``'s tie order, and the host-sync counter of
-the data-dependent loops and the trackers' drains.
+"""Top-k with ``jax.lax.top_k``'s tie order, the host-sync counter of the
+data-dependent loops and the trackers' drains, and the device counters of
+the rounds those loops run on the card.
 
 ``torch.topk`` promises no order among equal values; ``lax.top_k`` puts the
 lower index first. With random-init heads every logit ties, so the tie order
@@ -9,7 +10,7 @@ decides the whole detection set: a stable descending sort gives it.
 from __future__ import annotations
 
 import collections
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -42,3 +43,63 @@ class HostSyncs:
         cls.count += 1
         cls.by_loop[loop] += 1
         return t.cpu().numpy()
+
+    @classmethod
+    def fetch_later(cls, t: torch.Tensor, loop: str = "drain") -> Callable[[], np.ndarray]:
+        """One device->host read of ``t``, started now and waited for when
+        the returned function is called: on the card a ``non_blocking``
+        copy into pinned memory behind an event, so the host does not wait
+        until it needs the values."""
+        cls.count += 1
+        cls.by_loop[loop] += 1
+        if t.device.type != "cuda":
+            host = t.cpu()
+            return host.numpy
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
+
+        def wait() -> np.ndarray:
+            done.synchronize()
+            return host.numpy()
+
+        return wait
+
+
+class DeviceRounds:
+    """Rounds of the NMS and auction loops run by their CUDA kernels, added
+    on the card to one int32 counter per loop and device: the loops cost no
+    host read, and a run reads the counters once at its end (:meth:`read`).
+    A round is counted as the plain loop counts its :class:`HostSyncs`
+    reads, so the two numbers compare. The counters are allocated at a
+    kernel's first launch, which must not be inside a CUDA graph capture
+    (a capture is preceded by an eager warm-up)."""
+
+    LOOPS = ("nms", "auction")
+    _counters: Dict[torch.device, torch.Tensor] = {}
+
+    @classmethod
+    def pointer(cls, device: torch.device, loop: str) -> int:
+        """Address of ``loop``'s counter on ``device``, for a kernel."""
+        counters = cls._counters.get(device)
+        if counters is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("DeviceRounds: counters must be allocated before a CUDA graph capture")
+            counters = torch.zeros(len(cls.LOOPS), dtype=torch.int32, device=device)
+            cls._counters[device] = counters
+        return counters.data_ptr() + 4 * cls.LOOPS.index(loop)
+
+    @classmethod
+    def read(cls) -> Dict[str, int]:
+        """Rounds by loop, summed over devices: one host read a device."""
+        total = dict.fromkeys(cls.LOOPS, 0)
+        for counters in cls._counters.values():
+            for loop, n in zip(cls.LOOPS, counters.tolist()):
+                total[loop] += n
+        return total
+
+    @classmethod
+    def reset(cls) -> None:
+        for counters in cls._counters.values():
+            counters.zero_()

@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from playground3d_tpu_torch.ops.cuda_build import KernelLibrary
+from playground3d_tpu_torch.ops.cuda_build import KernelLibrary, count_launch
 
 __all__ = ["LIB", "check_args", "yuv420_flat_to_s2d", "yuv420_flat_to_s2d_cuda", "yuv420_flat_to_s2d_plain"]
 
@@ -99,7 +99,7 @@ def yuv420_flat_to_s2d_cuda(buf: torch.Tensor, hw: Tuple[int, int]) -> torch.Ten
         err = lib.yuv420_s2d(buf.data_ptr(), out.data_ptr(), t * c, h, w,
                              torch.cuda.current_stream().cuda_stream)
     LIB.check(err)
-    yuv420_flat_to_s2d_cuda.launches += 1
+    count_launch(yuv420_flat_to_s2d_cuda)
     return out
 
 

@@ -8,7 +8,11 @@ Kalman rolls against per-camera clocks and online clock-bias estimation.
 
 The JAX package runs a clip as one ``lax.scan`` with a 3-way ``lax.switch``;
 here it is a host loop that picks the branch from the global frame index
-(the host knows it, so picking costs no device read).
+(the host knows it, so picking costs no device read) and, on the card,
+replays that branch as one CUDA graph. Nothing inside a clip reads the
+device: the NMS and auction loops run in their own kernels, and
+:meth:`MultiCameraTracker.track_clips` reads each clip's results once,
+three clips later.
 
 Two frame transports, chosen by the detector's stem: ``"s2d"`` frames are
 space-to-depth packed ``[C,H/4,W/4,48]`` (uint8 or float; raw ``[C,H,W,3]``
@@ -22,6 +26,7 @@ are hand-written CUDA kernels on the card.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -31,16 +36,17 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch import DeviceLike, device_constant, resolve_device
 from playground3d_tpu_torch.evaluation import geometry_np as G
 from playground3d_tpu_torch.evaluation.csv_io import TrackRecord, write_results_csv
 from playground3d_tpu_torch.geometry import transforms as T
 from playground3d_tpu_torch.models.resnet import space_to_depth
 from playground3d_tpu_torch.models.retinanet import Detections, RetinaNet, detect_multiframe, localize
 from playground3d_tpu_torch.ops.crop_mxu import crop_and_resize_s2d, max_crop_span_s2d
+from playground3d_tpu_torch.ops.cuda_build import credit, launches_recorded
 from playground3d_tpu_torch.ops.iou import elementwise_iou, pairwise_iou
 from playground3d_tpu_torch.ops.roi_align import crop_and_resize
-from playground3d_tpu_torch.ops.topk import top_k
+from playground3d_tpu_torch.ops.topk import HostSyncs, top_k
 from playground3d_tpu_torch.ops.yuv420 import yuv420_flat_to_s2d
 from playground3d_tpu_torch.pipeline.camera_bank import (
     CameraBank,
@@ -55,12 +61,14 @@ from playground3d_tpu_torch.pipeline.tracker_state import (
     associate_and_update,
     init_track_state,
     lifecycle,
+    pack_snapshot,
     parse_detections_pre,
     snapshot,
     space_nms_parsed,
     stack_snapshots,
+    unpack_snapshot,
 )
-from playground3d_tpu_torch.track.kf import KFParams, default_params, kf_predict, kf_update, kf_view
+from playground3d_tpu_torch.track.kf import KFParams, KFSlots, default_params, kf_predict, kf_update, kf_view
 from playground3d_tpu_torch.utils.config import TrackerConfig, camera_centers, tracking_x_range
 from playground3d_tpu_torch.utils.constants import (
     CLASS_HEIGHTS,
@@ -148,8 +156,8 @@ def select_crop_slots(
 
 
 def _normalize_crops(crops: torch.Tensor) -> torch.Tensor:
-    mean = torch.as_tensor(IMAGENET_MEAN, device=crops.device)
-    std = torch.as_tensor(IMAGENET_STD, device=crops.device)
+    mean = device_constant(IMAGENET_MEAN, crops.device)
+    std = device_constant(IMAGENET_STD, crops.device)
     return (crops / 255.0 - mean) / std
 
 
@@ -253,7 +261,7 @@ def make_crop_step(
         corners = corners + crop_boxes[:, None, None, 0:2]
 
         flat = corners.reshape(K * cfg.cd_max, 8, 2)
-        flat_cam = torch.repeat_interleave(cam_k, cfg.cd_max)
+        flat_cam = cam_k[:, None].expand(K, cfg.cd_max).reshape(-1)  # repeat_interleave, no host read
         heights = class_heights[cand_cls.reshape(-1)]
         cand_state = im_to_state_refined(bank, flat, flat_cam, heights).reshape(K, cfg.cd_max, 6)
 
@@ -347,6 +355,89 @@ def make_mc_detect_step_from_detections(bank: CameraBank, kfp: KFParams, cfg: Tr
     return step
 
 
+class _BranchGraphs:
+    """The clip's three branches over one set of static buffers: the
+    tracker state, ``ts_bias``, one frame of all cameras and its camera
+    times, and the snapshot. Each branch reads the buffers and writes its
+    new state, bias and snapshot back into them, so a frame is: copy its
+    inputs in, run the branch, copy the snapshot out.
+
+    With ``capture`` (the card), each branch is captured as one CUDA graph
+    at its first use, after an eager warm-up on a side stream (the lazily
+    made constants, plans, workspaces and counters exist before capture),
+    and a frame is one replay. The graphs share one memory pool: they only
+    ever run one after another on one stream. A capture that fails raises;
+    nothing falls back to eager. The kernels' launch counters are Python
+    integers, so each graph's launches are tallied at capture and credited
+    at every replay. Without ``capture`` (the CPU), each branch runs
+    eagerly over the same buffers."""
+
+    def __init__(self, branches: dict, capture: bool):
+        self.branches = branches  # name -> fn(state, ts_bias, frame, cam_times) -> (state, ts_bias, snap)
+        self.capture = capture
+        self.graphs: dict = {}  # name -> (CUDAGraph, launch tally)
+        self.pool = None
+        self.state = self.ts_bias = self.frame = self.cam_times = self.snap = None
+
+    @staticmethod
+    def _leaves(state: TrackState) -> List[torch.Tensor]:
+        return [*state.kf, *state[1:]]
+
+    def load(self, state: TrackState, ts_bias: torch.Tensor, frame: torch.Tensor, cam_times: torch.Tensor):
+        """Copy a clip's starting state and bias in (allocating the buffers
+        at the first clip)."""
+        if self.state is None:
+            self.state = TrackState(KFSlots(*(x.clone() for x in state.kf)), *(x.clone() for x in state[1:]))
+            self.ts_bias = ts_bias.clone()
+            self.frame = torch.empty_like(frame)
+            self.cam_times = torch.empty_like(cam_times)
+            like = self.branches["passthrough"](self.state, self.ts_bias, self.frame, cam_times)[2]
+            self.snap = Snapshot(*(torch.empty_like(x) for x in like))
+            return
+        for dst, src in zip(self._leaves(self.state), self._leaves(state)):
+            dst.copy_(src)
+        self.ts_bias.copy_(ts_bias)
+
+    def _body(self, name: str, write_back: bool):
+        st, tb, snap = self.branches[name](self.state, self.ts_bias, self.frame, self.cam_times)
+        if write_back:
+            for dst, src in zip(self._leaves(self.state), self._leaves(st)):
+                dst.copy_(src)
+            self.ts_bias.copy_(tb)
+            for dst, src in zip(self.snap, snap):
+                dst.copy_(src)
+
+    def _capture(self, name: str):
+        dev = self.ts_bias.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(name, write_back=False)  # warm-up: outputs dropped, buffers untouched
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # the graph is kept for its node count
+        with launches_recorded() as tally:
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                self._body(name, write_back=True)
+        graph.instantiate()
+        self.graphs[name] = (graph, dict(tally))
+        return self.graphs[name]
+
+    def run(self, name: str, frame: Optional[torch.Tensor], cam_times: torch.Tensor) -> None:
+        """One frame through branch ``name`` (``frame`` is None for the
+        passthrough branch, which reads no pixels)."""
+        self.cam_times.copy_(cam_times)
+        if frame is not None:
+            self.frame.copy_(frame)
+        if not self.capture:
+            self._body(name, write_back=True)
+            return
+        graph, tally = self.graphs.get(name) or self._capture(name)
+        graph.replay()
+        credit(tally)
+
+
 def make_mc_clip_step(
     det_model: RetinaNet,
     bank: CameraBank,
@@ -356,6 +447,7 @@ def make_mc_clip_step(
     crop_model: Optional[RetinaNet] = None,
     stem: str = "s2d",
     crop_stem: str = "s2d",
+    graphs: Optional[bool] = None,
 ):
     """(state, ts_bias, frames [T,C,...], cam_times [T,C], frame0 int) ->
     (state', ts_bias', snapshots stacked over T): frame ``i`` (global index
@@ -367,7 +459,16 @@ def make_mc_clip_step(
     clock-bias update of a detect frame applies to the frames after it.
     ``stem`` is the detector's stem and the frames' transport ("s2d":
     packed [T,C,H/4,W/4,48]; "conv7": raw [T,C,H,W,3]), ``crop_stem`` the
-    crop net's."""
+    crop net's.
+
+    The JAX clip is one program: a ``lax.scan`` over a ``lax.switch`` of the
+    three branches. Here the host picks the branch from the frame index (no
+    device read) and, on the card, replays that branch's CUDA graph
+    (:class:`_BranchGraphs`): no host read inside the clip. ``graphs``:
+    None (the default) captures graphs for tensors on the card and runs the
+    branch functions eagerly on the CPU; False runs them eagerly on any
+    device; True on the CPU runs the graph path's static buffers and
+    write-backs eagerly (no capture there)."""
     if det_model.stem != stem:
         raise ValueError(f"make_mc_clip_step: stem={stem!r} but the detector was built with {det_model.stem!r}")
     detect_step = make_mc_detect_step(det_model, bank, kfp, cfg)
@@ -377,23 +478,55 @@ def make_mc_clip_step(
     )
     d, s = cfg.det_step, cfg.skip_step
 
+    def b_detect(st, tb, f, t):
+        st2, snap, tb2 = detect_step(st, f, t, tb)
+        return st2, tb2, snap
+
+    def b_crop(st, tb, f, t):
+        st2, snap = crop_step(st, f, t, tb)
+        return st2, tb, snap
+
+    def b_skip(st, tb, f, t):
+        return st, tb, snapshot(st, torch.mean(t), kfp, cfg)
+
+    branches = {"detect": b_detect, "crop": b_crop if crop_step is not None else b_skip, "passthrough": b_skip}
+    runners: dict = {}  # (device, frame shape, dtype) -> _BranchGraphs
+
+    def which(i: int) -> str:
+        if i % d == 0:
+            return "detect"
+        return "crop" if crop_step is not None and i % s == 0 else "passthrough"
+
     @torch.no_grad()
     def clip(state: TrackState, ts_bias: torch.Tensor, frames: torch.Tensor,
              cam_times: torch.Tensor, frame0: int):
-        st, tb = state, ts_bias
-        snaps = []
-        for li in range(frames.shape[0]):
-            i = int(frame0) + li
-            f, t = frames[li], cam_times[li]
-            if i % d == 0:
-                st, snap, tb = detect_step(st, f, t, tb)
-            elif crop_step is not None and i % s == 0:
-                st, snap = crop_step(st, f, t, tb)
-            else:
-                snap = snapshot(st, torch.mean(t), kfp, cfg)
-            snaps.append(snap)
-        return st, tb, stack_snapshots(snaps)
+        on_card = frames.device.type == "cuda"
+        if graphs is False or (graphs is None and not on_card):
+            st, tb = state, ts_bias
+            snaps = []
+            for li in range(frames.shape[0]):
+                st, tb, snap = branches[which(int(frame0) + li)](st, tb, frames[li], cam_times[li])
+                snaps.append(snap)
+            return st, tb, stack_snapshots(snaps)
 
+        key = (frames.device, tuple(frames.shape[1:]), frames.dtype)
+        runner = runners.get(key)
+        if runner is None:
+            runner = runners[key] = _BranchGraphs(branches, capture=on_card)
+        runner.load(state, ts_bias, frames[0], cam_times[0])
+        T_len = frames.shape[0]
+        out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                         for x in runner.snap))
+        for li in range(T_len):
+            name = which(int(frame0) + li)
+            runner.run(name, None if name == "passthrough" else frames[li], cam_times[li])
+            for dst, src in zip(out, runner.snap):
+                dst[li].copy_(src)
+        st = runner.state
+        return (TrackState(KFSlots(*(x.clone() for x in st.kf)), *(x.clone() for x in st[1:])),
+                runner.ts_bias.clone(), out)
+
+    clip.runners = runners
     return clip
 
 
@@ -402,7 +535,9 @@ class MultiCameraTracker:
 
     ``sources`` are per-camera iterators of (frame [H,W,3], t_abs). The
     models must already sit on ``device`` (the card unless the caller asks
-    for the CPU); frames are shipped there as they arrive."""
+    for the CPU); frames are shipped there as they arrive. ``graphs`` is
+    :func:`make_mc_clip_step`'s (None: each branch a CUDA graph on the
+    card; False: eager)."""
 
     def __init__(
         self,
@@ -417,8 +552,10 @@ class MultiCameraTracker:
         stem: str = "conv7",
         crop_stem: str = "conv7",
         device: DeviceLike = None,
+        graphs: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
+        self.graphs = graphs  # make_mc_clip_step's: None = CUDA graphs on the card
         self.stem, self.crop_stem = stem, crop_stem
         self.registry = registry
         self.cameras = list(cameras)
@@ -460,7 +597,10 @@ class MultiCameraTracker:
         self.epoch: Optional[float] = None
         self.rows: List[tuple] = []
         self.ts_bias_log: List[np.ndarray] = []
-        self.timers = {"detect": 0.0, "crop": 0.0, "drain": 0.0}
+        # host seconds: enqueueing branches or clips ("detect", "crop"),
+        # reading results back ("drain"), and, in track_clips' producer
+        # thread, filling pinned buffers and queueing the copies ("stage")
+        self.timers = {"detect": 0.0, "crop": 0.0, "drain": 0.0, "stage": 0.0}
 
     def _timed(self, stage: str, t0: float) -> None:
         self.timers[stage] += time.time() - t0
@@ -552,16 +692,20 @@ class MultiCameraTracker:
         if self._clip is None:
             self._clip = make_mc_clip_step(
                 self._det_model, self.bank, self.centers, self.kfp, self.cfg,
-                crop_model=self._crop_model, stem=self.stem, crop_stem=self.crop_stem,
+                crop_model=self._crop_model, stem=self.stem, crop_stem=self.crop_stem, graphs=self.graphs,
             )
         return self._clip
 
     @torch.no_grad()
     def track_clips(self, sources: List[Iterable], clip_len: int = 24, cutoff: int = 10**9,
                     sync_ms: float = 20.0, yuv_hw: Optional[Tuple[int, int]] = None):
-        """Clip host loop: one clip step per ``clip_len`` frames, the next
-        clip read, stacked and copied to the device by a background thread
-        while the current one runs.
+        """Clip host loop (JAX ``track_clips``): one clip step per
+        ``clip_len`` frames; a background thread reads the next clip into
+        pinned host memory and stages it on a side stream (the copy to the
+        card and the s2d packing or YUV conversion) while the current clip
+        runs, and the clip's stream waits for it by an event. The host never
+        waits inside a clip: each clip's results are packed into one tensor
+        and fetched with one read, drained with a lag of 3 clips.
 
         ``yuv_hw``: the frames' (H, W) when the sources emit flat planar
         YUV420 bytes; colour conversion and s2d packing then run on the
@@ -575,35 +719,55 @@ class MultiCameraTracker:
                 f"emits s2d-packed frames); this tracker has stem={self.stem!r}"
             )
         clip = self._clip_fn()
+        on_card = self.device.type == "cuda"
+        stage_stream = torch.cuda.Stream(self.device) if on_card else None
         q: queue.Queue = queue.Queue(maxsize=2)
         done = object()
         producer_err: list = []
 
-        def stage(batch_np, times_np):
-            ft = torch.as_tensor(batch_np).to(self.device)
-            if yuv_hw is not None and ft.ndim == 3:
-                ft = yuv420_flat_to_s2d(ft, (int(yuv_hw[0]), int(yuv_hw[1])))
-            elif self.stem == "s2d" and ft.shape[-1] == 3:
-                t, c = ft.shape[:2]
-                ft = space_to_depth(ft.reshape((t * c,) + tuple(ft.shape[2:])), 4)
-                ft = ft.reshape((t, c) + tuple(ft.shape[1:]))
-            return ft, torch.as_tensor(times_np).to(self.device)
+        def stage(batch: torch.Tensor, times: List[List[float]]):
+            """A clip's frames [T,C,...] in (pinned) host memory -> the
+            device tensors the clip takes and the event they are ready at."""
+            tt = torch.as_tensor(np.asarray(times, np.float32))
+            ready = None
+            with torch.cuda.stream(stage_stream) if on_card else contextlib.nullcontext():
+                ft = batch.to(self.device, non_blocking=True)
+                tt = tt.pin_memory().to(self.device, non_blocking=True) if on_card else tt
+                if yuv_hw is not None and ft.ndim == 3:
+                    ft = yuv420_flat_to_s2d(ft, (int(yuv_hw[0]), int(yuv_hw[1])))
+                elif self.stem == "s2d" and ft.shape[-1] == 3:
+                    t, c = ft.shape[:2]
+                    ft = space_to_depth(ft.reshape((t * c,) + tuple(ft.shape[2:])), 4)
+                    ft = ft.reshape((t, c) + tuple(ft.shape[1:]))
+                if on_card:
+                    ready = torch.cuda.Event()
+                    ready.record(stage_stream)
+            return ft, tt, ready
 
         def producer():
-            buf_f, buf_t = [], []
+            buf, times = None, []
             frame0 = 0
             try:
-                for frames, times in self._synced_frames(sources, cutoff, sync_ms):
+                for frames, ts in self._synced_frames(sources, cutoff, sync_ms):
                     if self.epoch is None:
-                        self.epoch = float(min(times))
-                    buf_f.append(frames)
-                    buf_t.append([t - self.epoch for t in times])
-                    if len(buf_f) == clip_len:
-                        q.put((stage(np.stack(buf_f), np.asarray(buf_t, np.float32)), frame0))
+                        self.epoch = float(min(ts))
+                    t0 = time.time()
+                    if buf is None:
+                        host = torch.from_numpy(frames)
+                        buf = torch.empty((clip_len,) + tuple(host.shape), dtype=host.dtype, pin_memory=on_card)
+                    buf[len(times)].copy_(torch.from_numpy(frames))
+                    times.append([t - self.epoch for t in ts])
+                    staged = stage(buf, times) if len(times) == clip_len else None
+                    self._timed("stage", t0)
+                    if staged is not None:
+                        q.put((staged, frame0))
                         frame0 += clip_len
-                        buf_f, buf_t = [], []
-                if buf_f:
-                    q.put((stage(np.stack(buf_f), np.asarray(buf_t, np.float32)), frame0))
+                        buf, times = None, []
+                if times:
+                    t0 = time.time()
+                    staged = stage(buf[:len(times)], times)
+                    self._timed("stage", t0)
+                    q.put((staged, frame0))
             except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
                 producer_err.append(e)
             finally:
@@ -613,23 +777,40 @@ class MultiCameraTracker:
         thread.start()
         start = time.time()
         n = 0
+        drain_lag = 3  # clips in flight before the oldest is read back (JAX's drain_lag)
+        pending: list = []  # (read, frame0, rows' shape, staged inputs held until their clip is read)
+
+        def drain_one():
+            nonlocal n
+            read, frame0, shape, _ = pending.pop(0)
+            t0 = time.time()
+            packed = read()
+            rows = packed[:-len(self.cameras)].reshape(shape)
+            bias = packed[-len(self.cameras):].astype(np.float32)
+            states, ids, classes, mask, ts = unpack_snapshot(rows)
+            for k in range(shape[0]):
+                self._append_row(frame0 + k, ts[k], ids[k], mask[k], states[k], classes[k], bias)
+            n += shape[0]
+            self._timed("drain", t0)
+
         while True:
             item = q.get()
             if item is done:
                 break
-            (ft, tt), frame0 = item
+            (ft, tt, ready), frame0 = item
             t0 = time.time()
+            if ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(ready)
             self.state, self.ts_bias, snaps = clip(self.state, self.ts_bias, ft, tt, frame0)
+            # one read a clip: its snapshots [T, N, 11] and the bias it returned
+            rows = pack_snapshot(snaps)
+            read = HostSyncs.fetch_later(torch.cat([rows.reshape(-1), self.ts_bias.to(torch.float64)]))
+            pending.append((read, frame0, tuple(rows.shape), (ft, tt)))
             self._timed("detect", t0)
-            t0 = time.time()
-            ids, mask, states, classes, ts = (
-                x.cpu().numpy() for x in (snaps.ids, snaps.raw_mask, snaps.states7, snaps.classes, snaps.t)
-            )
-            bias = self.ts_bias.cpu().numpy()
-            for k in range(ids.shape[0]):
-                self._append_row(frame0 + k, ts[k], ids[k], mask[k], states[k], classes[k], bias)
-            n += ids.shape[0]
-            self._timed("drain", t0)
+            while len(pending) > drain_lag:
+                drain_one()
+        while pending:
+            drain_one()
         thread.join(timeout=10)
         if producer_err:
             raise producer_err[0]

@@ -33,9 +33,11 @@ from playground3d_tpu_torch.pipeline.tracker_state import (
     associate_and_update,
     init_track_state,
     lifecycle,
+    pack_snapshot,
     parse_detections,
     snapshot,
     stack_snapshots,
+    unpack_snapshot,
 )
 from playground3d_tpu_torch.track.kf import KFParams, default_params
 from playground3d_tpu_torch.utils.config import TrackerConfig
@@ -187,21 +189,9 @@ class SingleCameraTracker:
                 torch.cuda.synchronize(self.device)
 
         with self.timers("drain"):
-            # one read: every field is exact in float64 (int32 ids and
-            # classes, float32 states and time)
-            n = snap.ids.shape[0]
-            packed = HostSyncs.fetch(torch.cat([
-                snap.states7.to(torch.float64),
-                torch.stack([snap.ids, snap.classes, snap.raw_mask.to(torch.int32)], 1).to(torch.float64),
-                snap.t.to(torch.float64).expand(n, 1),
-            ], 1))
-            states = packed[:, :7].astype(np.float32)
-            ids = packed[:, 7].astype(np.int32)
-            classes = packed[:, 8].astype(np.int32)
-            mask = packed[:, 9] > 0
-            self.rows.append(
-                (frame_num, float(self.epoch + float(packed[0, 10])), ids[mask], states[mask], classes[mask])
-            )
+            # one read (pack_snapshot: every field exact in float64)
+            states, ids, classes, mask, t = unpack_snapshot(HostSyncs.fetch(pack_snapshot(snap)))
+            self.rows.append((frame_num, float(self.epoch + float(t)), ids[mask], states[mask], classes[mask]))
         if self.on_frame is not None:
             self.on_frame(frame_num, np.asarray(frame)[None], snap, None)
         return snap

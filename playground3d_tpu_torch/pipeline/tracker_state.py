@@ -19,10 +19,11 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from playground3d_tpu_torch import DeviceLike, resolve_device
+from playground3d_tpu_torch import DeviceLike, device_constant, resolve_device
 from playground3d_tpu_torch.geometry import transforms as T
 from playground3d_tpu_torch.models.retinanet import Detections
 from playground3d_tpu_torch.ops.assignment import assign_auction
@@ -102,7 +103,7 @@ def _one_hot(cls: torch.Tensor) -> torch.Tensor:
 
 
 def _class_heights(classes: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(CLASS_HEIGHTS, device=classes.device)[classes.long()]
+    return device_constant(CLASS_HEIGHTS, classes.device)[classes.long()]
 
 
 def _scatter_any(size: int, index: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
@@ -238,7 +239,7 @@ def associate_and_update(
         same_dir = (state.kf.d[:, None] * parsed.state[None, :, 5]) > 0
         free_det = parsed.mask & ~matched_col
         cand = ghost[:, None] & free_det[None, :] & same_dir & (dist < cfg.ghost_r_ft)
-        big = torch.tensor(1e9, dtype=torch.float32, device=dev)
+        big = device_constant(1e9, dev, torch.float32)
         cost = torch.where(cand, dist, big) + ar_n[:, None] * 1e-6
         det_pick = torch.argmin(cost, dim=1)
         det_cost = torch.amin(cost, dim=1)
@@ -381,6 +382,25 @@ def lifecycle(
         ids=torch.where(keep_id, state.ids, torch.full_like(state.ids, -1)),
         fsld=fsld,
     )
+
+
+def pack_snapshot(snap: Snapshot) -> torch.Tensor:
+    """A snapshot (or one stacked over leading axes) as one float64 tensor
+    [..., N, 11] for a single device->host read: states7, id, class, raw
+    mask and the snapshot time per slot. Every field is exact in float64
+    (int32 ids and classes, float32 states and time)."""
+    return torch.cat([
+        snap.states7.to(torch.float64),
+        torch.stack([snap.ids, snap.classes, snap.raw_mask.to(torch.int32)], -1).to(torch.float64),
+        snap.t.to(torch.float64)[..., None, None].expand(snap.ids.shape + (1,)),
+    ], -1)
+
+
+def unpack_snapshot(rows: np.ndarray):
+    """:func:`pack_snapshot`'s rows [..., N, 11] -> (states7 float32, ids
+    int32, classes int32, raw mask bool, t float64 [...])."""
+    return (rows[..., :7].astype(np.float32), rows[..., 7].astype(np.int32), rows[..., 8].astype(np.int32),
+            rows[..., 9] > 0, rows[..., 0, 10])
 
 
 def stack_snapshots(snaps: List[Snapshot]) -> Snapshot:

@@ -38,7 +38,7 @@ _STEP = textwrap.dedent(
 
     # the shipped transport: s2d stems, int8-quantized nets, YUV420 bytes in
     from playground3d_tpu_torch.models.quant import is_quantized, quantize_detector
-    from playground3d_tpu_torch.ops import crop_mxu, crop_resize, qconv, yuv420
+    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, nms, qconv, yuv420
 
     det = retinanet_init(g, depth=18, stem="s2d", device="cpu")
     crop = retinanet_init(g, depth=18, stem="s2d", tower_depth=2, shared_tower=True, device="cpu")
@@ -51,7 +51,8 @@ _STEP = textwrap.dedent(
     src = [((np.full((64 * 96 * 3 // 2,), 128, np.uint8), 1.6e9 + f / 30.0) for f in range(3))]
     assert trk.track_clips(src, clip_len=3, yuv_hw=(64, 96))["frames"] == 3
     # importing and running on the CPU built and loaded no kernel library
-    assert all(lib._lib is None for lib in (crop_mxu.LIB, crop_resize.LIB, qconv.LIB, yuv420.LIB))
+    assert all(lib._lib is None for lib in (crop_mxu.LIB, crop_resize.LIB, qconv.LIB, yuv420.LIB, nms.LIB,
+                                            assignment.LIB))
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "playground3d_tpu" or m.startswith("playground3d_tpu."))
@@ -140,3 +141,102 @@ def test_default_device_raises_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points()[name]()
+
+
+_ALL_MODULES = textwrap.dedent(
+    """
+    import importlib
+    import pkgutil
+    import sys
+    import playground3d_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(playground3d_tpu_torch.__path__, "playground3d_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "playground3d_tpu" or m.startswith("playground3d_tpu."))
+    print("MODULES", len(names), "BAD", bad)
+    assert not bad, bad
+    """
+)
+
+
+def test_no_module_of_the_port_imports_jax():
+    """Every module of the package, imported one after another in a fresh
+    interpreter, loads neither JAX nor anything of the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _ALL_MODULES], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout and "MODULES" in out.stdout
+
+
+_SOURCES = ["crop_resize", "crop_resize_s2d", "yuv420_s2d", "qconv", "nms", "auction"]
+_LOADERS = {
+    "crop_resize": "crop_resize", "crop_resize_s2d": "crop_mxu", "yuv420_s2d": "yuv420", "qconv": "qconv",
+    "nms": "nms", "auction": "assignment",
+}
+
+
+@pytest.mark.parametrize("source", _SOURCES)
+def test_every_kernel_source_is_built_by_the_one_loader(source):
+    """Each ``csrc/*.cu`` has one module whose ``KernelLibrary`` builds it,
+    and ``chip_smoke.py`` builds that module's library in its build phase."""
+    import importlib
+    from pathlib import Path
+
+    import chip_smoke
+    from playground3d_tpu_torch.ops.cuda_build import CSRC_DIR, KernelLibrary
+
+    assert sorted(p.stem for p in Path(CSRC_DIR).glob("*.cu")) == sorted(_SOURCES)
+    module = f"playground3d_tpu_torch.ops.{_LOADERS[source]}"
+    lib = importlib.import_module(module).LIB
+    assert isinstance(lib, KernelLibrary) and lib.source == Path(CSRC_DIR) / f"{source}.cu"
+    assert lib.source.exists() and module in chip_smoke.KERNEL_MODULES
+
+
+def _wrapper_calls():
+    """wrapper name -> (CUDA wrapper call, plain call, dispatching call) on
+    small CPU tensors."""
+    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, nms, qconv, roi_align, yuv420
+
+    frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    s2d = torch.zeros((1, 4, 4, 48), dtype=torch.uint8)
+    boxes = torch.tensor([[0.0, 0.0, 6.0, 6.0]])
+    idx = torch.zeros(1, dtype=torch.int32)
+    buf = torch.zeros((1, 1, 8 * 8 * 3 // 2), dtype=torch.uint8)
+    x, wq, scale = torch.zeros((1, 4, 4, 16), dtype=torch.int8), torch.ones((8, 1, 1, 16), dtype=torch.int8), torch.ones(8)
+    nb, ns, nm = torch.tensor([[0.0, 0.0, 2.0, 2.0], [1.0, 1.0, 3.0, 3.0]]), torch.tensor([0.9, 0.5]), torch.ones(2, dtype=torch.bool)
+    b, rm, cm = torch.rand(3, 2), torch.ones(3, dtype=torch.bool), torch.ones(2, dtype=torch.bool)
+    return {
+        "crop_resize": (lambda: crop_resize.crop_and_resize_cuda(frames, boxes, idx, 4),
+                        lambda: roi_align.crop_and_resize_plain(frames, boxes, idx, 4),
+                        lambda: roi_align.crop_and_resize(frames, boxes, idx, 4)),
+        "crop_resize_s2d": (lambda: crop_mxu.crop_and_resize_s2d_cuda(s2d, boxes, idx, 8),
+                            lambda: crop_mxu.crop_and_resize_s2d_plain(s2d, boxes, idx, 8),
+                            lambda: crop_mxu.crop_and_resize_s2d(s2d, boxes, idx, 8)),
+        "yuv420_s2d": (lambda: yuv420.yuv420_flat_to_s2d_cuda(buf, (8, 8)),
+                       lambda: yuv420.yuv420_flat_to_s2d_plain(buf, (8, 8)),
+                       lambda: yuv420.yuv420_flat_to_s2d(buf, (8, 8))),
+        "qconv": (lambda: qconv.qconv_cuda(x, wq, scale), lambda: qconv.qconv_plain(x, wq, scale),
+                  lambda: qconv.qconv(x, wq, scale)),
+        "nms": (lambda: nms.nms_cuda(nb, ns, nm, 0.1), lambda: nms.nms_plain(nb, ns, nm, 0.1),
+                lambda: nms.nms(nb, ns, nm, 0.1)),
+        "auction": (lambda: assignment.assign_auction_cuda(b, rm, cm),
+                    lambda: assignment.assign_auction_plain(b, rm, cm),
+                    lambda: assignment.assign_auction(b, rm, cm)),
+    }
+
+
+@pytest.mark.parametrize("source", _SOURCES)
+def test_cuda_wrappers_refuse_cpu_tensors_and_the_plain_versions_run(source):
+    """A kernel's wrapper launches its kernel or raises: given CPU tensors
+    it raises. The plain version beside it is what the dispatching entry
+    runs for those tensors."""
+    cuda_call, plain_call, entry = _wrapper_calls()[source]
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_call()
+    want, got = plain_call(), entry()
+    want, got = (want if isinstance(want, tuple) else (want,)), (got if isinstance(got, tuple) else (got,))
+    assert all(torch.equal(a, b) for a, b in zip(want, got))

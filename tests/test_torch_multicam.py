@@ -374,3 +374,135 @@ def test_stem_arguments_are_checked(setup, toy_cameras3):
         tracker(crop_stem="s2d")
     with pytest.raises(ValueError, match="stem"):
         make_mc_clip_step(setup["det"], None, None, None, TrackerConfig())  # default stem is "s2d"
+
+
+@pytest.mark.parametrize("path", ["conv7", "s2d", "int8"])
+def test_graph_path_buffers_match_the_eager_clip(setup, toy_cameras3, path):
+    """``make_mc_clip_step(graphs=True)`` on the CPU runs what the card
+    captures - the static state, frame and snapshot buffers, each branch
+    writing its new state back into them - without the capture: two clips
+    through the same buffers give the eager clip's results bit for bit."""
+    sfx, stem, frames = _models(setup, path)
+    cfg = TrackerConfig(**dict(BASE, **SHIPPED))
+    ranges = list(toy_cameras3["ranges"].values())
+    out = {}
+    for graphs in (False, True):
+        clip = make_mc_clip_step(
+            setup[f"det{sfx}"], bank_from_registry(toy_cameras3["registry"], device="cpu"),
+            torch.as_tensor(toy_cameras3["centers"]), default_params(device="cpu"), cfg,
+            crop_model=setup[f"crop{sfx}"], stem=stem, crop_stem=stem, graphs=graphs,
+        )
+        st, tb = _seed(init_track_state(cfg.max_tracks, "cpu"), ranges, cfg.max_tracks), torch.as_tensor(setup["bias0"])
+        snaps = []
+        for frame0 in (0, T_CLIP):
+            st, tb, snap = clip(st, tb, torch.as_tensor(frames), torch.as_tensor(setup["cam_times"]) + frame0 / 30.0,
+                                frame0)
+            snaps.append(snap)
+        out[graphs] = (st, tb, snaps)
+    (st0, tb0, snaps0), (st1, tb1, snaps1) = out[False], out[True]
+    for a, b in zip(snaps0, snaps1):
+        for name in a._fields:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert all(torch.equal(a, b) for a, b in zip([*st0.kf, *st0[1:]], [*st1.kf, *st1[1:]]))
+    assert torch.equal(tb0, tb1) and int(snaps0[1].raw_mask.sum()) > 0
+
+
+N_CLIPS_FRAMES = 14  # five clips of 3 frames, the last one 2
+
+
+def _clip_sources(seed=34):
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, (N_CLIPS_FRAMES, 3, 64, 96, 3), dtype=np.uint8)
+
+    def camera(ci):
+        return ((buf[f, ci], 1.6e9 + f / 30.0) for f in range(N_CLIPS_FRAMES))
+
+    return lambda: [camera(ci) for ci in range(3)]
+
+
+def test_track_clips_over_five_clips_matches_jax(setup):
+    """Five clips of 3 frames, the last one partial, through both packages'
+    ``track_clips`` (JAX keeps 3 clips in flight and logs the bias each clip
+    returned; the port reads each clip once, 3 clips later): every row and
+    every logged bias equal, with the bias moved by detect frames.
+
+    Two cameras share one fitted pose, and with zero output convs every
+    box is the regression bias (aimed at a car) applied to its anchor, so
+    the cameras detect the same roadway boxes. The frames are 32 x 32, so
+    the top-k holds every anchor of both cameras; their clocks differ by
+    4 ms, which the clock-bias estimator picks up on each detect frame."""
+    from playground3d_tpu.data.toy_cameras import make_projector, register_toy_camera
+    from playground3d_tpu.geometry.homography import CameraRegistry
+    from playground3d_tpu_torch.data.synthetic import aimed_regression_bias
+
+    hw, car = (32, 32), (330.0, 30.0, 18.0, 6.0, 5.0, 1.0)
+    project = make_projector(cam_x=250.0, cam_y=60.0, height=30.0, f=2000.0 * 32 / 1920, cx=16.0, cy=16.0)
+    reg = CameraRegistry()
+    for name in ("p1c1", "p1c2"):
+        register_toy_camera(reg, name, project, (450.0, 680.0), seed=7)
+    det = jax.tree_util.tree_map(lambda a: a, setup["jax_det"])
+    det["heads"]["reg_out"]["b"] = jnp.asarray(aimed_regression_bias(reg.P[0, 0], car, hw))
+    centers = np.array([[565.0, 60.0], [565.0, 60.0]], np.float32)
+    knobs = dict(BASE, **SHIPPED, pre_topk=512, max_dets=128)
+    rng = np.random.default_rng(33)
+    buf = rng.integers(0, 256, (N_CLIPS_FRAMES, 2) + hw + (3,), dtype=np.uint8)
+
+    def camera(ci):  # one camera's stream (a function, so each generator keeps its own ci)
+        return ((buf[f, ci], 1.6e9 + f / 30.0 + 0.004 * ci) for f in range(N_CLIPS_FRAMES))
+
+    def sources():
+        return [camera(ci) for ci in range(2)]
+
+    jt = JaxTracker(
+        reg, ["p1c1", "p1c2"], cfg=JaxConfig(**knobs), det_params=det, crop_params=setup["jax_crop"], depth=18,
+        crop_depth=18, centers=centers, stem="conv7", crop_stem="conv7", image_hw=hw,
+    )
+    jt.track_clips(sources(), clip_len=3)
+    pt = MultiCameraTracker(
+        reg, ["p1c1", "p1c2"], cfg=TrackerConfig(**knobs),
+        det_model=params_from_jax_numpy(jax.tree_util.tree_map(np.asarray, det), device="cpu"),
+        crop_model=setup["crop"], centers=centers, device="cpu",
+    )
+    stats = pt.track_clips(sources(), clip_len=3)
+    assert stats["frames"] == N_CLIPS_FRAMES == len(pt.rows) == len(jt.rows)
+    for rp, rj in zip(pt.rows, jt.rows):
+        assert rp[0] == rj[0] and rp[1] == pytest.approx(rj[1])
+        np.testing.assert_array_equal(rp[2], rj[2])
+        np.testing.assert_allclose(rp[3], rj[3], rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(rp[4], rj[4])
+    assert len(pt.ts_bias_log) == len(jt.ts_bias_log) == N_CLIPS_FRAMES
+    for bp, bj in zip(pt.ts_bias_log, jt.ts_bias_log):
+        np.testing.assert_allclose(bp, np.asarray(bj), rtol=0, atol=1e-6)
+    log = np.asarray(pt.ts_bias_log)
+    assert np.abs(log[:, 1]).max() > 1e-4 and len(np.unique(log[:, 1])) > 2  # moved, clip after clip
+    assert sum(len(r[2]) for r in pt.rows) > 0
+
+
+def test_track_clips_reads_each_clip_once_three_clips_later(setup, toy_cameras3, monkeypatch):
+    """The port's drain: one read a clip, started when the clip is enqueued
+    and waited for three clips later (the last ones at the end)."""
+    from playground3d_tpu_torch.ops.topk import HostSyncs
+
+    events = []
+    pt = _tracker(setup, toy_cameras3, TrackerConfig(**dict(BASE, **SHIPPED)))
+    clip = pt._clip_fn()
+
+    def logged_clip(state, ts_bias, frames, cam_times, frame0):
+        events.append(("clip", frame0))
+        return clip(state, ts_bias, frames, cam_times, frame0)
+
+    real = HostSyncs.fetch_later.__func__
+
+    def logged_fetch(cls, t, loop="drain"):
+        frame0 = events[-1][1]
+        wait = real(cls, t, loop)
+        return lambda: (events.append(("read", frame0)), wait())[1]
+
+    pt._clip = logged_clip
+    monkeypatch.setattr(HostSyncs, "fetch_later", classmethod(logged_fetch))
+    drains = HostSyncs.by_loop["drain"]
+    pt.track_clips(_clip_sources()(), clip_len=3)
+    assert HostSyncs.by_loop["drain"] - drains == 5
+    assert events == [("clip", 0), ("clip", 3), ("clip", 6), ("clip", 9), ("read", 0), ("clip", 12),
+                      ("read", 3), ("read", 6), ("read", 9), ("read", 12)]
+    assert [r[0] for r in pt.rows] == list(range(N_CLIPS_FRAMES))

@@ -2,10 +2,15 @@
 
 IoU within 1e-6; NMS keep indices/masks and auction assignments exactly
 equal (the port runs the same float32 arithmetic in the same order, with
-the JAX tie-breaks).
+the JAX tie-breaks). On the CPU the port runs the plain versions; the CUDA
+kernels (``csrc/nms.cu``, ``csrc/auction.cu``) are held against those on
+the card by ``chip_smoke.py``; their launch plans and layout constants are
+checked here.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,6 +60,23 @@ def test_top_k_puts_the_lower_index_first_on_ties():
 
 def _nms_case(rng, kind):
     n = 48
+    if kind == "car_512":
+        # the single camera's 512 tied candidates: one car box repeated at
+        # 8 px steps, suppressed one link of the chain a round
+        i = np.arange(512)
+        boxes = np.stack([8.0 * (i % 64), 8.0 * (i // 64), 8.0 * (i % 64) + 180.0, 8.0 * (i // 64) + 90.0], 1)
+        return boxes.astype(np.float32), np.full(512, 0.5, np.float32), np.ones(512, bool)
+    if kind == "all_masked":
+        return _boxes(rng, n), rng.uniform(0, 1, n).astype(np.float32), np.zeros(n, bool)
+    if kind == "single":
+        return _boxes(rng, 1), np.ones(1, np.float32), np.ones(1, bool)
+    if kind == "long_chain":
+        # neighbours overlap at IoU 0.54, boxes two apart at 0.25: at 0.3 each
+        # box is suppressed by the one before it only while that one is kept,
+        # so the fixed point takes a round for every other box
+        x = np.arange(64, dtype=np.float32) * 3.0
+        boxes = np.stack([x, np.zeros(64), x + 10.0, np.full(64, 10.0)], 1)
+        return boxes.astype(np.float32), np.linspace(1.0, 0.1, 64).astype(np.float32), np.ones(64, bool)
     if kind == "random":
         boxes, scores = _boxes(rng, n), rng.uniform(0, 1, n)
     elif kind == "score_ties":
@@ -71,7 +93,8 @@ def _nms_case(rng, kind):
     return boxes.astype(np.float32), scores.astype(np.float32), mask
 
 
-@pytest.mark.parametrize("kind", ["random", "score_ties", "negative_coords", "chain"])
+@pytest.mark.parametrize("kind", ["random", "score_ties", "negative_coords", "chain", "car_512", "all_masked",
+                                  "single", "long_chain"])
 @pytest.mark.parametrize("max_keep", [16, 64])
 def test_nms_exact(rng, kind, max_keep):
     boxes, scores, mask = _nms_case(rng, kind)
@@ -82,7 +105,7 @@ def test_nms_exact(rng, kind, max_keep):
     np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
 
 
-@pytest.mark.parametrize("kind", ["random", "score_ties", "negative_coords"])
+@pytest.mark.parametrize("kind", ["random", "score_ties", "negative_coords", "car_512", "all_masked"])
 def test_batched_nms_exact(rng, kind):
     boxes, scores, mask = _nms_case(rng, kind)
     groups = rng.integers(0, 3, len(boxes)).astype(np.int32)
@@ -93,6 +116,22 @@ def test_batched_nms_exact(rng, kind):
     pi, pm = PN.batched_nms(_t(boxes), _t(scores), _t(groups), _t(mask), 0.3, max_keep=40)
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+
+
+@pytest.mark.parametrize("n_iter", [1, 3, 7])
+def test_nms_iteration_cap_exact(rng, n_iter):
+    """A suppression chain stopped at ``n_iter`` rounds, before its fixed
+    point: the same partial result as JAX's capped ``while_loop``."""
+    boxes, scores, mask = _nms_case(rng, "long_chain")
+    args = (0.3,)
+    ji, jm = JN.nms(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(mask), *args, max_keep=64, n_iter=n_iter)
+    before = HostSyncs.by_loop["nms"]
+    pi, pm = PN.nms(_t(boxes), _t(scores), _t(mask), *args, max_keep=64, n_iter=n_iter)
+    assert HostSyncs.by_loop["nms"] - before == n_iter  # the cap, not the fixed point, ended the loop
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    full = PN.nms(_t(boxes), _t(scores), _t(mask), *args, max_keep=64)
+    assert not torch.equal(full[1], pm)
 
 
 def test_nms_counts_one_host_sync_per_round(rng):
@@ -132,3 +171,87 @@ def test_auction_exact_and_optimal(rng, kind, shape):
     assert total >= best - 1e-3 * max(best, 1.0)
     assert len(set(c for c in g if c >= 0)) == int((g >= 0).sum())  # one-to-one
     assert not np.any(g[~rm] >= 0)
+
+
+@pytest.mark.parametrize("kind", ["tie_heavy_unmasked", "capped", "all_rows_masked", "k1"])
+def test_auction_edges_exact(rng, kind):
+    """Edges of the auction against JAX: the tracker's 64 x 48 tie-heavy
+    benefit with every entry real, a ``max_iters`` cap that stops it early,
+    every row masked, and a 1 x 1 problem; the uncapped ones also against
+    scipy's optimum."""
+    b, rm, cm = _benefit(rng, 64, 48, "ties")
+    max_iters = 5000
+    if kind == "tie_heavy_unmasked":
+        rm, cm = np.ones(64, bool), np.ones(48, bool)
+    elif kind == "capped":
+        max_iters = 5
+    elif kind == "all_rows_masked":
+        rm = np.zeros(64, bool)
+    elif kind == "k1":
+        b, rm, cm = np.full((1, 1), 0.7, np.float32), np.ones(1, bool), np.ones(1, bool)
+    ref = np.asarray(JA.assign_auction(jnp.asarray(b), jnp.asarray(rm), jnp.asarray(cm), max_iters=max_iters))
+    before = HostSyncs.by_loop["auction"]
+    got = PA.assign_auction(_t(b), _t(rm), _t(cm), max_iters=max_iters).numpy()
+    np.testing.assert_array_equal(got, ref)
+    if kind == "capped":
+        assert HostSyncs.by_loop["auction"] - before == max_iters
+        return
+    masked = np.where(rm[:, None] & cm[None, :], b, 0.0)
+    opt = PA.assign_hungarian(masked)
+    best = sum(masked[r, c] for r, c in enumerate(opt) if c >= 0)
+    assert sum(masked[r, c] for r, c in enumerate(got) if c >= 0) >= best - 1e-3 * max(best, 1.0)
+    if kind == "all_rows_masked":
+        assert np.all(got == -1)
+    if kind == "k1":
+        assert got.tolist() == [0]
+
+
+_CSRC = Path(PN.__file__).resolve().parents[1] / "csrc"
+
+
+def _cu_constant(source, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", (_CSRC / source).read_text()).group(1))
+
+
+@pytest.mark.parametrize("source, name, value", [
+    ("nms.cu", "kMaxBoxes", PN.MAX_BOXES),
+    ("nms.cu", "kMaxPerThread", PN.MAX_PER_THREAD),
+    ("auction.cu", "kMaxK", PA.MAX_K),
+    ("auction.cu", "kSmemMaxK", PA.SMEM_MAX_K),
+])
+def test_kernel_sources_hold_the_plans_constants(source, name, value):
+    """The C launchers recompute launch_plan's threads and shared memory and
+    refuse a mismatch: both sides hold the same limits."""
+    assert _cu_constant(source, name) == value
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 48, 64, 512, 1000, 1024, 1025, 4096, 8192])
+def test_nms_launch_plan(n):
+    """The loop block: a thread a box in whole warps up to 1,024 threads,
+    then up to MAX_PER_THREAD boxes a thread; the beats table word-major,
+    a word per 32 boxes for each box."""
+    plan = PN.launch_plan(n)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.threads * plan.per_thread >= n and plan.per_thread <= PN.MAX_PER_THREAD
+    assert plan.per_thread == 1 or plan.threads == 1024
+    assert plan.words * 32 >= n and (plan.words - 1) * 32 < max(n, 1)
+    assert plan.workspace_words == plan.words * n
+
+
+@pytest.mark.parametrize("n, m", [(64, 48), (48, 64), (1, 1), (3, 2), (224, 10), (225, 10), (300, 260), (200, 1024)])
+def test_auction_launch_plan(n, m):
+    """A warp a row, at most 32 warps; the formed benefit in shared memory
+    up to SMEM_MAX_K, within the card's 227 KB."""
+    plan = PA.launch_plan(n, m)
+    k = max(n, m)
+    assert plan.k == k and plan.threads == min(1024, 32 * k) and plan.threads >= k
+    assert plan.benefit_in_shared == (k <= PA.SMEM_MAX_K)
+    assert plan.shared_bytes == (k * k * 4 if k <= PA.SMEM_MAX_K else 0) + 10 * k * 4 + 16
+    assert plan.shared_bytes <= 232448
+
+
+@pytest.mark.parametrize("call", [lambda: PN.launch_plan(8193), lambda: PA.launch_plan(1025, 3),
+                                  lambda: PA.launch_plan(0, 0)])
+def test_launch_plans_refuse_what_the_kernels_cannot_take(call):
+    with pytest.raises(ValueError, match="kernel takes"):
+        call()
