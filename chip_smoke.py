@@ -242,7 +242,7 @@ def seed_tracks(state, n_seed: int):
     )
 
 
-def make_tracker(reg, det, crop, cfg, device, n_seed, graphs=None):
+def make_tracker(reg, det, crop, cfg, device, n_seed, graphs=True):
     from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
 
     trk = MultiCameraTracker(reg, ["p1c1"], cfg=cfg, det_model=det, crop_model=crop,
@@ -1153,10 +1153,11 @@ def kernels_nms(device, flush, noop_ms):
     import torch
 
     from playground3d_tpu_torch.ops import nms as N
+    from playground3d_tpu_torch.ops.iou import pairwise_iou
     from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
 
     rng = np.random.default_rng(41)
-    tensors = {}
+    tensors, worst = {}, 0
     for label, boxes, scores, mask, thr, max_keep, n_iter, groups in nms_cases(rng):
         b, sc, m = (torch.as_tensor(a, device=device) for a in (boxes, scores, mask))
         if groups is not None:  # batched_nms: its shift is tensor ops, then the kernel
@@ -1169,27 +1170,40 @@ def kernels_nms(device, flush, noop_ms):
         reads = HostSyncs.by_loop["nms"] - reads0
         torch.cuda.synchronize()
         ok = torch.equal(got_i, ref_i) and torch.equal(got_m, ref_m) and got_i.dtype == ref_i.dtype
+        if len(got_i):  # the largest difference of a keep index or a keep flag
+            worst = max(worst, int((got_i.long() - ref_i.long()).abs().max()), int((got_m != ref_m).any()))
         log(f"kernels: nms, {label} (n {len(boxes)}, max_keep {max_keep}, n_iter {n_iter}): keep indices and "
             f"masks {'equal to' if ok else 'DIFFER from'} the plain version's ({int(got_m.sum())} kept); "
             f"{rounds} rounds on the card, {reads} host reads by the plain loop")
         if not ok or rounds != reads:
             fail(f"nms ({label}): the kernel differs from the plain version (rounds {rounds} vs {reads})")
-        tensors[label] = (b.contiguous(), sc, m, thr, max_keep, n_iter, rounds)
+        tensors[label] = (b.contiguous(), sc, m, thr, max_keep, n_iter, rounds, int(got_m.sum()))
 
     labels = [case[0] for case in nms_cases(np.random.default_rng(41))]
     times = {}
     for label in (labels[0], labels[3], labels[4]):  # n 512, 48, 64: the main path's three sizes
-        b, sc, m, thr, max_keep, n_iter, rounds = tensors[label]
+        b, sc, m, thr, max_keep, n_iter, rounds, kept = tensors[label]
+        # the work these inputs need: the IoU of each pair of masked boxes (one of the two
+        # ranks ahead of the other), a round's test of each box's beaters, the kept boxes' order
+        s = torch.where(m, sc, torch.full_like(sc, N.NEG_INF))
+        ar = torch.arange(b.shape[0], device=device)
+        ahead = (s[:, None] > s[None, :]) | ((s[:, None] == s[None, :]) & (ar[:, None] < ar[None, :]))
+        beats = ahead & (pairwise_iou(b, b) > thr) & m[:, None] & m[None, :]
+        work = dict(masked=int(m.sum()), beats=int(beats.sum()), kept=kept)
         kernel_ms = gpu_ms(lambda: N.nms_cuda(b, sc, m, thr, max_keep, n_iter), iters=50)
         plain_ms = gpu_ms(lambda: N.nms_plain(b, sc, m, thr, max_keep, n_iter), iters=3)
         n = b.shape[0]
         nbytes = n * (16 + 4 + 1) + max_keep * (4 + 1)
-        # one IoU a pair (13 float32 ops), the rank compares, and a round's word ANDs; bytes: the
-        # inputs and outputs once (the beats table is the kernels' own, kept in L2)
-        ops = n * n * 13 + n * n + rounds * n * -(-n // 32)
+        # operations: each masked box's area (3), for each pair of masked boxes the order
+        # (1 compare) and the IoU against thr (14), in each round an AND for each beats pair,
+        # and a compare for each pair of kept boxes; bytes: the inputs and outputs once (the
+        # beats table is the kernels' own, kept in L2)
+        mm = work["masked"]
+        ops = 3 * mm + 15 * (mm * (mm - 1) // 2) + rounds * work["beats"] + kept * (kept - 1) // 2
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
         times[n] = (kernel_ms, plain_ms, bound_ms, ops, nbytes, rounds)
-        log(f"kernels: nms at n {n} ({rounds} rounds): kernel {kernel_ms * 1e3:.2f} us (an empty kernel "
+        log(f"kernels: nms at n {n} ({rounds} rounds, {work['masked']} boxes masked in, {work['beats']} beats "
+            f"pairs, {work['kept']} kept): kernel {kernel_ms * 1e3:.2f} us (an empty kernel "
             f"{noop_ms * 1e3:.2f} us), plain version {plain_ms * 1e3:.1f} us (one host read a round), bound "
             f"{bound_ms * 1e3:.4f} us ({ops} float32 ops at 67 TFLOP/s; {nbytes} bytes), "
             f"{bound_ms / kernel_ms * 100:.2f}% of bound; no library call (torchvision is not installed)")
@@ -1197,7 +1211,7 @@ def kernels_nms(device, flush, noop_ms):
     return {
         "name": "nms", "route": "cuda", "source": "playground3d_tpu_torch/csrc/nms.cu",
         "replaces": "playground3d_tpu/ops/nms.py:92",
-        "max_abs_err": 0.0, "bound_by": "operations" if ops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "max_abs_err": float(worst), "bound_by": "operations" if ops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
     }
 
@@ -1236,16 +1250,18 @@ def kernels_auction(device, flush, noop_ms):
     from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
 
     rng = np.random.default_rng(43)
-    main = None
+    main, worst = None, 0
     for label, b, rm, cm, max_iters in auction_cases(rng):
         bt, rt, ct = (torch.as_tensor(a, device=device) for a in (b, rm, cm))
         DeviceRounds.reset()
         got = A.assign_auction(bt, rt, ct, max_iters)
-        rounds = DeviceRounds.read()["auction"]
+        counts = DeviceRounds.read()
+        rounds, bids = counts["auction"], counts["auction_bids"]
         reads0 = HostSyncs.by_loop["auction"]
         ref = A.assign_auction_plain(bt, rt, ct, max_iters)
         reads = HostSyncs.by_loop["auction"] - reads0
         ok = torch.equal(got, ref)
+        worst = max(worst, int((got.long() - ref.long()).abs().max()) if len(got) else 0)
         g = got.cpu().numpy()
         masked = np.where(rm[:, None] & cm[None, :], b, 0.0)
         r, c = linear_sum_assignment(masked, maximize=True)
@@ -1256,14 +1272,16 @@ def kernels_auction(device, flush, noop_ms):
         optimal = rounds >= max_iters or total >= best - 1e-3 * max(best, 1.0)
         log(f"kernels: auction, {label}: assignment {'equal to' if ok else 'DIFFERS from'} the plain "
             f"version's ({int((g >= 0).sum())} rows assigned, benefit {total:.4f}, scipy's optimum "
-            f"{best:.4f}); {rounds} rounds on the card, {reads} host reads by the plain loop")
+            f"{best:.4f}); {rounds} rounds on the card, {reads} host reads by the plain loop, {bids} bids")
+        if not rounds - 1 <= bids <= rounds * max(b.shape):  # a bid in each round but the last
+            fail(f"auction ({label}): {bids} bids in {rounds} rounds of {max(b.shape)} rows")
         if not ok or rounds != reads or not optimal:
             fail(f"auction ({label}): kernel {'equal' if ok else 'differs'}, rounds {rounds} vs {reads}, "
                  f"benefit {total} vs optimum {best}")
         if main is None:
-            main = (bt, rt, ct, rounds, masked)
+            main = (bt, rt, ct, rounds, bids)
 
-    bt, rt, ct, rounds, masked = main
+    bt, rt, ct, rounds, bids = main
     kernel_ms = gpu_ms(lambda: A.assign_auction_cuda(bt, rt, ct), iters=50)
     plain_ms = gpu_ms(lambda: A.assign_auction_plain(bt, rt, ct), iters=3)
     torch.cuda.synchronize()
@@ -1275,9 +1293,12 @@ def kernels_auction(device, flush, noop_ms):
     n, m = bt.shape
     k = max(n, m)
     nbytes = n * m * 4 + n + m + n * 4
-    ops = rounds * k * k * 4  # a round: every row's values twice (best, second), a subtract and a compare each
+    # the work these inputs need: the scale (an abs and a max an entry) and the squared-up
+    # benefit (k^2); for each row that bids in a round, k subtractions, best and second (2k
+    # compares) and its bid (3), the column's amax and winner test (2); a round's update (k)
+    ops = 2 * n * m + k * k + bids * (3 * k + 5) + rounds * k
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
-    log(f"kernels: auction at 64 x 48 tie-heavy ({rounds} rounds): kernel {kernel_ms * 1e3:.2f} us (an empty "
+    log(f"kernels: auction at 64 x 48 tie-heavy ({rounds} rounds, {bids} bids): kernel {kernel_ms * 1e3:.2f} us (an empty "
         f"kernel {noop_ms * 1e3:.2f} us), plain version {plain_ms * 1e3:.1f} us (one host read a round), "
         f"scipy.optimize.linear_sum_assignment with the copy to the host {library_ms * 1e3:.1f} us, bound "
         f"{bound_ms * 1e3:.4f} us ({ops} float32 ops at 67 TFLOP/s; {nbytes} bytes), "
@@ -1285,7 +1306,7 @@ def kernels_auction(device, flush, noop_ms):
     return {
         "name": "auction", "route": "cuda", "source": "playground3d_tpu_torch/csrc/auction.cu",
         "replaces": "playground3d_tpu/ops/assignment.py:138",
-        "max_abs_err": 0.0, "bound_by": "operations" if ops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "max_abs_err": float(worst), "bound_by": "operations" if ops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
     }
 
@@ -1842,7 +1863,7 @@ def single_app():
         DeviceRounds.reset()
         metrics = track.main(["--mode", mode, "--out", out, "--eval"] + extra)
         loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
-        loops.update({f"{k} rounds on the card": v for k, v in DeviceRounds.read().items()})
+        loops.update({f"{k} on the card": v for k, v in DeviceRounds.read().items()})
         if not (os.path.exists(out) and os.path.exists(gt)):
             fail(f"single: apps.track --mode {mode} wrote no CSV or no GT CSV")
         if not metrics or "MOTA" not in metrics or "TP" not in metrics:

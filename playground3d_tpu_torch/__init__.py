@@ -11,7 +11,7 @@ geometry einsums), so TF32 is off for both matmuls and cuDNN convolutions.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Optional, Union
 
 import torch
 
@@ -33,24 +33,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "on the CPU"
         )
     return dev
-
-
-_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
-
-
-def device_constant(values: Any, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``torch.as_tensor(values, dtype=dtype, device=device)``, made once
-    per value, dtype and device and then reused. A copy from host memory
-    cannot be captured in a CUDA graph, so the constants of the tracker's
-    branch steps are made on their first, eager, call and the captured
-    replays reuse them. The result is shared: never write into it."""
-    host = torch.as_tensor(values, dtype=dtype)
-    dev = torch.device(device)
-    key = (host.dtype, tuple(host.shape), host.reshape(-1).view(torch.uint8).numpy().tobytes(), dev)
-    out = _CONSTANTS.get(key)
-    if out is None:
-        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("device_constant: first made inside a CUDA graph capture; warm up first")
-        out = host.to(dev)
-        _CONSTANTS[key] = out
-    return out

@@ -10,8 +10,9 @@
 // never waits for it and a CUDA graph can hold it.
 //
 // What bounds it: latency. k = max(n, m) <= 1024 (64 on the tracker's
-// 64 x 48 IoU), each round is k^2 subtractions and compares and four block
-// barriers, and the rounds depend on the data (tens to thousands a call).
+// 64 x 48 IoU), a round is k subtractions and compares for each row that
+// bids and four block barriers, and the rounds depend on the data (tens to
+// thousands a call).
 // One block holds the whole problem:
 //  - the squared-up benefit (real entries, else the tie-break) is formed
 //    once into shared memory; above kSmemMaxK it is formed on the fly from
@@ -21,7 +22,7 @@
 //    the row's bid; a warp per column takes the largest bid (amax), its
 //    lowest winning row (amin) and evicts the column's previous holder; then
 //    a thread per row and column applies the round, and the epsilon shrink
-//    and the restart are decided by __syncthreads_and / __syncthreads_or.
+//    and the restart are decided by __syncthreads_and / __syncthreads_count.
 //    The first version, a thread per row and per column scanning k values
 //    alone, took 5.5 us a round (PERF.md).
 //
@@ -130,10 +131,12 @@ auction_kernel(const float* __restrict__ benefit, const uint8_t* __restrict__ ro
     col_of_row[t] = -1;
   }
 
-  int it = 0, reads = 0;
+  int it = 0, reads = 0, bids = 0;
   while (it < max_iters) {
     ++reads;
-    if (!__syncthreads_or(t < k && col_of_row[t] < 0) && !(eps > eps_final)) break;
+    const int bidders = __syncthreads_count(t < k && col_of_row[t] < 0);
+    if (bidders == 0 && !(eps > eps_final)) break;
+    bids += bidders;
 
     // rows, a warp each: the bid of each unassigned row
     for (int r = warp; r < k; r += warps) {
@@ -227,7 +230,10 @@ auction_kernel(const float* __restrict__ benefit, const uint8_t* __restrict__ ro
     const int c = col_of_row[t];
     out[t] = (row_mask[t] && c >= 0 && c < m && col_mask[c]) ? c : -1;
   }
-  if (t == 0 && rounds != nullptr) atomicAdd(rounds, reads);
+  if (t == 0 && rounds != nullptr) {
+    atomicAdd(rounds, reads);
+    atomicAdd(rounds + 1, bids);
+  }
 }
 
 }  // namespace
@@ -237,9 +243,10 @@ extern "C" {
 // Returns the cudaError_t of the launch (0 = cudaSuccess). The wrapper
 // (ops/assignment.py) checks types, shapes and devices and passes the
 // threads and dynamic shared memory its launch_plan computed, which must
-// equal this file's rule. `rounds` (int32 on the card, or null) is
-// increased by the loop's rounds, counted as the plain version counts its
-// host reads.
+// equal this file's rule. `rounds` (two int32 on the card, or null): the
+// first is increased by the loop's rounds, counted as the plain version
+// counts its host reads, the second by the rows that bid, summed over the
+// rounds (the work these inputs needed).
 int auction(const void* benefit, const void* row_mask, const void* col_mask, int n, int m, int max_iters,
             void* out, void* rounds, int threads, int shared_bytes, void* stream) {
   const int k = n > m ? n : m;

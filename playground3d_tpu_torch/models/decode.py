@@ -11,9 +11,9 @@ shifted by the anchor centre.
 
 from __future__ import annotations
 
-import torch
+import functools
 
-from playground3d_tpu_torch import device_constant
+import torch
 
 _SIGNS = (
     (-1.0, -1.0, 1.0),
@@ -25,6 +25,12 @@ _SIGNS = (
     (1.0, -1.0, -1.0),
     (1.0, 1.0, -1.0),
 )
+
+
+@functools.lru_cache(maxsize=None)
+def _signs(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    # made once a device: a CUDA graph cannot capture a copy from the host
+    return torch.tensor(_SIGNS, dtype=dtype, device=device)
 
 
 def decode_regression(regression: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
@@ -40,7 +46,7 @@ def decode_regression(regression: torch.Tensor, anchors: torch.Tensor) -> torch.
     wv = reg[..., 4:6]
     hv = reg[..., 6:8]
 
-    S = device_constant(_SIGNS, reg.device, reg.dtype)
+    S = _signs(reg.device, reg.dtype)
     corners = (
         c[..., None, :]
         + S[:, 0, None] * lv[..., None, :]

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from playground3d_tpu_torch import DeviceLike, device_constant, resolve_device
+from playground3d_tpu_torch import DeviceLike, resolve_device
 from playground3d_tpu_torch.models import quant
 from playground3d_tpu_torch.models.anchors import anchors_for_shape
 from playground3d_tpu_torch.models.decode import decode_regression
@@ -77,14 +77,20 @@ def retinanet_init(
     return model.to(dev).eval().requires_grad_(False)
 
 
+@functools.lru_cache(maxsize=None)
+def imagenet_mean_std(reps: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet's channel mean and std tiled over ``reps`` pixels, made once
+    a device: a CUDA graph cannot capture a copy from the host."""
+    return (torch.as_tensor(np.tile(IMAGENET_MEAN, reps), device=device),
+            torch.as_tensor(np.tile(IMAGENET_STD, reps), device=device))
+
+
 def normalize_on_device(images: torch.Tensor) -> torch.Tensor:
     """uint8 frames -> ImageNet-normalized float32; other dtypes pass
     through. The channel constants tile to s2d-packed channel counts."""
     if images.dtype != torch.uint8:
         return images
-    reps = images.shape[-1] // 3
-    mean = device_constant(np.tile(IMAGENET_MEAN, reps), images.device)
-    std = device_constant(np.tile(IMAGENET_STD, reps), images.device)
+    mean, std = imagenet_mean_std(images.shape[-1] // 3, images.device)
     return (images.to(torch.float32) / 255.0 - mean) / std
 
 

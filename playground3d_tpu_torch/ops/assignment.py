@@ -75,7 +75,8 @@ def assign_auction_cuda(
     """Launch the kernel on the current stream -> [n] int32. Takes benefit
     [n,m] float32, row_mask [n] and col_mask [m] bool, contiguous, on one
     CUDA device, max(n, m) <= :data:`MAX_K`. ``assign_auction_cuda.launches``
-    counts the launches; the rounds go to ``DeviceRounds``."""
+    counts the launches; the rounds and the rows that bid in them go to
+    ``DeviceRounds``."""
     if benefit.device.type != "cuda":
         raise ValueError(f"auction: the CUDA kernel takes CUDA tensors, got {benefit.device}")
     if benefit.dtype != torch.float32 or benefit.ndim != 2:

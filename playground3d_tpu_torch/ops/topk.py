@@ -40,9 +40,8 @@ class HostSyncs:
 
     @classmethod
     def fetch(cls, t: torch.Tensor, loop: str = "drain") -> np.ndarray:
-        cls.count += 1
-        cls.by_loop[loop] += 1
-        return t.cpu().numpy()
+        """One device->host read of ``t``, waited for now."""
+        return cls.fetch_later(t, loop)()
 
     @classmethod
     def fetch_later(cls, t: torch.Tensor, loop: str = "drain") -> Callable[[], np.ndarray]:
@@ -69,34 +68,36 @@ class HostSyncs:
 
 class DeviceRounds:
     """Rounds of the NMS and auction loops run by their CUDA kernels, added
-    on the card to one int32 counter per loop and device: the loops cost no
-    host read, and a run reads the counters once at its end (:meth:`read`).
-    A round is counted as the plain loop counts its :class:`HostSyncs`
-    reads, so the two numbers compare. The counters are allocated at a
-    kernel's first launch, which must not be inside a CUDA graph capture
-    (a capture is preceded by an eager warm-up)."""
+    on the card to int32 counters per device: the loops cost no host read,
+    and a run reads the counters once at its end (:meth:`read`). A round is
+    counted as the plain loop counts its :class:`HostSyncs` reads, so the
+    two numbers compare. ``auction_bids`` is the rows that bid, summed over
+    the auction's rounds: the work its inputs needed. The counters are
+    allocated at a kernel's first launch, which must not be inside a CUDA
+    graph capture (a capture is preceded by an eager warm-up)."""
 
-    LOOPS = ("nms", "auction")
+    # the auction kernel adds to its counter and the one after it
+    COUNTERS = ("nms", "auction", "auction_bids")
     _counters: Dict[torch.device, torch.Tensor] = {}
 
     @classmethod
-    def pointer(cls, device: torch.device, loop: str) -> int:
-        """Address of ``loop``'s counter on ``device``, for a kernel."""
+    def pointer(cls, device: torch.device, name: str) -> int:
+        """Address of counter ``name`` on ``device``, for a kernel."""
         counters = cls._counters.get(device)
         if counters is None:
             if torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("DeviceRounds: counters must be allocated before a CUDA graph capture")
-            counters = torch.zeros(len(cls.LOOPS), dtype=torch.int32, device=device)
+            counters = torch.zeros(len(cls.COUNTERS), dtype=torch.int32, device=device)
             cls._counters[device] = counters
-        return counters.data_ptr() + 4 * cls.LOOPS.index(loop)
+        return counters.data_ptr() + 4 * cls.COUNTERS.index(name)
 
     @classmethod
     def read(cls) -> Dict[str, int]:
-        """Rounds by loop, summed over devices: one host read a device."""
-        total = dict.fromkeys(cls.LOOPS, 0)
+        """Each counter, summed over devices: one host read a device."""
+        total = dict.fromkeys(cls.COUNTERS, 0)
         for counters in cls._counters.values():
-            for loop, n in zip(cls.LOOPS, counters.tolist()):
-                total[loop] += n
+            for name, n in zip(cls.COUNTERS, counters.tolist()):
+                total[name] += n
         return total
 
     @classmethod

@@ -36,12 +36,14 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from playground3d_tpu_torch import DeviceLike, device_constant, resolve_device
+from playground3d_tpu_torch import DeviceLike, resolve_device
 from playground3d_tpu_torch.evaluation import geometry_np as G
 from playground3d_tpu_torch.evaluation.csv_io import TrackRecord, write_results_csv
 from playground3d_tpu_torch.geometry import transforms as T
 from playground3d_tpu_torch.models.resnet import space_to_depth
-from playground3d_tpu_torch.models.retinanet import Detections, RetinaNet, detect_multiframe, localize
+from playground3d_tpu_torch.models.retinanet import (
+    Detections, RetinaNet, detect_multiframe, imagenet_mean_std, localize,
+)
 from playground3d_tpu_torch.ops.crop_mxu import crop_and_resize_s2d, max_crop_span_s2d
 from playground3d_tpu_torch.ops.cuda_build import credit, launches_recorded
 from playground3d_tpu_torch.ops.iou import elementwise_iou, pairwise_iou
@@ -73,8 +75,6 @@ from playground3d_tpu_torch.utils.config import TrackerConfig, camera_centers, t
 from playground3d_tpu_torch.utils.constants import (
     CLASS_HEIGHTS,
     CLASS_NAMES,
-    IMAGENET_MEAN,
-    IMAGENET_STD,
     NUM_CLASSES,
 )
 
@@ -156,8 +156,7 @@ def select_crop_slots(
 
 
 def _normalize_crops(crops: torch.Tensor) -> torch.Tensor:
-    mean = device_constant(IMAGENET_MEAN, crops.device)
-    std = device_constant(IMAGENET_STD, crops.device)
+    mean, std = imagenet_mean_std(1, crops.device)
     return (crops / 255.0 - mean) / std
 
 
@@ -447,7 +446,7 @@ def make_mc_clip_step(
     crop_model: Optional[RetinaNet] = None,
     stem: str = "s2d",
     crop_stem: str = "s2d",
-    graphs: Optional[bool] = None,
+    graphs: bool = True,
 ):
     """(state, ts_bias, frames [T,C,...], cam_times [T,C], frame0 int) ->
     (state', ts_bias', snapshots stacked over T): frame ``i`` (global index
@@ -463,12 +462,12 @@ def make_mc_clip_step(
 
     The JAX clip is one program: a ``lax.scan`` over a ``lax.switch`` of the
     three branches. Here the host picks the branch from the frame index (no
-    device read) and, on the card, replays that branch's CUDA graph
-    (:class:`_BranchGraphs`): no host read inside the clip. ``graphs``:
-    None (the default) captures graphs for tensors on the card and runs the
-    branch functions eagerly on the CPU; False runs them eagerly on any
-    device; True on the CPU runs the graph path's static buffers and
-    write-backs eagerly (no capture there)."""
+    device read) and runs it over static buffers (:class:`_BranchGraphs`):
+    on the card it replays that branch's CUDA graph, so no host read
+    happens inside the clip; on the CPU it runs the same buffers and
+    write-backs without capture. ``graphs=False`` runs the branch functions
+    eagerly instead, on any device (the reference the graphs are held
+    to)."""
     if det_model.stem != stem:
         raise ValueError(f"make_mc_clip_step: stem={stem!r} but the detector was built with {det_model.stem!r}")
     detect_step = make_mc_detect_step(det_model, bank, kfp, cfg)
@@ -500,8 +499,7 @@ def make_mc_clip_step(
     @torch.no_grad()
     def clip(state: TrackState, ts_bias: torch.Tensor, frames: torch.Tensor,
              cam_times: torch.Tensor, frame0: int):
-        on_card = frames.device.type == "cuda"
-        if graphs is False or (graphs is None and not on_card):
+        if not graphs:
             st, tb = state, ts_bias
             snaps = []
             for li in range(frames.shape[0]):
@@ -512,7 +510,7 @@ def make_mc_clip_step(
         key = (frames.device, tuple(frames.shape[1:]), frames.dtype)
         runner = runners.get(key)
         if runner is None:
-            runner = runners[key] = _BranchGraphs(branches, capture=on_card)
+            runner = runners[key] = _BranchGraphs(branches, capture=frames.device.type == "cuda")
         runner.load(state, ts_bias, frames[0], cam_times[0])
         T_len = frames.shape[0]
         out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
@@ -536,7 +534,7 @@ class MultiCameraTracker:
     ``sources`` are per-camera iterators of (frame [H,W,3], t_abs). The
     models must already sit on ``device`` (the card unless the caller asks
     for the CPU); frames are shipped there as they arrive. ``graphs`` is
-    :func:`make_mc_clip_step`'s (None: each branch a CUDA graph on the
+    :func:`make_mc_clip_step`'s (True: each branch a CUDA graph on the
     card; False: eager)."""
 
     def __init__(
@@ -552,10 +550,10 @@ class MultiCameraTracker:
         stem: str = "conv7",
         crop_stem: str = "conv7",
         device: DeviceLike = None,
-        graphs: Optional[bool] = None,
+        graphs: bool = True,
     ):
         self.device = resolve_device(device)
-        self.graphs = graphs  # make_mc_clip_step's: None = CUDA graphs on the card
+        self.graphs = graphs  # make_mc_clip_step's: True = CUDA graphs on the card
         self.stem, self.crop_stem = stem, crop_stem
         self.registry = registry
         self.cameras = list(cameras)

@@ -17,13 +17,14 @@ never write into their inputs, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from playground3d_tpu_torch import DeviceLike, device_constant, resolve_device
+from playground3d_tpu_torch import DeviceLike, resolve_device
 from playground3d_tpu_torch.geometry import transforms as T
 from playground3d_tpu_torch.models.retinanet import Detections
 from playground3d_tpu_torch.ops.assignment import assign_auction
@@ -102,8 +103,14 @@ def _one_hot(cls: torch.Tensor) -> torch.Tensor:
     return Fn.one_hot(cls.long(), NUM_CLASSES).to(torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _class_height_table(device: torch.device) -> torch.Tensor:
+    # made once a device: a CUDA graph cannot capture a copy from the host
+    return torch.as_tensor(CLASS_HEIGHTS, device=device)
+
+
 def _class_heights(classes: torch.Tensor) -> torch.Tensor:
-    return device_constant(CLASS_HEIGHTS, classes.device)[classes.long()]
+    return _class_height_table(classes.device)[classes.long()]
 
 
 def _scatter_any(size: int, index: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
@@ -239,7 +246,7 @@ def associate_and_update(
         same_dir = (state.kf.d[:, None] * parsed.state[None, :, 5]) > 0
         free_det = parsed.mask & ~matched_col
         cand = ghost[:, None] & free_det[None, :] & same_dir & (dist < cfg.ghost_r_ft)
-        big = device_constant(1e9, dev, torch.float32)
+        big = 1e9
         cost = torch.where(cand, dist, big) + ar_n[:, None] * 1e-6
         det_pick = torch.argmin(cost, dim=1)
         det_cost = torch.amin(cost, dim=1)
