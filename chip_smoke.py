@@ -18,7 +18,9 @@ result line):
              launch at 1080p, listed by a hook), ``nms.cu`` and
              ``auction.cu`` (the tracker's NMS and auction loops, at the main
              path's sizes and at edges; equal to the plain loops, round
-             counts included);
+             counts included; NMS on both routes, at every cluster size of
+             the one-launch route, batched cases shifted in the kernel, and
+             one ``batched_nms`` at n 512 one kernel launch);
 3. main    - the multi-camera tracker at full width through
              ``MultiCameraTracker.track_clips``: one 1080p camera, ResNet-50
              detector (FPN/heads 256 wide), ResNet-18 crop net, 24-frame
@@ -30,7 +32,10 @@ result line):
              and planar YUV420 bytes converted on the card. Each runs its
              branches as captured CUDA graphs, three times, and each run
              must equal the eager clip on the card and read the card once a
-             clip (``track_clips``' lagged drain) and nowhere inside it.
+             clip (``track_clips``' lagged drain) and nowhere inside it; the
+             NMS and auction calls of one eager detect and one crop frame
+             are recorded, replayed through their kernels and timed, and
+             saved to ``_outputs/tracker_loop_calls.pt``.
              Before that, the card's clip is held against the CPU's on a
              small input for each transport and for a quantized pair;
 4. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
@@ -1104,7 +1109,9 @@ def nms_cases(rng):
     """(label, boxes [n,4], scores [n], mask [n], thr, max_keep, n_iter,
     groups or None) at the main path's sizes (512 candidates into the
     detector's camera-grouped NMS, 48 detections into the parse NMS, 64
-    slots into the lifecycle's) and at edges."""
+    slots into the lifecycle's), at edges, at each cluster size of the
+    one-launch route and on both sides of its limit (cases are appended at
+    the end, so the earlier ones draw the same numbers)."""
     def rand_boxes(n, lo=0.0, span=1800.0, size=(20.0, 300.0)):
         xy = rng.uniform(lo, lo + span, (n, 2))
         return np.concatenate([xy, xy + rng.uniform(*size, (n, 2))], 1).astype(np.float32)
@@ -1143,13 +1150,50 @@ def nms_cases(rng):
          np.full(4096, 0.5, np.float32), some(4096), 0.5, 128, None, rng.integers(0, 3, 4096).astype(np.int32)),
         ("8,192 random boxes (the kernel's cap)", rand_boxes(8192), rng.uniform(0, 1, 8192).astype(np.float32),
          some(8192), 0.5, 256, None, None),
+        # each cluster size, batched, and both sides of the one-launch route's limit
+        ("100 candidates, 2 cameras (a 2-CTA cluster)", rand_boxes(100, lo=-300.0), rng.uniform(0, 1, 100)
+         .astype(np.float32), some(100), 0.4, 48, None, rng.integers(0, 2, 100).astype(np.int32)),
+        ("200 candidates, tied scores, 4 cameras (a 4-CTA cluster)", rand_boxes(200),
+         (rng.integers(0, 4, 200) / 3).astype(np.float32), some(200), 0.3, 64, None,
+         rng.integers(0, 4, 200).astype(np.int32)),
+        ("300 random boxes (an 8-CTA cluster)", rand_boxes(300), rng.uniform(0, 1, 300).astype(np.float32),
+         some(300), 0.5, 100, None, None),
+        ("1,260 boxes, 3 cameras (the one-launch route's cap)", rand_boxes(1260, size=(40.0, 400.0)),
+         rng.uniform(0, 1, 1260).astype(np.float32), some(1260), 0.5, 300, None,
+         rng.integers(0, 3, 1260).astype(np.int32)),
+        ("1,260 boxes, tied scores", rand_boxes(1260), np.full(1260, 0.5, np.float32), some(1260), 0.5, 300,
+         None, None),
+        ("1,261 boxes, 3 cameras (two launches, shifted by the shift kernel)", rand_boxes(1261, lo=-500.0),
+         rng.uniform(0, 1, 1261).astype(np.float32), some(1261), 0.5, 300, None,
+         rng.integers(0, 3, 1261).astype(np.int32)),
+        ("1,261 boxes (two launches)", rand_boxes(1261), rng.uniform(0, 1, 1261).astype(np.float32), some(1261),
+         0.5, 300, None, None),
+        ("64 slots, 2 groups, capped at 2 rounds", chain, np.linspace(1.0, 0.1, 64).astype(np.float32),
+         np.ones(64, bool), 0.3, 64, 2, (np.arange(64) % 2).astype(np.int32)),
     ]
+
+
+def launched_kernels(fn) -> int:
+    """Kernels one call of ``fn()`` launches: the nodes of a CUDA graph that
+    captures it (it allocates with ``torch.empty`` only, which adds none)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, to read its nodes
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph_nodes(graph)
 
 
 def kernels_nms(device, flush, noop_ms):
     """``nms.cu``: every case against the plain version on the card (keep
     indices and masks equal, its rounds equal to the plain loop's host
-    reads), then times at the main path's sizes."""
+    reads; batched cases pass their groups to the kernel and are held
+    against ``group_shift`` + the plain loop), both routes and every
+    cluster size of the one-launch route, the kernels one batched call
+    launches, then times at the main path's sizes."""
     import torch
 
     from playground3d_tpu_torch.ops import nms as N
@@ -1157,55 +1201,75 @@ def kernels_nms(device, flush, noop_ms):
     from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
 
     rng = np.random.default_rng(41)
-    tensors, worst = {}, 0
+    tensors, worst, seen = {}, 0, set()
     for label, boxes, scores, mask, thr, max_keep, n_iter, groups in nms_cases(rng):
         b, sc, m = (torch.as_tensor(a, device=device) for a in (boxes, scores, mask))
-        if groups is not None:  # batched_nms: its shift is tensor ops, then the kernel
-            b = N.group_shift(b, torch.as_tensor(groups, device=device), m)
+        g = None if groups is None else torch.as_tensor(groups, device=device)
+        plan = N.launch_plan(len(boxes))
         DeviceRounds.reset()
-        got_i, got_m = N.nms(b, sc, m, thr, max_keep, n_iter)
+        got_i, got_m = N.nms_cuda(b, sc, m, thr, max_keep, n_iter, groups=g)
         rounds = DeviceRounds.read()["nms"]
+        shifted = b if g is None else N.group_shift(b, g, m)  # the plain version's batched_nms
         reads0 = HostSyncs.by_loop["nms"]
-        ref_i, ref_m = N.nms_plain(b, sc, m, thr, max_keep, n_iter)
+        ref_i, ref_m = N.nms_plain(shifted, sc, m, thr, max_keep, n_iter)
         reads = HostSyncs.by_loop["nms"] - reads0
         torch.cuda.synchronize()
         ok = torch.equal(got_i, ref_i) and torch.equal(got_m, ref_m) and got_i.dtype == ref_i.dtype
         if len(got_i):  # the largest difference of a keep index or a keep flag
             worst = max(worst, int((got_i.long() - ref_i.long()).abs().max()), int((got_m != ref_m).any()))
-        log(f"kernels: nms, {label} (n {len(boxes)}, max_keep {max_keep}, n_iter {n_iter}): keep indices and "
-            f"masks {'equal to' if ok else 'DIFFER from'} the plain version's ({int(got_m.sum())} kept); "
-            f"{rounds} rounds on the card, {reads} host reads by the plain loop")
+        route = f"one launch, {plan.cluster}-CTA cluster" if plan.one_launch else "two launches"
+        seen.add((plan.one_launch, plan.cluster, g is not None))
+        log(f"kernels: nms, {label} (n {len(boxes)}, max_keep {max_keep}, n_iter {n_iter}; {route}"
+            f"{', groups shifted in the kernel' if g is not None else ''}): keep indices and masks "
+            f"{'equal to' if ok else 'DIFFER from'} the plain version's ({int(got_m.sum())} kept); {rounds} rounds "
+            f"on the card, {reads} host reads by the plain loop")
         if not ok or rounds != reads:
             fail(f"nms ({label}): the kernel differs from the plain version (rounds {rounds} vs {reads})")
-        tensors[label] = (b.contiguous(), sc, m, thr, max_keep, n_iter, rounds, int(got_m.sum()))
+        tensors[label] = (b.contiguous(), sc, m, thr, max_keep, n_iter, rounds, int(got_m.sum()), g, shifted)
+    clusters = {c for one, c, _ in seen if one}
+    if clusters != {1, 2, 4, 8} or not {(True, 8, True), (False, 0, True), (False, 0, False)} <= seen:
+        fail(f"nms: the cases missed a route, a cluster size or a batched case: {sorted(seen)}")
 
     labels = [case[0] for case in nms_cases(np.random.default_rng(41))]
+    two_launch_batched = next(label for label in labels if label.startswith("1,261 boxes, 3 cameras"))
+    for label in (labels[0], two_launch_batched):  # n 512 and 1,261, batched
+        b, sc, m, thr, max_keep, n_iter, _, _, g, _ = tensors[label]
+        kernels = launched_kernels(lambda: N.batched_nms(b, sc, g, m, thr, max_keep, n_iter))
+        want = 1 if N.launch_plan(b.shape[0]).one_launch else 3  # else shift, beats and loop kernels
+        log(f"kernels: nms, one batched_nms call at n {b.shape[0]} is {kernels} kernel launch(es) (nodes of a "
+            f"CUDA graph that captures it; must be {want})")
+        if kernels != want:
+            fail(f"nms: batched_nms at n {b.shape[0]} launched {kernels} kernels, not {want}")
+
     times = {}
     for label in (labels[0], labels[3], labels[4]):  # n 512, 48, 64: the main path's three sizes
-        b, sc, m, thr, max_keep, n_iter, rounds, kept = tensors[label]
+        b, sc, m, thr, max_keep, n_iter, rounds, kept, g, shifted = tensors[label]
         # the work these inputs need: the IoU of each pair of masked boxes (one of the two
         # ranks ahead of the other), a round's test of each box's beaters, the kept boxes' order
         s = torch.where(m, sc, torch.full_like(sc, N.NEG_INF))
         ar = torch.arange(b.shape[0], device=device)
         ahead = (s[:, None] > s[None, :]) | ((s[:, None] == s[None, :]) & (ar[:, None] < ar[None, :]))
-        beats = ahead & (pairwise_iou(b, b) > thr) & m[:, None] & m[None, :]
+        beats = ahead & (pairwise_iou(shifted, shifted) > thr) & m[:, None] & m[None, :]
         work = dict(masked=int(m.sum()), beats=int(beats.sum()), kept=kept)
-        kernel_ms = gpu_ms(lambda: N.nms_cuda(b, sc, m, thr, max_keep, n_iter), iters=50)
-        plain_ms = gpu_ms(lambda: N.nms_plain(b, sc, m, thr, max_keep, n_iter), iters=3)
+        shifted = shifted.contiguous()
+        kernel_ms = gpu_ms(lambda: N.nms_cuda(shifted, sc, m, thr, max_keep, n_iter), iters=50)
+        batched_ms = gpu_ms(lambda: N.nms_cuda(b, sc, m, thr, max_keep, n_iter, groups=g), iters=50) if g is not None else None
+        plain_ms = gpu_ms(lambda: N.nms_plain(shifted, sc, m, thr, max_keep, n_iter), iters=3)
         n = b.shape[0]
         nbytes = n * (16 + 4 + 1) + max_keep * (4 + 1)
         # operations: each masked box's area (3), for each pair of masked boxes the order
         # (1 compare) and the IoU against thr (14), in each round an AND for each beats pair,
         # and a compare for each pair of kept boxes; bytes: the inputs and outputs once (the
-        # beats table is the kernels' own, kept in L2)
+        # beats table is the kernels' own, kept on chip)
         mm = work["masked"]
         ops = 3 * mm + 15 * (mm * (mm - 1) // 2) + rounds * work["beats"] + kept * (kept - 1) // 2
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
         times[n] = (kernel_ms, plain_ms, bound_ms, ops, nbytes, rounds)
         log(f"kernels: nms at n {n} ({rounds} rounds, {work['masked']} boxes masked in, {work['beats']} beats "
-            f"pairs, {work['kept']} kept): kernel {kernel_ms * 1e3:.2f} us (an empty kernel "
-            f"{noop_ms * 1e3:.2f} us), plain version {plain_ms * 1e3:.1f} us (one host read a round), bound "
-            f"{bound_ms * 1e3:.4f} us ({ops} float32 ops at 67 TFLOP/s; {nbytes} bytes), "
+            f"pairs, {work['kept']} kept; {N.launch_plan(n).cluster}-CTA cluster): kernel {kernel_ms * 1e3:.2f} us"
+            + (f" ({batched_ms * 1e3:.2f} us with the groups shifted in the kernel)" if batched_ms else "")
+            + f" (an empty kernel {noop_ms * 1e3:.2f} us), plain version {plain_ms * 1e3:.1f} us (one host read a "
+            f"round), bound {bound_ms * 1e3:.4f} us ({ops} float32 ops at 67 TFLOP/s; {nbytes} bytes), "
             f"{bound_ms / kernel_ms * 100:.2f}% of bound; no library call (torchvision is not installed)")
     kernel_ms, plain_ms, bound_ms, ops, nbytes, _ = times[512]
     return {
@@ -1218,7 +1282,9 @@ def kernels_nms(device, flush, noop_ms):
 
 def auction_cases(rng):
     """(label, benefit [n,m], row_mask, col_mask, max_iters): the tracker's
-    64 x 48 IoU and edges, both sides of the shared-memory limit."""
+    64 x 48 IoU and edges, both sides of the shared-memory limit, every
+    lane-group width (appended at the end, so the earlier cases draw the
+    same numbers)."""
     def iou_like(n, m, p=0.85):
         return np.where(rng.uniform(0, 1, (n, m)) > p, rng.uniform(0, 1, (n, m)), 0.0).astype(np.float32)
 
@@ -1235,6 +1301,12 @@ def auction_cases(rng):
         ("300 x 260, dense (benefit formed on the fly)", rng.uniform(0, 1, (300, 260)).astype(np.float32),
          some(300), some(260), 5000),
         ("200 x 1024, IoU-like (the kernel's cap)", iou_like(200, 1024, 0.97), some(200), some(1024), 2000),
+        # every lane-group width and the shared-memory route's cap
+        ("16 x 12, tie-heavy (groups of 4 lanes)", (rng.integers(0, 3, (16, 12)) / 2.0).astype(np.float32),
+         some(16), some(12), 5000),
+        ("100 x 80, IoU-like (groups of 16 lanes)", iou_like(100, 80), some(100), some(80), 5000),
+        ("224 x 200, dense (the shared-memory cap)", rng.uniform(0, 1, (224, 200)).astype(np.float32), some(224),
+         some(200), 5000),
     ]
 
 
@@ -1270,9 +1342,12 @@ def kernels_auction(device, flush, noop_ms):
         # optimal within the auction's eps slack once it converged (a run
         # stopped by max_iters, in either version alike, is not held to it)
         optimal = rounds >= max_iters or total >= best - 1e-3 * max(best, 1.0)
-        log(f"kernels: auction, {label}: assignment {'equal to' if ok else 'DIFFERS from'} the plain "
-            f"version's ({int((g >= 0).sum())} rows assigned, benefit {total:.4f}, scipy's optimum "
-            f"{best:.4f}); {rounds} rounds on the card, {reads} host reads by the plain loop, {bids} bids")
+        plan = A.launch_plan(*b.shape)
+        log(f"kernels: auction, {label} ({plan.threads} threads, groups of {plan.lanes} lanes, benefit "
+            f"{'in shared memory' if plan.benefit_in_shared else 'formed on the fly'}): assignment "
+            f"{'equal to' if ok else 'DIFFERS from'} the plain version's ({int((g >= 0).sum())} rows assigned, "
+            f"benefit {total:.4f}, scipy's optimum {best:.4f}); {rounds} rounds on the card, {reads} host reads "
+            f"by the plain loop, {bids} bids")
         if not rounds - 1 <= bids <= rounds * max(b.shape):  # a bid in each round but the last
             fail(f"auction ({label}): {bids} bids in {rounds} rounds of {max(b.shape)} rows")
         if not ok or rounds != reads or not optimal:
@@ -1419,6 +1494,81 @@ def profile_branches(trk, frames_dev, device, label: str, top: int = 6):
             f"{parts['elementwise'][0]:.3f} ms over {parts['elementwise'][1]}")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
             log(f"profile ({label}): {name}:   {e.self_device_time_total / 1e3:7.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def tracker_loop_calls(trk, frames_dev, device) -> dict:
+    """The arguments of every NMS and auction launch of one eager detect
+    frame and one crop frame of ``trk`` (a hook on the two kernel wrappers;
+    these launches are measurement, not counted): {branch: [(kind, args)]},
+    the tensors cloned."""
+    import torch
+
+    from playground3d_tpu_torch.ops import assignment as A
+    from playground3d_tpu_torch.ops import nms as N
+
+    real_nms, real_auction = N.nms_cuda, A.assign_auction_cuda
+    calls, branch = {"detect": [], "crop": []}, ["detect"]
+
+    def nms_rec(boxes, scores, mask, thr, max_keep=100, n_iter=None, groups=None):
+        calls[branch[0]].append(("nms", (boxes.clone(), scores.clone(), mask.clone(), thr, max_keep, n_iter,
+                                         None if groups is None else groups.clone())))
+        return real_nms(boxes, scores, mask, thr, max_keep, n_iter, groups)
+
+    def auction_rec(benefit, row_mask, col_mask, max_iters=5000):
+        calls[branch[0]].append(("auction", (benefit.clone(), row_mask.clone(), col_mask.clone(), max_iters)))
+        return real_auction(benefit, row_mask, col_mask, max_iters)
+
+    nms_rec.launches = auction_rec.launches = 0
+    t, bias = torch.zeros(1, device=device), torch.zeros(1, device=device)
+    N.nms_cuda, A.assign_auction_cuda = nms_rec, auction_rec
+    try:
+        trk._detect_step(trk.state, frames_dev, t, bias)
+        branch[0] = "crop"
+        trk._crop_step(trk.state, frames_dev, t, bias)
+        torch.cuda.synchronize()
+    finally:
+        N.nms_cuda, A.assign_auction_cuda = real_nms, real_auction
+    return calls
+
+
+def time_tracker_loops(calls, per_clip: dict, label: str) -> None:
+    """Each recorded NMS / auction call replayed through its kernel (time,
+    rounds), and launches x time per clip; the calls are also written to
+    ``_outputs/tracker_loop_calls.pt`` (``scripts/nms_auction_times.py
+    --calls`` replays them on another checkout)."""
+    import torch
+
+    from playground3d_tpu_torch.ops import assignment as A
+    from playground3d_tpu_torch.ops import nms as N
+    from playground3d_tpu_torch.ops.topk import DeviceRounds
+
+    total = {"nms": 0.0, "auction": 0.0}
+    for branch, branch_calls in calls.items():
+        for kind, args in branch_calls:
+            if kind == "nms":
+                b, sc, m, thr, max_keep, n_iter, g = args
+                fn = lambda: N.nms_cuda(b, sc, m, thr, max_keep, n_iter, groups=g)  # noqa: E731
+                what = f"n {b.shape[0]}{' batched' if g is not None else ''}, {int(m.sum())} masked in"
+            else:
+                fn = lambda: A.assign_auction_cuda(*args)  # noqa: E731
+                what = f"{args[0].shape[0]} x {args[0].shape[1]}"
+            DeviceRounds.reset()
+            fn()
+            rounds = DeviceRounds.read()
+            ms = gpu_ms(fn, iters=50)
+            total[kind] += ms * per_clip[branch]
+            log(f"main ({label}): {branch} frame's {kind} at {what}: {rounds[kind]} rounds"
+                + (f" ({rounds['auction_bids']} bids)" if kind == "auction" else "")
+                + f", {ms * 1e3:.2f} us (CUDA events, mean of 50; {per_clip[branch]} such frames a clip)")
+    log(f"main ({label}): on the main path's own inputs, a 24-frame clip's launches take nms "
+        f"{total['nms'] * 1e3:.2f} us and auction {total['auction'] * 1e3:.2f} us of card time "
+        f"(launches x time; {sum(k == 'nms' for k, _ in calls['detect'])} NMS and "
+        f"{sum(k == 'auction' for k, _ in calls['detect'])} auction a detect frame, "
+        f"{sum(k == 'nms' for k, _ in calls['crop'])} NMS a crop frame)")
+    os.makedirs("_outputs", exist_ok=True)
+    cpu = {br: [(kind, tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)) for kind, args in cs]
+           for br, cs in calls.items()}
+    torch.save({"calls": cpu, "per_clip": per_clip}, os.path.join("_outputs", "tracker_loop_calls.pt"))
 
 
 def kernel_counters():
@@ -1629,6 +1779,8 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
     if detail:
         frames_dev = torch.as_tensor(frames[:1]).to(device)  # [C=1,...]
         profile_branches(eager, frames_dev, device, label + ", eager")
+        per_clip = {"detect": n_detect // n_clips, "crop": len(crop_frames) // n_clips}
+        time_tracker_loops(tracker_loop_calls(eager, frames_dev, device), per_clip, label)
     return float(np.median(fps)), first["launches"], len(crop_frames), n_detect
 
 

@@ -10,230 +10,328 @@
 // never waits for it and a CUDA graph can hold it.
 //
 // What bounds it: latency. k = max(n, m) <= 1024 (64 on the tracker's
-// 64 x 48 IoU), a round is k subtractions and compares for each row that
-// bids and four block barriers, and the rounds depend on the data (tens to
-// thousands a call).
-// One block holds the whole problem:
-//  - the squared-up benefit (real entries, else the tie-break) is formed
-//    once into shared memory; above kSmemMaxK it is formed on the fly from
-//    the benefit in device memory instead;
-//  - a round: a warp per unassigned row finds its best and second value
-//    (each lane over every 32nd column, then a butterfly of shuffles) and
-//    the row's bid; a warp per column takes the largest bid (amax), its
-//    lowest winning row (amin) and evicts the column's previous holder; then
-//    a thread per row and column applies the round, and the epsilon shrink
-//    and the restart are decided by __syncthreads_and / __syncthreads_count.
-//    The first version, a thread per row and per column scanning k values
-//    alone, took 5.5 us a round (PERF.md).
+// 64 x 48 IoU); a round is k subtractions and compares for each row that
+// bids and a few block barriers, and the rounds depend on the data (tens to
+// thousands a call). There are no products, so the tensor cores have no
+// part here. One block holds the whole problem, sized to it
+// (ops/assignment.py::launch_plan): 32 * ceil(k / 4) threads, at most 256
+// up to kSmemMaxK (1,024 above it), in groups of lanes_for(k) lanes, a
+// group per bidding row.
+//  - Up to kSmemMaxK the squared-up benefit lives in shared memory (rows at
+//    an odd stride, so groups reading different rows fall in different
+//    banks): the [n, m] rows are copied in by cp.async, then the dummy and
+//    masked entries are filled with the tie-break. Above it the benefit is
+//    formed on the fly from device memory, with the same rounds.
+//  - A round works on the bidding rows only (~14 of 64 a round on a
+//    tie-heavy 64 x 48), which the previous round left as a list in shared
+//    memory. (1) Each group takes bidders from the list (every group of a
+//    warp the same number of passes, so its shuffles take the full warp),
+//    finds the row's best and second value (a lane-local scan over every
+//    G-th column, then a butterfly, both branch-free), and its bid; the
+//    bid's key goes to its column by a shared-memory atomicMax. (2) Each
+//    bidder whose bid is within 1e-12 of its column's top bid offers its row
+//    by atomicMin. (3) Each row settles itself: a bidder that won takes the
+//    column and sets its price to the top bid, a holder whose column was
+//    taken is evicted, and the rows left without a column append themselves
+//    to the next round's list (a ballot and one atomicAdd a warp; a ballot
+//    word a warp instead, with each group finding its bidder's bit,
+//    measured slower); __syncthreads_count of them is the next round's
+//    bidder count and the all-assigned test. Three barriers a round; the
+//    column slots are double-buffered by round, so each is reset a round
+//    after its use without a barrier of its own. (A 64-bit key of bid and
+//    row, which would settle most rounds without step 2, compiles to a
+//    compare-and-swap loop in shared memory and measured no faster; a fully
+//    unrolled scan measured slower than the loop.)
+//  The previous version: 1,024 threads at k 64, a warp per row and per
+//  column over all k rows, four barriers a round: 2.7 us a round (PERF.md).
+//
+// The column key: every bid is > 0 (prices start at 0 and only take bids,
+// best - second >= 0, eps > 0), so a bid's float32 bits, read as an
+// unsigned int, order as the bids do; 0 is below every key.
 //
 // Exactness: the same float32 operations in the same order as the plain
 // version, each rounded on its own (__fadd_rn, __fsub_rn, __fmul_rn,
 // __fdiv_rn; -fmad=false too): the bid is (price[j] + (best - second)) +
 // eps, argmax takes the first index among equal values, a bid wins when it
-// is >= (column bid - 1e-12f), the shrink is eps * 0.1f, and scale,
-// eps_final and the tie-break are formed as the plain version forms them.
-// The assignment and the round count equal the plain version's.
+// is >= (column bid - 1e-12f), the lowest such row takes the column, the
+// shrink is eps * 0.1f, and scale, eps_final and the tie-break are formed as
+// the plain version forms them. The assignment and the round count equal
+// the plain version's.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxK = 1024;  // max(n, m): one block
 constexpr int kSmemMaxK = 224;  // the formed benefit fits a block's shared memory up to here
+constexpr int kSmemMaxThreads = 256;  // the block's size cap up to kSmemMaxK
 constexpr float kNeg = -1e9f;  // NEG of ops/assignment.py
 
-__host__ __device__ constexpr int threads_for(int k) { return k >= 32 ? 1024 : 32 * k; }  // a warp a row
-
-// benefit [k][k] floats when k <= kSmemMaxK, then ten [k] arrays (price,
-// row_of_col, col_of_row, best_of, bid_of, evict, won, taken, winner,
-// col_bid) and one word
-__host__ __device__ constexpr int shared_bytes_for(int k) {
-  return (k <= kSmemMaxK ? k * k * 4 : 0) + 10 * k * 4 + 16;
+__host__ __device__ constexpr int threads_for(int k) {
+  return k > kSmemMaxK ? 1024 : 32 * ((k + 3) / 4) < kSmemMaxThreads ? 32 * ((k + 3) / 4) : kSmemMaxThreads;
 }
+// lanes of the group that serves one bidder: a power of two, so a group
+// never straddles a warp and its butterfly stays inside it
+#ifdef AUCTION_LANES
+__host__ __device__ constexpr int lanes_for(int k) { return k <= kSmemMaxK ? AUCTION_LANES : 32; }
+#else
+__host__ __device__ constexpr int lanes_for(int k) { return k <= 16 ? 4 : k <= 64 ? 8 : k <= kSmemMaxK ? 16 : 32; }
+#endif
+// floats between rows of the formed benefit in shared memory (odd)
+__host__ __device__ constexpr int stride_for(int k) { return k <= kSmemMaxK ? (k | 1) : 0; }
+// the formed benefit [k][stride] when k <= kSmemMaxK, then eight [k] arrays
+// (price, best_of, bid_of, list, col_key[2], col_win[2]) and four words
+__host__ __device__ constexpr int shared_bytes_for(int k) { return k * stride_for(k) * 4 + 8 * k * 4 + 16; }
 
 struct Problem {
   const float* benefit;  // [n, m]
   const uint8_t* row_mask;  // [n]
   const uint8_t* col_mask;  // [m]
-  int n, m, k;
+  int n, m;
   float tie_scale;  // scale * 1e-7f
 };
 
-// the squared-up benefit: real entries as given, else -|r - j| * (scale * 1e-7)
-__device__ __forceinline__ float formed(const Problem& p, int r, int j) {
-  if (r < p.n && j < p.m && p.row_mask[r] && p.col_mask[j]) return p.benefit[r * p.m + j];
+__device__ __forceinline__ bool is_real(const Problem& p, int r, int j) {
+  return r < p.n && j < p.m && p.row_mask[r] && p.col_mask[j];
+}
+
+// the squared-up benefit's dummy entries: -|r - j| * (scale * 1e-7)
+__device__ __forceinline__ float tie_break(const Problem& p, int r, int j) {
   return __fmul_rn(-static_cast<float>(r > j ? r - j : j - r), p.tie_scale);
 }
 
-// (best value, its column, second value) over a set of columns; bj < 0 is
-// the empty set. Merging two disjoint sets: the larger best wins, the lower
-// column among equal ones (argmax's first index); the loser's best joins
-// the second values. Max is exact, so any merge order gives the values a
-// scan in column order gives.
+// the squared-up benefit: real entries as given, else the tie-break
+__device__ __forceinline__ float formed(const Problem& p, int r, int j) {
+  return is_real(p, r, j) ? p.benefit[r * p.m + j] : tie_break(p, r, j);
+}
+
+// A bidder's best value, its column and its second value, as the plain
+// version's argmax (the first index among equal values) and its max with the
+// best entry set to NEG give them. Each lane scans its columns in increasing
+// order (a new best must be strictly larger, so a tie keeps the lower
+// column; the old best joins the second values), then the group merges by a
+// butterfly: the larger best wins, the lower column among equal ones, and
+// the loser's best joins the winner's second values. An empty set is
+// (-inf, -1, NEG). Max is exact, so any merge order gives the values of a
+// scan in column order.
 struct Best {
   float bv;
   int bj;
   float sv;
 };
 
-__device__ __forceinline__ Best merge(Best a, Best b) {
-  if (b.bj < 0) return a;
-  if (a.bj < 0) return b;
-  const bool a_wins = a.bv > b.bv || (a.bv == b.bv && a.bj < b.bj);
-  const Best w = a_wins ? a : b, l = a_wins ? b : a;
-  return {w.bv, w.bj, l.bv > w.sv ? l.bv : w.sv};
+__device__ __forceinline__ void scan_in(Best& a, float v, int j) {
+  const bool better = v > a.bv;
+  const float lost = better ? a.bv : v;
+  a.sv = lost > a.sv ? lost : a.sv;
+  a.bj = better ? j : a.bj;
+  a.bv = better ? v : a.bv;
 }
 
-template <bool kSmem>
+__device__ __forceinline__ void merge_in(Best& a, const Best& o) {
+  const bool other = o.bv > a.bv || (o.bv == a.bv && o.bj < a.bj);
+  const float lost = other ? a.bv : o.bv, kept = other ? o.sv : a.sv;
+  a.sv = lost > kept ? lost : kept;
+  a.bj = other ? o.bj : a.bj;
+  a.bv = other ? o.bv : a.bv;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+#ifdef AUCTION_TIMING
+// thread 0's SM clock cycles: [0] the whole kernel, [1] set-up (load, scale,
+// tie-break), then summed over the rounds [2] bids, [3] winners, [4]
+// settling, and within its own bids [5] the scan, [6] the butterfly, [7]
+// the bid and its atomic
+__device__ unsigned long long auction_cycles[8];
+#define TICK(v) const long long v = threadIdx.x == 0 ? clock64() : 0
+#define ADD(k, from, to) do { if (threadIdx.x == 0) acc[k] += (to) - (from); } while (0)
+#else
+#define TICK(v) do {} while (0)
+#define ADD(k, from, to) do {} while (0)
+#endif
+
+template <bool kSmem, int G>
 __global__ void __launch_bounds__(1024)
 auction_kernel(const float* __restrict__ benefit, const uint8_t* __restrict__ row_mask,
                const uint8_t* __restrict__ col_mask, int n, int m, int max_iters, int32_t* __restrict__ out,
                int32_t* __restrict__ rounds) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int k = max(n, m), t = threadIdx.x, lane = t & 31, warp = t >> 5, warps = blockDim.x >> 5;
-  float* b = reinterpret_cast<float*>(smem);
-  float* price = b + (kSmem ? k * k : 0);
-  int* row_of_col = reinterpret_cast<int*>(price + k);
-  int* col_of_row = row_of_col + k;
-  int* best_of = col_of_row + k;  // the column a bidding row bids on, else -1
+#ifdef AUCTION_TIMING
+  long long acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#endif
+  TICK(c_start);
+  const int k = max(n, m), T = blockDim.x, t = threadIdx.x, lane = t & 31, warp = t >> 5, warps = T >> 5;
+  const int ks = stride_for(k);
+  float* b = reinterpret_cast<float*>(smem);  // [k][ks], kSmem only
+  float* price = b + k * ks;
+  int* best_of = reinterpret_cast<int*>(price + k);  // the column a bidding row bids on
   float* bid_of = reinterpret_cast<float*>(best_of + k);
-  int* evict = reinterpret_cast<int*>(bid_of + k);
-  int* won = evict + k;
-  int* taken = won + k;
-  int* winner = taken + k;
-  float* col_bid = reinterpret_cast<float*>(winner + k);
-  unsigned* scale_bits = reinterpret_cast<unsigned*>(col_bid + k);
+  int* list = reinterpret_cast<int*>(bid_of + k);  // this round's bidding rows
+  unsigned* col_key = reinterpret_cast<unsigned*>(list + k);  // [2][k]: the top bid's bits
+  int* col_win = reinterpret_cast<int*>(col_key + 2 * k);  // [2][k]: the lowest winning row
+  unsigned* scale_bits = reinterpret_cast<unsigned*>(col_win + 2 * k);
+  unsigned* fill = scale_bits + 1;  // the next round's list length
+
+  // the real rectangle of the benefit into shared memory, asynchronously (a
+  // row a warp, its columns across the lanes)
+  if (kSmem) {
+    for (int r = warp; r < n; r += warps) {
+      for (int j = lane; j < m; j += 32) cp_async4(b + r * ks + j, benefit + r * m + j);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  // meanwhile the masks, once: bit q of cbits = column lane + 32q is real,
+  // bit q of rbits = row warp + q * warps is real (at most 32 of each)
+  unsigned cbits = 0u, rbits = 0u;
+  for (int q = 0, j = lane; j < k; ++q, j += 32) cbits |= (j < m && col_mask[j]) ? 1u << q : 0u;
+  for (int q = 0, r = warp; r < k; ++q, r += warps) rbits |= (r < n && row_mask[r]) ? 1u << q : 0u;
+  if (t == 0) *scale_bits = 0u;
+  if (t < k) {
+    price[t] = 0.0f;
+    list[t] = t;  // every row bids in the first round
+    col_key[t] = col_key[k + t] = 0u;
+    col_win[t] = col_win[k + t] = INT_MAX;
+  }
+  if (kSmem) asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
 
   // scale = max(max |real benefit|, 1e-6): |x| >= 0, so its bits order as unsigned ints
-  if (t == 0) *scale_bits = 0u;
-  __syncthreads();
+  Problem p{benefit, row_mask, col_mask, n, m, 0.0f};
   unsigned local = 0u;
-  if (t < n && row_mask[t]) {
-    for (int j = 0; j < m; ++j) {
-      if (col_mask[j]) local = max(local, __float_as_uint(fabsf(benefit[t * m + j])));
+  for (int qr = 0, r = warp; r < n; ++qr, r += warps) {
+    if (!((rbits >> qr) & 1u)) continue;  // uniform over the warp
+    for (int qc = 0, j = lane; j < m; ++qc, j += 32) {
+      if ((cbits >> qc) & 1u) local = max(local, __float_as_uint(fabsf(kSmem ? b[r * ks + j] : benefit[r * m + j])));
     }
   }
-  atomicMax(scale_bits, local);
+  local = __reduce_max_sync(0xffffffffu, local);
+  if (lane == 0) atomicMax(scale_bits, local);
   __syncthreads();
   float scale = __uint_as_float(*scale_bits);
   scale = scale < 1e-6f ? 1e-6f : scale;
-  const Problem p{benefit, row_mask, col_mask, n, m, k, __fmul_rn(scale, 1e-7f)};
+  p.tie_scale = __fmul_rn(scale, 1e-7f);
   const float eps_final = __fdiv_rn(scale, __fmul_rn(1e4f, __fadd_rn(static_cast<float>(k), 1.0f)));
   float eps = __fadd_rn(__fmul_rn(scale, 0.25f), eps_final);  // scale / 4 (exact) + eps_final
 
-  if (kSmem) {
-    for (int e = t; e < k * k; e += blockDim.x) b[e] = formed(p, e / k, e % k);
-  }
-  if (t < k) {
-    price[t] = 0.0f;
-    row_of_col[t] = -1;
-    col_of_row[t] = -1;
+  if (kSmem) {  // the dummy and masked entries
+    for (int qr = 0, r = warp; r < k; ++qr, r += warps) {
+      const bool real_row = (rbits >> qr) & 1u;
+      for (int qc = 0, j = lane; j < k; ++qc, j += 32) {
+        if (!(real_row && ((cbits >> qc) & 1u))) b[r * ks + j] = tie_break(p, r, j);
+      }
+    }
+    __syncthreads();
   }
 
-  int it = 0, reads = 0, bids = 0;
+  const int groups = T / G, g = t / G, gl = t & (G - 1);
+  int col = -1;  // the column row t holds (t < k)
+  int count = k;  // rows bidding in this round: list[0, count)
+  int it = 0, reads = 0, bids = 0, par = 0;
+  TICK(c_setup);
+  ADD(1, c_start, c_setup);
   while (it < max_iters) {
     ++reads;
-    const int bidders = __syncthreads_count(t < k && col_of_row[t] < 0);
-    if (bidders == 0 && !(eps > eps_final)) break;
-    bids += bidders;
+    if (count == 0 && !(eps > eps_final)) break;
+    bids += count;
+    TICK(c_round);
+    unsigned* key = col_key + par * k;
+    int* win = col_win + par * k;
 
-    // rows, a warp each: the bid of each unassigned row
-    for (int r = warp; r < k; r += warps) {
-      int best_j = -1;
-      float bid = kNeg;
-      if (col_of_row[r] < 0) {
-        Best mine{0.0f, -1, kNeg};
-        for (int j = lane; j < k; j += 32) {
-          const float v = __fsub_rn(kSmem ? b[r * k + j] : formed(p, r, j), price[j]);
-          mine = merge(mine, Best{v, j, kNeg});
-        }
+    // (1) bids: a group of G lanes a bidding row; every group of a warp
+    // makes the same passes, so the butterfly's shuffles take the whole warp
+    if (t == 0) *fill = 0u;
+    if (t < k) {  // the other parity's slots, last used a round ago
+      col_key[(par ^ 1) * k + t] = 0u;
+      col_win[(par ^ 1) * k + t] = INT_MAX;
+    }
+    for (int s = g; s - g < count; s += groups) {
+      const bool active = s < count;
+      if (!__any_sync(0xffffffffu, active)) break;  // uniform over the warp
+      TICK(c_s0);
+      const int r = list[active ? s : 0];
+      Best mine{-__int_as_float(0x7f800000), -1, kNeg};
+#pragma unroll 4
+      for (int j = gl; j < k; j += G) scan_in(mine, __fsub_rn(kSmem ? b[r * ks + j] : formed(p, r, j), price[j]), j);
+      TICK(c_scan);
 #pragma unroll
-        for (int d = 16; d > 0; d >>= 1) {
-          const Best other{__shfl_xor_sync(0xffffffffu, mine.bv, d), __shfl_xor_sync(0xffffffffu, mine.bj, d),
-                           __shfl_xor_sync(0xffffffffu, mine.sv, d)};
-          mine = merge(mine, other);
-        }
-        best_j = mine.bj;
-        bid = __fadd_rn(__fadd_rn(price[best_j], __fsub_rn(mine.bv, mine.sv)), eps);
+      for (int d = G >> 1; d > 0; d >>= 1) {
+        const Best other{__shfl_xor_sync(0xffffffffu, mine.bv, d), __shfl_xor_sync(0xffffffffu, mine.bj, d),
+                         __shfl_xor_sync(0xffffffffu, mine.sv, d)};
+        merge_in(mine, other);
       }
-      if (lane == 0) {
-        best_of[r] = best_j;
+      TICK(c_fly);
+      if (active && gl == 0) {
+        const float bid = __fadd_rn(__fadd_rn(price[mine.bj], __fsub_rn(mine.bv, mine.sv)), eps);
+        best_of[r] = mine.bj;
         bid_of[r] = bid;
-        evict[r] = 0;
-        won[r] = -1;
+        atomicMax(key + mine.bj, __float_as_uint(bid));
       }
+      TICK(c_bid);
+      ADD(5, c_s0, c_scan);
+      ADD(6, c_scan, c_fly);
+      ADD(7, c_fly, c_bid);
     }
     __syncthreads();
+    TICK(c_bids);
+    ADD(2, c_round, c_bids);
 
-    // columns, a warp each: the largest bid, the lowest row that bid within
-    // 1e-12 of it, and the eviction of the column's previous holder
-    for (int c = warp; c < k; c += warps) {
-      bool has_bid = false;
-      float top = kNeg;
-      for (int r = lane; r < k; r += 32) {
-        if (best_of[r] != c) continue;
-        has_bid = true;
-        top = bid_of[r] > top ? bid_of[r] : top;
-      }
-      has_bid = __any_sync(0xffffffffu, has_bid);
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const float o = __shfl_xor_sync(0xffffffffu, top, d);
-        top = o > top ? o : top;
-      }
-      const float floor = __fsub_rn(top, 1e-12f);
-      int first = k;
-      for (int r = lane; r < k && has_bid; r += 32) {
-        if (best_of[r] == c && bid_of[r] >= floor) {
-          first = r;
-          break;
-        }
-      }
-      first = __reduce_min_sync(0xffffffffu, first);
-      if (lane == 0) {
-        const bool is_taken = has_bid && first < k;
-        taken[c] = is_taken;
-        winner[c] = first;
-        col_bid[c] = top;
-        if (is_taken) {
-          const int prev = row_of_col[c];
-          if (prev >= 0) evict[prev] = 1;
-          won[first] = c;
-        }
-      }
+    // (2) each bidder within 1e-12 of its column's top bid offers its row
+    const bool bidding = t < k && col < 0;
+    int want = -1;
+    if (bidding) {
+      want = best_of[t];
+      if (bid_of[t] >= __fsub_rn(__uint_as_float(key[want]), 1e-12f)) atomicMin(win + want, t);
     }
     __syncthreads();
+    TICK(c_win);
+    ADD(3, c_bids, c_win);
 
-    if (t < k) {
-      int col = evict[t] ? -1 : col_of_row[t];
-      if (won[t] >= 0) col = won[t];
-      col_of_row[t] = col;
-      if (taken[t]) {
-        row_of_col[t] = winner[t];
-        price[t] = col_bid[t];
+    // (3) each row settles itself; the rows left without a column list themselves
+    if (bidding) {
+      if (win[want] == t) {
+        col = want;
+        price[want] = __uint_as_float(key[want]);
       }
+    } else if (t < k && win[col] != INT_MAX) {
+      col = -1;  // another row took this row's column
     }
-    const bool all_assigned = __syncthreads_and(t >= k || col_of_row[t] >= 0);
-    if (all_assigned && eps > eps_final) {  // shrink and restart (uniform over the block)
+    const bool next = t < k && col < 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, next);
+    unsigned base = 0u;
+    if (lane == 0 && ballot) base = atomicAdd(fill, static_cast<unsigned>(__popc(ballot)));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (next) list[base + __popc(ballot & ((1u << lane) - 1u))] = t;
+    count = __syncthreads_count(next);
+    TICK(c_settle);
+    ADD(4, c_win, c_settle);
+    if (count == 0 && eps > eps_final) {  // shrink and restart (uniform over the block)
       eps = __fmul_rn(eps, 0.1f);
-      if (t < k) {
-        col_of_row[t] = -1;
-        row_of_col[t] = -1;
-      }
+      col = -1;
+      if (t < k) list[t] = t;
+      count = k;
+      __syncthreads();
     }
+    par ^= 1;
     ++it;
   }
-  __syncthreads();
 
-  if (t < n) {
-    const int c = col_of_row[t];
-    out[t] = (row_mask[t] && c >= 0 && c < m && col_mask[c]) ? c : -1;
-  }
+  if (t < n) out[t] = (row_mask[t] && col >= 0 && col < m && col_mask[col]) ? col : -1;
   if (t == 0 && rounds != nullptr) {
     atomicAdd(rounds, reads);
     atomicAdd(rounds + 1, bids);
   }
+#ifdef AUCTION_TIMING
+  if (t == 0) {
+    acc[0] = clock64() - c_start;
+    for (int q = 0; q < 8; ++q) auction_cycles[q] = acc[q];
+  }
+#endif
 }
 
 }  // namespace
@@ -242,36 +340,37 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 = cudaSuccess). The wrapper
 // (ops/assignment.py) checks types, shapes and devices and passes the
-// threads and dynamic shared memory its launch_plan computed, which must
-// equal this file's rule. `rounds` (two int32 on the card, or null): the
-// first is increased by the loop's rounds, counted as the plain version
-// counts its host reads, the second by the rows that bid, summed over the
-// rounds (the work these inputs needed).
+// threads, lanes a bidder and dynamic shared memory its launch_plan
+// computed, which must equal this file's rule. `rounds` (two int32 on the
+// card, or null): the first is increased by the loop's rounds, counted as
+// the plain version counts its host reads, the second by the rows that bid,
+// summed over the rounds (the work these inputs needed).
 int auction(const void* benefit, const void* row_mask, const void* col_mask, int n, int m, int max_iters,
-            void* out, void* rounds, int threads, int shared_bytes, void* stream) {
+            void* out, void* rounds, int threads, int lanes, int shared_bytes, void* stream) {
   const int k = n > m ? n : m;
   if (n < 0 || m < 0 || k < 1 || k > kMaxK || max_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (threads != threads_for(k) || shared_bytes != shared_bytes_for(k)) {
+  if (threads != threads_for(k) || lanes != lanes_for(k) || shared_bytes != shared_bytes_for(k)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(benefit);
-  const uint8_t* rm = static_cast<const uint8_t*>(row_mask);
-  const uint8_t* cm = static_cast<const uint8_t*>(col_mask);
-  int32_t* o = static_cast<int32_t*>(out);
-  int32_t* c = static_cast<int32_t*>(rounds);
-  if (k <= kSmemMaxK) {
-    if (shared_bytes > 48 * 1024) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(auction_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    auction_kernel<true><<<1, threads, shared_bytes, s>>>(b, rm, cm, n, m, max_iters, o, c);
-  } else {
-    auction_kernel<false><<<1, threads, shared_bytes, s>>>(b, rm, cm, n, m, max_iters, o, c);
+  void (*kernel)(const float*, const uint8_t*, const uint8_t*, int, int, int, int32_t*, int32_t*) =
+      k > kSmemMaxK ? auction_kernel<false, 32>
+      : lanes == 4  ? auction_kernel<true, 4>
+      : lanes == 8  ? auction_kernel<true, 8>
+      : lanes == 16 ? auction_kernel<true, 16>
+                    : auction_kernel<true, 32>;
+  if (shared_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  kernel<<<1, threads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(benefit), static_cast<const uint8_t*>(row_mask), static_cast<const uint8_t*>(col_mask),
+      n, m, max_iters, static_cast<int32_t*>(out), static_cast<int32_t*>(rounds));
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef AUCTION_TIMING
+int auction_read_cycles(void* host) { return (int)cudaMemcpyFromSymbol(host, auction_cycles, sizeof(auction_cycles)); }
+#endif
 
 const char* kernel_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 

@@ -5,8 +5,9 @@ The auction is Bertsekas' forward auction with epsilon scaling on the
 squared-up, masked benefit, with the JAX package's near-zero diagonal dummy
 tie-break. The JAX package runs it in a ``while_loop`` on the device. Here
 :func:`assign_auction` launches the hand-written kernel
-``csrc/auction.cu`` for tensors on the card (the whole loop in one block,
-no host read; its rounds go to
+``csrc/auction.cu`` for tensors on the card (the whole loop in one block
+sized to the problem, a round's work on the bidding rows only, no host
+read; its rounds go to
 :class:`~playground3d_tpu_torch.ops.topk.DeviceRounds`), and runs
 :func:`assign_auction_plain`, a host loop that reads one flag from the
 device per round (counted in
@@ -36,11 +37,12 @@ NEG = -1e9
 # The kernel's layout constants (csrc/auction.cu holds the same values).
 MAX_K = 1024  # max(n, m): one block
 SMEM_MAX_K = 224  # up to here the squared-up benefit is formed in shared memory
+SMEM_MAX_THREADS = 256  # the block's size cap up to SMEM_MAX_K (1,024 above it)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.auction.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr]
+    lib.auction.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, i32, ptr]
     lib.auction.restype = i32
 
 
@@ -50,8 +52,10 @@ LIB = KernelLibrary("auction", _bind, extra_flags=("-fmad=false",))
 
 class LaunchPlan(NamedTuple):
     k: int  # max(n, m), the side of the squared-up problem
-    threads: int  # a warp a row up to 32 warps
+    threads: int  # 32 * ceil(k / 4), at most SMEM_MAX_THREADS; 1,024 above SMEM_MAX_K
+    lanes: int  # of the group that serves one bidding row (a power of two)
     benefit_in_shared: bool  # else formed on the fly from device memory
+    row_stride: int  # floats between rows of the benefit in shared memory (odd; 0 if not there)
     shared_bytes: int
 
 
@@ -63,7 +67,11 @@ def launch_plan(n: int, m: int) -> LaunchPlan:
     if min(n, m) < 0 or not 1 <= k <= MAX_K:
         raise ValueError(f"auction: the kernel takes max(n, m) from 1 to {MAX_K}, got [{n}, {m}]")
     in_shared = k <= SMEM_MAX_K
-    return LaunchPlan(k, min(1024, 32 * k), in_shared, (k * k * 4 if in_shared else 0) + 10 * k * 4 + 16)
+    threads = min(SMEM_MAX_THREADS, 32 * -(-k // 4)) if in_shared else 1024
+    lanes = 4 if k <= 16 else 8 if k <= 64 else 16 if in_shared else 32
+    stride = k | 1 if in_shared else 0
+    # the benefit [k, stride], then price, best_of, bid_of, list, col_key[2], col_win[2] and four words
+    return LaunchPlan(k, threads, lanes, in_shared, stride, k * stride * 4 + 8 * k * 4 + 16)
 
 
 def assign_auction_cuda(
@@ -99,7 +107,7 @@ def assign_auction_cuda(
     with torch.cuda.device(dev):
         err = lib.auction(
             benefit.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), n, m, max_iters, out.data_ptr(),
-            DeviceRounds.pointer(dev, "auction"), plan.threads, plan.shared_bytes,
+            DeviceRounds.pointer(dev, "auction"), plan.threads, plan.lanes, plan.shared_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     LIB.check(err)

@@ -6,12 +6,14 @@ Greedy score-ordered NMS as the fixed point of
 ``beats[j, i] = (score_j > score_i, or equal and j < i) and IoU > thr``.
 The JAX package runs it in a ``while_loop`` on the device. Here
 :func:`nms` launches the hand-written kernels of ``csrc/nms.cu`` for tensors
-on the card (the beats bits by a grid, then the whole loop and the
-compaction in one block, no host read; its rounds go to
-:class:`~playground3d_tpu_torch.ops.topk.DeviceRounds`),
-and runs :func:`nms_plain`, a host loop that reads one flag a round
-(counted in :class:`~playground3d_tpu_torch.ops.topk.HostSyncs`), for
-tensors on the CPU. The two agree bit for bit.
+on the card (up to :data:`SMEM_MAX_BOXES` boxes one launch of a thread-block
+cluster, the beats table in shared memory; above it the beats bits by a grid,
+then the loop and the compaction in one block; no host read either way; its
+rounds go to :class:`~playground3d_tpu_torch.ops.topk.DeviceRounds`), and
+runs :func:`nms_plain`, a host loop that reads one flag a round (counted in
+:class:`~playground3d_tpu_torch.ops.topk.HostSyncs`), for tensors on the
+CPU. The two agree bit for bit. :func:`batched_nms` hands its groups to the
+kernel, which shifts the boxes as :func:`group_shift` does.
 """
 
 from __future__ import annotations
@@ -32,11 +34,16 @@ NEG_INF = -1e30
 # The kernels' layout constants (csrc/nms.cu holds the same values).
 MAX_BOXES = 8192  # MAX_PER_THREAD boxes for each of the loop block's 1,024 threads
 MAX_PER_THREAD = 8
+SMEM_MAX_BOXES = 1260  # up to here one launch, the beats table in shared memory
+MAX_CLUSTER = 8  # CTAs of the one-launch route's cluster (the portable size)
+CLUSTER_BOXES = 64  # a cluster CTA for each 64 boxes, in powers of two
+REG_WORDS = 16  # up to n 512 a round thread keeps its box's column of beats words in registers
+MAX_SHARED_BYTES = 232448  # dynamic shared memory a Hopper block may opt into
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nms.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float, i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.nms.argtypes = [ptr, ptr, ptr, ptr, i32, ctypes.c_float, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.nms.restype = i32
 
 
@@ -45,10 +52,14 @@ LIB = KernelLibrary("nms", _bind, extra_flags=("-fmad=false",))
 
 
 class LaunchPlan(NamedTuple):
-    threads: int  # of the loop block, a multiple of 32, at most 1,024
-    per_thread: int  # boxes each loop thread owns
+    one_launch: bool  # n <= SMEM_MAX_BOXES: one cluster launch, else beats grid + loop block
+    cluster: int  # CTAs of the one-launch cluster (0 on the two-launch route)
+    threads: int  # of each block launched that runs the rounds (the cluster's CTAs, or the loop block)
+    round_threads: int  # of those, the ones that run the rounds: a thread a box in whole warps, at most 1,024
+    per_thread: int  # boxes each round thread owns
     words: int  # 32-bit words of beats bits per box
-    workspace_words: int  # the [words, n] beats table in device memory
+    shared_bytes: int  # dynamic shared memory of the block that runs the rounds
+    workspace_words: int  # two-launch route: [n] shifted boxes (float4) + the [words, n] table
 
 
 def launch_plan(n: int) -> LaunchPlan:
@@ -57,9 +68,20 @@ def launch_plan(n: int) -> LaunchPlan:
     :data:`MAX_BOXES`."""
     if not 0 <= n <= MAX_BOXES:
         raise ValueError(f"nms: the kernel takes 0 to {MAX_BOXES} boxes, got {n}")
-    threads = min(1024, max(32, -(-n // 32) * 32))
+    round_threads = min(1024, max(32, -(-n // 32) * 32))
     words = -(-n // 32)
-    return LaunchPlan(threads, max(1, -(-n // threads)), words, words * n)
+    per_thread = max(1, -(-n // round_threads))
+    if n <= SMEM_MAX_BOXES:
+        cluster = 1
+        while cluster < MAX_CLUSTER and cluster * CLUSTER_BOXES < n:
+            cluster *= 2
+        # boxes float4 [n], keep words [2][words4], mask words [words4], the table [words][n],
+        # masked scores and areas [n], four words; words4: whole uint4s, REG_WORDS of them
+        # while a round thread keeps its column in registers (n <= 32 * REG_WORDS)
+        words4 = REG_WORDS if n <= 32 * REG_WORDS else -(-words // 4) * 4
+        shared = 16 * n + 12 * words4 + 4 * words * n + 8 * n + 16
+        return LaunchPlan(True, cluster, 1024, round_threads, per_thread, words, shared, 0)
+    return LaunchPlan(False, 0, round_threads, round_threads, per_thread, words, 4 * words + 4, 4 * n + words * n)
 
 
 def nms_plain(
@@ -107,12 +129,15 @@ def nms_cuda(
     iou_threshold: float,
     max_keep: int = 100,
     n_iter: Optional[int] = None,
+    groups: Optional[torch.Tensor] = None,
 ):
     """Launch the kernels on the current stream -> (keep_idx [max_keep]
     int32, keep_mask [max_keep] bool). Takes boxes [n,4] float32 contiguous
     on a 16-byte boundary, scores [n] float32, mask [n] bool, all on one
-    CUDA device, n <= :data:`MAX_BOXES`. ``nms_cuda.launches`` counts the
-    launches; the rounds go to ``DeviceRounds``."""
+    CUDA device, n <= :data:`MAX_BOXES`. With ``groups`` ([n] int32), the
+    kernel first shifts the boxes as :func:`group_shift` does
+    (``batched_nms``). ``nms_cuda.launches`` counts the launches; the rounds
+    go to ``DeviceRounds``."""
     if boxes.device.type != "cuda":
         raise ValueError(f"nms: the CUDA kernel takes CUDA tensors, got {boxes.device}")
     n = boxes.shape[0]
@@ -123,7 +148,10 @@ def nms_cuda(
         raise ValueError(f"nms: scores must be float32 [{n}], got {scores.dtype} {tuple(scores.shape)}")
     if mask.dtype != torch.bool or tuple(mask.shape) != (n,):
         raise ValueError(f"nms: mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
-    for name, t in (("boxes", boxes), ("scores", scores), ("mask", mask)):
+    if groups is not None and (groups.dtype != torch.int32 or tuple(groups.shape) != (n,)):
+        raise ValueError(f"nms: groups must be int32 [{n}], got {groups.dtype} {tuple(groups.shape)}")
+    named = (("boxes", boxes), ("scores", scores), ("mask", mask)) + ((("groups", groups),) if groups is not None else ())
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"nms: {name} must be contiguous")
         if t.device != boxes.device:
@@ -137,13 +165,15 @@ def nms_cuda(
     dev = boxes.device
     keep_idx = torch.empty((max_keep,), dtype=torch.int32, device=dev)
     keep_mask = torch.empty((max_keep,), dtype=torch.bool, device=dev)
-    beat = torch.empty((max(plan.workspace_words, 1),), dtype=torch.int32, device=dev)
+    workspace = torch.empty((plan.workspace_words,), dtype=torch.int32, device=dev) if plan.workspace_words else None
     lib = LIB.load()
     with torch.cuda.device(dev):
         err = lib.nms(
-            boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(), n, iou_threshold, n_iter, max_keep,
-            keep_idx.data_ptr(), keep_mask.data_ptr(), DeviceRounds.pointer(dev, "nms"), beat.data_ptr(),
-            plan.threads, torch.cuda.current_stream().cuda_stream,
+            boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(), None if groups is None else groups.data_ptr(),
+            n, iou_threshold, n_iter, max_keep, keep_idx.data_ptr(), keep_mask.data_ptr(),
+            DeviceRounds.pointer(dev, "nms"), None if workspace is None else workspace.data_ptr(), plan.cluster,
+            plan.threads, plan.shared_bytes,
+            torch.cuda.current_stream().cuda_stream,
         )
     LIB.check(err)
     count_launch(nms_cuda)
@@ -167,13 +197,19 @@ def nms(
     The CUDA kernel for tensors on the card, the plain version for tensors
     on the CPU."""
     if boxes.device.type == "cuda":
-        b = boxes.contiguous()
-        if b.data_ptr() % 16:
-            b = b.clone()
-        return nms_cuda(b, scores.contiguous(), mask.contiguous(), iou_threshold, max_keep, n_iter)
+        return _nms_on_card(boxes, scores, mask, iou_threshold, max_keep, n_iter, None)
     if boxes.device.type == "cpu":
         return nms_plain(boxes, scores, mask, iou_threshold, max_keep, n_iter)
     raise ValueError(f"nms: no implementation for device {boxes.device}")
+
+
+def _nms_on_card(boxes, scores, mask, iou_threshold, max_keep, n_iter, groups):
+    b = boxes.contiguous()
+    if b.data_ptr() % 16:
+        b = b.clone()
+    if groups is not None:
+        groups = groups.to(torch.int32).contiguous()
+    return nms_cuda(b, scores.contiguous(), mask.contiguous(), iou_threshold, max_keep, n_iter, groups)
 
 
 def batched_nms(
@@ -187,9 +223,11 @@ def batched_nms(
 ):
     """Per-group NMS by coordinate offsets: boxes are shifted to a
     non-negative origin and offset by group * span, so groups never overlap
-    even with negative coordinates (reference model.py:49-56). The shift is
-    tensor ops on either device (:func:`group_shift`); the suppression is
-    :func:`nms`."""
+    even with negative coordinates (reference model.py:49-56). On the card
+    the kernel does the shift (one launch with the suppression); on the CPU
+    :func:`group_shift`'s tensor ops, then :func:`nms_plain`."""
+    if boxes.device.type == "cuda":
+        return _nms_on_card(boxes, scores, mask, iou_threshold, max_keep, n_iter, groups)
     return nms(group_shift(boxes, groups, mask), scores, mask, iou_threshold, max_keep=max_keep, n_iter=n_iter)
 
 

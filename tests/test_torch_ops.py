@@ -216,8 +216,13 @@ def _cu_constant(source, name):
 @pytest.mark.parametrize("source, name, value", [
     ("nms.cu", "kMaxBoxes", PN.MAX_BOXES),
     ("nms.cu", "kMaxPerThread", PN.MAX_PER_THREAD),
+    ("nms.cu", "kSmemMaxBoxes", PN.SMEM_MAX_BOXES),
+    ("nms.cu", "kMaxCluster", PN.MAX_CLUSTER),
+    ("nms.cu", "kClusterBoxes", PN.CLUSTER_BOXES),
+    ("nms.cu", "kRegWords", PN.REG_WORDS),
     ("auction.cu", "kMaxK", PA.MAX_K),
     ("auction.cu", "kSmemMaxK", PA.SMEM_MAX_K),
+    ("auction.cu", "kSmemMaxThreads", PA.SMEM_MAX_THREADS),
 ])
 def test_kernel_sources_hold_the_plans_constants(source, name, value):
     """The C launchers recompute launch_plan's threads and shared memory and
@@ -227,26 +232,48 @@ def test_kernel_sources_hold_the_plans_constants(source, name, value):
 
 @pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 48, 64, 512, 1000, 1024, 1025, 4096, 8192])
 def test_nms_launch_plan(n):
-    """The loop block: a thread a box in whole warps up to 1,024 threads,
-    then up to MAX_PER_THREAD boxes a thread; the beats table word-major,
-    a word per 32 boxes for each box."""
+    """The rounds: a thread a box in whole warps up to 1,024 threads, then
+    up to MAX_PER_THREAD boxes a thread; a word per 32 boxes for each box.
+    Up to SMEM_MAX_BOXES one cluster launch of 1,024-thread CTAs (all of
+    them compute beats words; the rounds take the first round_threads of
+    the leader), the table in the leader's shared memory (a CTA per 64
+    boxes in powers of two, at most 8); above it the [words, n] table and
+    the shifted boxes in a workspace, and the loop block's keep words in
+    shared memory."""
     plan = PN.launch_plan(n)
-    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
-    assert plan.threads * plan.per_thread >= n and plan.per_thread <= PN.MAX_PER_THREAD
-    assert plan.per_thread == 1 or plan.threads == 1024
+    assert plan.round_threads % 32 == 0 and 32 <= plan.round_threads <= plan.threads <= 1024
+    assert plan.round_threads * plan.per_thread >= n and plan.per_thread <= PN.MAX_PER_THREAD
+    assert plan.per_thread == 1 or plan.round_threads == 1024
     assert plan.words * 32 >= n and (plan.words - 1) * 32 < max(n, 1)
-    assert plan.workspace_words == plan.words * n
+    assert plan.one_launch == (n <= PN.SMEM_MAX_BOXES)
+    assert plan.threads == (1024 if plan.one_launch else plan.round_threads)
+    if plan.one_launch:
+        assert plan.cluster in (1, 2, 4, 8) and (plan.cluster == 1 or (plan.cluster // 2) * PN.CLUSTER_BOXES < n)
+        assert plan.cluster * PN.CLUSTER_BOXES >= n or plan.cluster == PN.MAX_CLUSTER
+        assert plan.workspace_words == 0 and plan.per_thread <= 2
+        assert plan.shared_bytes >= 4 * plan.words * n + 24 * n and plan.shared_bytes <= PN.MAX_SHARED_BYTES
+    else:
+        assert plan.cluster == 0 and plan.shared_bytes == 4 * plan.words + 4
+        assert plan.workspace_words == plan.words * n + 4 * n
 
 
 @pytest.mark.parametrize("n, m", [(64, 48), (48, 64), (1, 1), (3, 2), (224, 10), (225, 10), (300, 260), (200, 1024)])
 def test_auction_launch_plan(n, m):
-    """A warp a row, at most 32 warps; the formed benefit in shared memory
-    up to SMEM_MAX_K, within the card's 227 KB."""
+    """A block of 32 * ceil(k / 4) threads up to 256 with the formed
+    benefit in shared memory (odd row stride) up to SMEM_MAX_K, within the
+    card's 227 KB; 1,024 threads and the benefit formed on the fly above.
+    A group of lanes per bidder, a power of two within a warp."""
     plan = PA.launch_plan(n, m)
     k = max(n, m)
-    assert plan.k == k and plan.threads == min(1024, 32 * k) and plan.threads >= k
+    assert plan.k == k and plan.threads >= k and plan.threads % 32 == 0
     assert plan.benefit_in_shared == (k <= PA.SMEM_MAX_K)
-    assert plan.shared_bytes == (k * k * 4 if k <= PA.SMEM_MAX_K else 0) + 10 * k * 4 + 16
+    if plan.benefit_in_shared:
+        assert plan.threads == min(PA.SMEM_MAX_THREADS, 32 * -(-k // 4))
+        assert plan.row_stride % 2 == 1 and k <= plan.row_stride <= k + 1
+    else:
+        assert plan.threads == 1024 and plan.row_stride == 0 and plan.lanes == 32
+    assert plan.lanes in (4, 8, 16, 32) and plan.threads % plan.lanes == 0
+    assert plan.shared_bytes == k * plan.row_stride * 4 + 8 * k * 4 + 16
     assert plan.shared_bytes <= 232448
 
 
