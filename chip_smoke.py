@@ -34,8 +34,7 @@ result line):
              must equal the eager clip on the card and read the card once a
              clip (``track_clips``' lagged drain) and nowhere inside it; the
              NMS and auction calls of one eager detect and one crop frame
-             are recorded, replayed through their kernels and timed, and
-             saved to ``_outputs/tracker_loop_calls.pt``.
+             are recorded, replayed through their kernels and timed.
              Before that, the card's clip is held against the CPU's on a
              small input for each transport and for a quantized pair;
 4. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
@@ -51,7 +50,9 @@ result line):
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
-kernel; it prints no result line).
+kernel; it prints no result line). ``--loop-calls PATH`` also saves the main
+path's recorded NMS and auction calls to PATH, for
+``scripts/nms_auction_times.py --calls PATH``.
 
 Only the port and PyTorch are imported; nothing of JAX.
 """
@@ -1498,44 +1499,31 @@ def profile_branches(trk, frames_dev, device, label: str, top: int = 6):
 
 def tracker_loop_calls(trk, frames_dev, device) -> dict:
     """The arguments of every NMS and auction launch of one eager detect
-    frame and one crop frame of ``trk`` (a hook on the two kernel wrappers;
-    these launches are measurement, not counted): {branch: [(kind, args)]},
-    the tensors cloned."""
+    frame and one crop frame of ``trk``, listed by the wrappers inside
+    ``calls_recorded`` (these launches are measurement, not counted):
+    {branch: [(kind, args)]}, the tensors cloned."""
     import torch
 
     from playground3d_tpu_torch.ops import assignment as A
     from playground3d_tpu_torch.ops import nms as N
+    from playground3d_tpu_torch.ops.cuda_build import calls_recorded
 
-    real_nms, real_auction = N.nms_cuda, A.assign_auction_cuda
-    calls, branch = {"detect": [], "crop": []}, ["detect"]
-
-    def nms_rec(boxes, scores, mask, thr, max_keep=100, n_iter=None, groups=None):
-        calls[branch[0]].append(("nms", (boxes.clone(), scores.clone(), mask.clone(), thr, max_keep, n_iter,
-                                         None if groups is None else groups.clone())))
-        return real_nms(boxes, scores, mask, thr, max_keep, n_iter, groups)
-
-    def auction_rec(benefit, row_mask, col_mask, max_iters=5000):
-        calls[branch[0]].append(("auction", (benefit.clone(), row_mask.clone(), col_mask.clone(), max_iters)))
-        return real_auction(benefit, row_mask, col_mask, max_iters)
-
-    nms_rec.launches = auction_rec.launches = 0
+    kinds = {N.nms_cuda: "nms", A.assign_auction_cuda: "auction"}
     t, bias = torch.zeros(1, device=device), torch.zeros(1, device=device)
-    N.nms_cuda, A.assign_auction_cuda = nms_rec, auction_rec
-    try:
-        trk._detect_step(trk.state, frames_dev, t, bias)
-        branch[0] = "crop"
-        trk._crop_step(trk.state, frames_dev, t, bias)
-        torch.cuda.synchronize()
-    finally:
-        N.nms_cuda, A.assign_auction_cuda = real_nms, real_auction
+    calls = {}
+    for branch, step in (("detect", trk._detect_step), ("crop", trk._crop_step)):
+        with calls_recorded() as seen:
+            step(trk.state, frames_dev, t, bias)
+            torch.cuda.synchronize()
+        calls[branch] = [(kinds[wrapper], args) for wrapper, args in seen if wrapper in kinds]
     return calls
 
 
-def time_tracker_loops(calls, per_clip: dict, label: str) -> None:
+def time_tracker_loops(calls, per_clip: dict, label: str, save: str | None = None) -> None:
     """Each recorded NMS / auction call replayed through its kernel (time,
-    rounds), and launches x time per clip; the calls are also written to
-    ``_outputs/tracker_loop_calls.pt`` (``scripts/nms_auction_times.py
-    --calls`` replays them on another checkout)."""
+    rounds), and launches x time per clip; with ``save``, the calls are also
+    written there (``scripts/nms_auction_times.py --calls`` replays them on
+    another checkout)."""
     import torch
 
     from playground3d_tpu_torch.ops import assignment as A
@@ -1565,10 +1553,12 @@ def time_tracker_loops(calls, per_clip: dict, label: str) -> None:
         f"(launches x time; {sum(k == 'nms' for k, _ in calls['detect'])} NMS and "
         f"{sum(k == 'auction' for k, _ in calls['detect'])} auction a detect frame, "
         f"{sum(k == 'nms' for k, _ in calls['crop'])} NMS a crop frame)")
-    os.makedirs("_outputs", exist_ok=True)
-    cpu = {br: [(kind, tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)) for kind, args in cs]
-           for br, cs in calls.items()}
-    torch.save({"calls": cpu, "per_clip": per_clip}, os.path.join("_outputs", "tracker_loop_calls.pt"))
+    if save:
+        cpu = {br: [(kind, tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)) for kind, args in cs]
+               for br, cs in calls.items()}
+        os.makedirs(os.path.dirname(save) or ".", exist_ok=True)
+        torch.save({"calls": cpu, "per_clip": per_clip}, save)
+        log(f"main ({label}): the NMS and auction calls saved to {save}")
 
 
 def kernel_counters():
@@ -1640,7 +1630,7 @@ def clip_outcome(trk, conf_cnt0):
 
 
 def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail: bool = False,
-              repeats: int = 3):
+              repeats: int = 3, loop_calls: str | None = None):
     """One configuration of the main path through ``track_clips``:
 
     * a warm-up clip of ``n_warm`` frames (all three branches) on a tracker
@@ -1654,6 +1644,10 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
       crop measurements equal) and read the card exactly once a clip and
       nowhere else. Every launch count is set to 0 just before the first
       and read just after; they must equal the eager run's.
+
+    With ``detail``, the eager branches are profiled and the NMS and auction
+    calls of one detect and one crop frame are replayed and timed (and saved
+    to ``loop_calls`` when it is given).
 
     Returns the median frames/s, the launch counts and the frame counts."""
     import warnings
@@ -1780,14 +1774,15 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
         frames_dev = torch.as_tensor(frames[:1]).to(device)  # [C=1,...]
         profile_branches(eager, frames_dev, device, label + ", eager")
         per_clip = {"detect": n_detect // n_clips, "crop": len(crop_frames) // n_clips}
-        time_tracker_loops(tracker_loop_calls(eager, frames_dev, device), per_clip, label)
+        time_tracker_loops(tracker_loop_calls(eager, frames_dev, device), per_clip, label, save=loop_calls)
     return float(np.median(fps)), first["launches"], len(crop_frames), n_detect
 
 
-def phase_main(device):
+def phase_main(device, loop_calls: str | None = None):
     """The shipped configuration at full width, then the three comparison
-    configurations in the same run. Returns the launches of each kernel on
-    the path that runs it."""
+    configurations in the same run (the shipped one's NMS and auction calls
+    saved to ``loop_calls`` when it is given). Returns the launches of each
+    kernel on the path that runs it."""
     import torch
 
     phase_small_reference(device)
@@ -1800,7 +1795,8 @@ def phase_main(device):
     per_detect, per_crop = sum(seen["detect"].values()), sum(seen["crop"].values())
 
     # the shipped configuration: uint8 s2d frames, s2d stems, int8 nets
-    fps, launches, n_crop, n_detect = run_clips("s2d + int8", det_q, crop_q, packed, device, T_CLIP, detail=True)
+    fps, launches, n_crop, n_detect = run_clips("s2d + int8", det_q, crop_q, packed, device, T_CLIP, detail=True,
+                                              loop_calls=loop_calls)
     if launches["crop_and_resize_s2d"] != n_crop:
         fail(f"main: crop_and_resize_s2d launched {launches['crop_and_resize_s2d']} times for {n_crop} crop frames")
     if launches["qconv"] != n_detect * per_detect + n_crop * per_crop:
@@ -2044,9 +2040,14 @@ def device_line() -> str:
 def main() -> None:
     import torch
 
-    kernels_only = sys.argv[1:] == ["--kernels-only"]
-    if sys.argv[1:] and not kernels_only:
-        fail(f"unknown arguments {sys.argv[1:]} (the only option is --kernels-only)")
+    args, kernels_only, loop_calls = sys.argv[1:], False, None
+    while args:
+        if args[0] == "--kernels-only":
+            kernels_only, args = True, args[1:]
+        elif args[0] == "--loop-calls" and len(args) > 1:
+            loop_calls, args = os.path.abspath(args[1]), args[2:]
+        else:
+            fail(f"unknown arguments {args} (the options are --kernels-only and --loop-calls PATH)")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     try:
@@ -2062,7 +2063,7 @@ def main() -> None:
     if kernels_only:
         log(f"total: {time.time() - t0:.1f} s (kernels only: no result line)")
         return
-    launches = phase_main(device)
+    launches = phase_main(device, loop_calls)
     phase_single(device)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]

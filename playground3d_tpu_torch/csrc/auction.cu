@@ -74,11 +74,7 @@ __host__ __device__ constexpr int threads_for(int k) {
 }
 // lanes of the group that serves one bidder: a power of two, so a group
 // never straddles a warp and its butterfly stays inside it
-#ifdef AUCTION_LANES
-__host__ __device__ constexpr int lanes_for(int k) { return k <= kSmemMaxK ? AUCTION_LANES : 32; }
-#else
 __host__ __device__ constexpr int lanes_for(int k) { return k <= 16 ? 4 : k <= 64 ? 8 : k <= kSmemMaxK ? 16 : 32; }
-#endif
 // floats between rows of the formed benefit in shared memory (odd)
 __host__ __device__ constexpr int stride_for(int k) { return k <= kSmemMaxK ? (k | 1) : 0; }
 // the formed benefit [k][stride] when k <= kSmemMaxK, then eight [k] arrays

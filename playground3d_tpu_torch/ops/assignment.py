@@ -111,7 +111,7 @@ def assign_auction_cuda(
             torch.cuda.current_stream().cuda_stream,
         )
     LIB.check(err)
-    count_launch(assign_auction_cuda)
+    count_launch(assign_auction_cuda, (benefit, row_mask, col_mask, max_iters))
     return out
 
 

@@ -16,7 +16,9 @@ Every wrapper counts its launches in ``wrapper.launches`` through
 :func:`count_launch`. A launch made while this thread captures a CUDA graph
 runs nothing yet: inside :func:`launches_recorded` it is tallied instead, and
 the graph's owner adds the tally with :func:`credit` at every replay, so the
-counts say what the card ran.
+counts say what the card ran. Inside :func:`calls_recorded` each launch is
+listed with the arguments its wrapper passes, and not counted: a measurement
+replays a path's own calls through a kernel.
 """
 
 from __future__ import annotations
@@ -105,9 +107,17 @@ class KernelLibrary:
 _recording = threading.local()
 
 
-def count_launch(wrapper: Callable) -> None:
-    """One launch of ``wrapper``'s kernel: counted in ``wrapper.launches``,
-    or tallied when this thread is inside :func:`launches_recorded`."""
+def count_launch(wrapper: Callable, args: tuple = ()) -> None:
+    """One launch of ``wrapper``'s kernel with ``args``: counted in
+    ``wrapper.launches``, tallied when this thread is inside
+    :func:`launches_recorded`, or listed when it is inside
+    :func:`calls_recorded`."""
+    calls = getattr(_recording, "calls", None)
+    if calls is not None:
+        import torch
+
+        calls.append((wrapper, tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)))
+        return
     tally = getattr(_recording, "tally", None)
     if tally is None:
         wrapper.launches += 1
@@ -126,6 +136,20 @@ def launches_recorded() -> Iterator["Counter[Callable]"]:
         yield _recording.tally
     finally:
         _recording.tally = None
+
+
+@contextmanager
+def calls_recorded() -> Iterator[list]:
+    """List this thread's launches as ``(wrapper, args)``, the tensors
+    cloned, instead of counting them (to replay a path's own calls through
+    a kernel); yields the list."""
+    if getattr(_recording, "calls", None) is not None:
+        raise RuntimeError("calls_recorded: already recording on this thread")
+    _recording.calls = []
+    try:
+        yield _recording.calls
+    finally:
+        _recording.calls = None
 
 
 def credit(tally: "Counter[Callable]") -> None:

@@ -176,7 +176,7 @@ def nms_cuda(
             torch.cuda.current_stream().cuda_stream,
         )
     LIB.check(err)
-    count_launch(nms_cuda)
+    count_launch(nms_cuda, (boxes, scores, mask, iou_threshold, max_keep, n_iter, groups))
     return keep_idx, keep_mask
 
 

@@ -2,7 +2,7 @@
 """Where the time of ``csrc/nms.cu``'s one-launch route and of
 ``csrc/auction.cu`` goes, on the card.
 
-    python3 scripts/nms_auction_timeline.py [--calls _outputs/tracker_loop_calls.pt]
+    python3 scripts/nms_auction_timeline.py [--calls PATH]
 
 Builds ``nms.cu`` with ``-DNMS_TIMING`` (the cluster's leader records the
 SM clock and the global timer at its start, when the boxes are staged, when
@@ -11,13 +11,12 @@ the beats table is complete, after the rounds and after the compaction) and
 set-up and, over the rounds, of the bids, the winners and the settling).
 For the NMS at n 512 (tied and random scores), 48, 64 and 0
 (``chip_smoke.py``'s cases; with ``--calls``, also the main path's own NMS
-calls that ``chip_smoke.py`` records) it prints the kernel time between
+calls that ``chip_smoke.py --loop-calls PATH`` saves) it prints the kernel time between
 CUDA events, an empty kernel launched with the same cluster, block and
 shared memory, and the leader's phases in microseconds; for the auction at
 64 x 48 tie-heavy the kernel time and its phases in cycles and microseconds
-(at the SM clock the global timer implies), then the same built with
-``-DAUCTION_LANES=4, 8, 16, 32`` (the lanes of a bidder's group). The clock
-reads change the code around them: compare variants on plain builds.
+(at the SM clock the global timer implies). The clock reads change the code
+around them: compare variants on plain builds.
 """
 
 import ctypes
@@ -107,33 +106,6 @@ def main() -> None:
           f"threads): kernel {kernel_ms * 1e3:.2f} us between CUDA events; thread 0 at ~{mhz:.0f} MHz: "
           + ", ".join(f"{nm} {int(c)} cycles ({int(c) / mhz:.2f} us)" for nm, c in zip(names, cycles))
           + f"; a round {int(cycles[2] + cycles[3] + cycles[4]) / max(rounds, 1):.0f} cycles")
-
-    # variants: each lane-group width at this k
-    ref = A.assign_auction_plain(bt, rt, ct, max_iters)
-    plan_of = A.launch_plan
-    libs = {lanes: KernelLibrary("auction", bind_auction, extra_flags=(
-        "-fmad=false", "-DAUCTION_TIMING", f"-DAUCTION_LANES={lanes}")) for lanes in (4, 8, 16, 32)}
-    import concurrent.futures as cf
-    with cf.ThreadPoolExecutor(len(libs)) as ex:
-        list(ex.map(lambda lib: lib.build(), libs.values()))
-    for lanes, lib in libs.items():
-        A.LIB = lib
-        A.launch_plan = lambda n, m, lanes=lanes: plan_of(n, m)._replace(lanes=lanes)
-        try:
-            DeviceRounds.reset()
-            got = A.assign_auction_cuda(bt, rt, ct, max_iters)
-            r = DeviceRounds.read()["auction"]
-            ms = chip_smoke.gpu_ms(lambda: A.assign_auction_cuda(bt, rt, ct, max_iters), iters=20)
-            A.assign_auction_cuda(bt, rt, ct, max_iters)
-            torch.cuda.synchronize()
-            A.LIB.check(lib.load().auction_read_cycles(cycles.ctypes.data))
-        finally:
-            A.launch_plan = plan_of
-        print(f"auction variant lanes={lanes}: {'equal' if torch.equal(got, ref) and r == rounds else 'DIFFERS'}"
-              f", {ms * 1e3:.2f} us; a round {int(cycles[2] + cycles[3] + cycles[4]) / max(r, 1):.0f} cycles (bids "
-              f"{int(cycles[2]) / max(r, 1):.0f}, winners {int(cycles[3]) / max(r, 1):.0f}, settling "
-              f"{int(cycles[4]) / max(r, 1):.0f}; thread 0's own scan {int(cycles[5]) / max(r, 1):.0f}, butterfly "
-              f"{int(cycles[6]) / max(r, 1):.0f}, bid {int(cycles[7]) / max(r, 1):.0f}), set-up {int(cycles[1])}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the NMS and auction kernels of the checkout at ROOT on one CUDA card.
 
-    python3 scripts/nms_auction_times.py [ROOT] [--calls PATH] [--early-exit]
+    python3 scripts/nms_auction_times.py [ROOT] [--calls PATH]
 
 Inputs are those of ``chip_smoke.py``'s kernels phase (this checkout's
 ``nms_cases`` and ``auction_cases``, same seeds): NMS at n 512 (one car box
@@ -10,12 +10,8 @@ at 8 px steps, tied scores, 23 rounds; the boxes shifted by
 512 through the public function (the groups shifted on the card); the
 auction at 64 x 48 tie-heavy (457 rounds). With ``--calls``, also every
 NMS and auction call of one detect frame and one crop frame of the main
-path, as ``chip_smoke.py`` records them (``_outputs/tracker_loop_calls.pt``),
-replayed through the public functions, and their launches x time per
-24-frame clip. With ``--early-exit``, this checkout's ``nms.cu`` is also
-built with ``-DNMS_EARLY_EXIT`` (a round's AND over a box's column of words,
-read from shared memory above n 512, stops at the first hit) and timed
-beside the branch-free build.
+path, as ``chip_smoke.py --loop-calls PATH`` saves them, replayed through
+the public functions, and their launches x time per 24-frame clip.
 
 Times are CUDA events around 200 launches after a queued sleep (device time,
 warm inputs), the median of 5 such means. Prints one JSON line. To compare
@@ -68,7 +64,6 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=HERE)
     ap.add_argument("--calls", default=None)
-    ap.add_argument("--early-exit", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -96,17 +91,14 @@ def main() -> None:
         shifted = (b if g is None else N.group_shift(b, g, m)).contiguous()
         return b, shifted, s, m, g, thr, max_keep, n_iter
 
-    def nms_times(tag):
-        for i, name in ((0, "512"), (3, "48"), (4, "64"), (11, "1024")):
-            _, shifted, s, m, _, thr, max_keep, n_iter = nms_inputs(i)
-            DeviceRounds.reset()
-            got = N.nms_cuda(shifted, s, m, thr, max_keep, n_iter)
-            out[f"{tag}_rounds_{name}"] = DeviceRounds.read()["nms"]
-            ref = N.nms_plain(shifted, s, m, thr, max_keep, n_iter)
-            out[f"{tag}_equal_{name}"] = all(torch.equal(x, y) for x, y in zip(got, ref))
-            out[f"{tag}_us_{name}"] = timed(lambda: N.nms_cuda(shifted, s, m, thr, max_keep, n_iter)) * 1e3
-
-    nms_times("nms")
+    for i, name in ((0, "512"), (3, "48"), (4, "64"), (11, "1024")):
+        _, shifted, s, m, _, thr, max_keep, n_iter = nms_inputs(i)
+        DeviceRounds.reset()
+        got = N.nms_cuda(shifted, s, m, thr, max_keep, n_iter)
+        out[f"nms_rounds_{name}"] = DeviceRounds.read()["nms"]
+        ref = N.nms_plain(shifted, s, m, thr, max_keep, n_iter)
+        out[f"nms_equal_{name}"] = all(torch.equal(x, y) for x, y in zip(got, ref))
+        out[f"nms_us_{name}"] = timed(lambda: N.nms_cuda(shifted, s, m, thr, max_keep, n_iter)) * 1e3
     b, _, s, m, g, thr, max_keep, n_iter = nms_inputs(0)
     out["batched_nms_us_512"] = timed(lambda: N.batched_nms(b, s, g, m, thr, max_keep, n_iter)) * 1e3
 
@@ -137,16 +129,6 @@ def main() -> None:
                 out.setdefault(f"calls_{branch}", []).append([kind, list(a[0].shape), round(us, 3)])
         out["clip_nms_us"], out["clip_auction_us"] = clip["nms"], clip["auction"]
 
-    if args.early_exit:
-        from playground3d_tpu_torch.ops.cuda_build import KernelLibrary
-
-        branch_free = N.LIB
-        N.LIB = KernelLibrary("nms", N._bind, extra_flags=("-fmad=false", "-DNMS_EARLY_EXIT"))
-        try:
-            nms_times("early_exit")
-        finally:
-            N.LIB = branch_free
-        nms_times("branch_free")
     print(json.dumps(out))
 
 

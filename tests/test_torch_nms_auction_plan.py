@@ -7,8 +7,9 @@ C launchers recompute and refuse on a mismatch (both NMS routes, the
 cluster size by n, shared memory within the 232,448 bytes a Hopper block
 may opt into; the auction's block, lane groups and shared memory), the
 order of the auction kernel's column key, the positive bids that key
-relies on (read from the plain version), and ``batched_nms`` on the CPU
-against JAX with the groups the card's wrapper now takes.
+relies on (read from the plain version), ``batched_nms`` on the CPU
+against JAX with the groups the card's wrapper now takes, and the
+recording of launches that the smoke run replays.
 """
 
 import importlib
@@ -203,3 +204,35 @@ def test_iou_cut_without_division_equals_float32_division(rng, thr):
             with np.errstate(all="ignore"):
                 want = (inter / union) > thr  # float32 / float32: correctly rounded
             np.testing.assert_array_equal(_cut_above(inter, union, thr), want)
+
+
+@pytest.mark.parametrize("wrapper", [PN.nms_cuda, PA.assign_auction_cuda])
+def test_calls_recorded_lists_launches_instead_of_counting(wrapper):
+    """Inside ``calls_recorded`` a wrapper's launch is listed with its
+    arguments, the tensors cloned, and its count stays as it was (the
+    smoke run replays the main path's NMS and auction calls this way)."""
+    from playground3d_tpu_torch.ops.cuda_build import calls_recorded, count_launch
+
+    before = wrapper.launches
+    boxes = torch.arange(8, dtype=torch.float32).reshape(2, 4)
+    with calls_recorded() as seen:
+        count_launch(wrapper, (boxes, 0.5, None))
+    boxes += 1.0
+    assert wrapper.launches == before and len(seen) == 1
+    got_wrapper, (got_boxes, thr, none) = seen[0]
+    assert got_wrapper is wrapper and thr == 0.5 and none is None
+    assert torch.equal(got_boxes, torch.arange(8, dtype=torch.float32).reshape(2, 4))
+    count_launch(wrapper)
+    assert wrapper.launches == before + 1
+    wrapper.launches = before
+
+
+def test_calls_recorded_refuses_to_nest():
+    from playground3d_tpu_torch.ops.cuda_build import calls_recorded
+
+    with calls_recorded():
+        with pytest.raises(RuntimeError, match="already recording"):
+            with calls_recorded():
+                pass
+    with calls_recorded() as seen:  # the first recording ended cleanly
+        assert seen == []
