@@ -46,7 +46,18 @@ result line):
              CSV written and read back); then ``apps/track.py --mode single`` (real conv7 detector,
              rendered 1080p frames) and ``--mode multi --oracle``, both with
              ``--eval``;
-5. report  - the ``kernels`` JSON line, the card's name and power limit, and
+5. session - recorded sessions through ``apps/track.py --mode session``: a
+             session directory of two cameras' 3840x2160 y4m segments with
+             burned timestamps, an ignore region and checkpoints, tracked at
+             1080p on the card with ``--emit s2d_u8`` (the fused 4K host
+             tail) and ``--emit yuv420`` (quarter planes, colour
+             conversion on the card); parsed timestamps equal the burned
+             ones, the two emits' frames within 1 LSB, no birth from an
+             ignored detection, native host functions equal their numpy
+             twins, the card's session CSV equal the CPU's on a small
+             session, an H.264 leg where libav exists; session frames/s,
+             host ms per frame by stage and the card's busy share;
+6. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
@@ -109,28 +120,29 @@ def tracker_config(small: bool = False):
     return TrackerConfig(**cfg)
 
 
-def bench_registry(h: int = H, w: int = W):
-    """One fitted pole camera: 30 ft pole at road-x 250 looking down-road
-    over x in [450, 680] (the JAX package's ``register_bench_camera``)."""
+def bench_registry(h: int = H, w: int = W, cameras=(("p1c1", 0.0),)):
+    """Fitted pole cameras: each a 30 ft pole at road-x 250 + dx looking
+    down-road over x in [450, 680] + dx (the JAX package's
+    ``register_bench_camera``), for each (name, dx) of ``cameras``."""
     from playground3d_tpu_torch.geometry.homography import CameraRegistry
 
     f, cx, cy = 2000.0 * w / 1920.0, w / 2.0, h / 2.0
-    cam_pos = np.array([250.0, 60.0, -30.0])
     yaw, pitch = np.deg2rad(4.0), np.deg2rad(6.0)
     Ry = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]])
     Rx = np.array([[1, 0, 0], [0, np.cos(pitch), -np.sin(pitch)], [0, np.sin(pitch), np.cos(pitch)]])
-
-    def project(p3):
+    def project(p3, cam_pos):
         d = p3 - cam_pos
         cam = np.stack([d[:, 1], -d[:, 2], d[:, 0]], 1) @ Ry.T @ Rx.T
         return np.stack([f * cam[:, 0] / cam[:, 2] + cx, f * cam[:, 1] / cam[:, 2] + cy], 1)
 
-    rng = np.random.default_rng(7)
-    sp = np.stack([rng.uniform(450, 680, 24), rng.uniform(0, 120, 24)], 1)
-    im = project(np.concatenate([sp, np.zeros((24, 1))], 1))
-    vp_z = project(np.array([[550.0, 60.0, -1e7]]))[0]
     reg = CameraRegistry()
-    reg.add_camera("p1c1", im, sp, np.array([[1e6, cy], [cx, 1e6], vp_z]))
+    for name, dx in cameras:
+        cam_pos = np.array([250.0 + dx, 60.0, -30.0])
+        rng = np.random.default_rng(7)
+        sp = np.stack([rng.uniform(450, 680, 24) + dx, rng.uniform(0, 120, 24)], 1)
+        im = project(np.concatenate([sp, np.zeros((24, 1))], 1), cam_pos)
+        vp_z = project(np.array([[550.0 + dx, 60.0, -1e7]]), cam_pos)[0]
+        reg.add_camera(name, im, sp, np.array([[1e6, cy], [cx, 1e6], vp_z]))
     return reg
 
 
@@ -203,7 +215,7 @@ def seed_crop_boxes(reg, cfg, n_seed: int, s2d: bool = False):
 
     st = seed_tracks(init_track_state(cfg.max_tracks, "cpu"), n_seed)
     s6 = torch.cat([st.kf.x[:n_seed, :5], st.kf.d[:n_seed, None]], 1)
-    im = state_to_im_banked(bank_from_registry(reg, "cpu"), s6, torch.zeros(n_seed, dtype=torch.long))
+    im = state_to_im_banked(bank_from_registry(reg, device="cpu"), s6, torch.zeros(n_seed, dtype=torch.long))
     hull = T.im_hull_xyxy(im)
     scale = torch.maximum(hull[:, 2] - hull[:, 0], hull[:, 3] - hull[:, 1]) * cfg.crop_expand
     if s2d:
@@ -248,12 +260,12 @@ def seed_tracks(state, n_seed: int):
     )
 
 
-def make_tracker(reg, det, crop, cfg, device, n_seed, graphs=True):
+def make_tracker(reg, det, crop, cfg, device, n_seed, graphs=True, ignore=None):
     from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
 
     trk = MultiCameraTracker(reg, ["p1c1"], cfg=cfg, det_model=det, crop_model=crop,
                              centers=np.array([[565.0, 60.0]], np.float32), stem=det.stem,
-                             crop_stem=crop.stem, device=device, graphs=graphs)
+                             crop_stem=crop.stem, device=device, graphs=graphs, ignore_polygons=ignore)
     trk.state = seed_tracks(trk.state, n_seed)
     return trk
 
@@ -1436,7 +1448,7 @@ def phase_small_reference(device):
         out = {}
         for dev in ("cpu", device):
             d, c = (det, crop) if dev == "cpu" else (copy.deepcopy(det).to(dev), copy.deepcopy(crop).to(dev))
-            clip = make_mc_clip_step(d, bank_from_registry(reg, dev),
+            clip = make_mc_clip_step(d, bank_from_registry(reg, device=dev),
                                      torch.tensor([[565.0, 60.0]], device=dev), default_params(device=dev),
                                      cfg, crop_model=c, stem=stem, crop_stem=stem)
             st0 = seed_tracks(init_track_state(cfg.max_tracks, dev), 6)
@@ -1630,7 +1642,7 @@ def clip_outcome(trk, conf_cnt0):
 
 
 def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail: bool = False,
-              repeats: int = 3, loop_calls: str | None = None):
+              repeats: int = 3, loop_calls: str | None = None, ignore=None):
     """One configuration of the main path through ``track_clips``:
 
     * a warm-up clip of ``n_warm`` frames (all three branches) on a tracker
@@ -1647,7 +1659,8 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
 
     With ``detail``, the eager branches are profiled and the NMS and auction
     calls of one detect and one crop frame are replayed and timed (and saved
-    to ``loop_calls`` when it is given).
+    to ``loop_calls`` when it is given). ``ignore`` gives every tracker
+    these ignore polygons (the bank's grid is then read inside the graphs).
 
     Returns the median frames/s, the launch counts and the frame counts."""
     import warnings
@@ -1658,7 +1671,7 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
 
     reg, cfg = bench_registry(), tracker_config()
     counters = kernel_counters()
-    warm = make_tracker(reg, det, crop, cfg, device, N_SEED)
+    warm = make_tracker(reg, det, crop, cfg, device, N_SEED, ignore=ignore)
     warm.track_clips(sources(frames[:n_warm]), clip_len=n_warm, yuv_hw=yuv_hw)
     torch.cuda.synchronize()
     clip = warm._clip_fn()
@@ -1698,7 +1711,7 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
                     outcome=clip_outcome(trk, conf_cnt0), trk=trk)
 
     torch.cuda.reset_peak_memory_stats()
-    ref = timed(make_tracker(reg, det, crop, cfg, device, N_SEED, graphs=False))
+    ref = timed(make_tracker(reg, det, crop, cfg, device, N_SEED, graphs=False, ignore=ignore))
     n_frames, n_clips = frames.shape[0], -(-frames.shape[0] // T_CLIP)
     eager = ref["trk"]
     if len(eager.rows) != n_frames:
@@ -1706,7 +1719,7 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
 
     runs = []
     for r in range(repeats):
-        trk = make_tracker(reg, det, crop, cfg, device, N_SEED)
+        trk = make_tracker(reg, det, crop, cfg, device, N_SEED, ignore=ignore)
         trk._clip = clip
         run = timed(trk, watch_syncs=True)
         if run["syncs"] != n_clips or run["loops"] != {"drain": n_clips}:
@@ -1823,8 +1836,12 @@ def phase_main(device, loop_calls: str | None = None):
     path_launches["crop_and_resize"] = l_c["crop_and_resize"]
     del det_c, crop_c
 
+    # with an ignore region over the image's right half: its grid is read
+    # inside the captured branches, and one read a clip must still hold
     yuv = rng.integers(0, 256, (T_CLIP, H * W * 3 // 2), dtype=np.uint8)
-    fps_y, l_y, n_crop_y, _ = run_clips("YUV420 bytes -> s2d + int8", det_q, crop_q, yuv, device, 6, yuv_hw=(H, W))
+    right_half = {"p1c1": np.array([[W / 2, 0.0], [W, 0.0], [W, H], [W / 2, H]])}
+    fps_y, l_y, n_crop_y, _ = run_clips("YUV420 bytes -> s2d + int8, ignore region", det_q, crop_q, yuv, device, 6,
+                                        yuv_hw=(H, W), ignore=right_half)
     if l_y["yuv420_flat_to_s2d"] != 1 or l_y["crop_and_resize_s2d"] != n_crop_y:
         fail(f"main: the YUV path's launches are off: {l_y}")
     report["yuv + int8"] = fps_y
@@ -2029,6 +2046,435 @@ def phase_single(device):
     single_app()
 
 
+# ---------------------------------------------------------------------------
+# recorded sessions
+# ---------------------------------------------------------------------------
+
+
+SESSION_CAMERAS = (("p1c1", 0.0), ("p1c2", 100.0))  # the second pole 100 ft down the road
+SESSION_CAR = (480.0, 54.0, 18.0, 6.0, 5.0, 1.0)  # where camera 0's steered detections lie
+T0_SESSION = 1.6e9
+
+
+def write_session(root, reg, hw, seg_frames: int, n_segments: int = 2, scale: int = 1):
+    """A recording session in the ingest layout of ``tests/test_multicam.py``:
+    ``_SESSION_CONFIG.config``, ``_SESSION_INFO.txt`` and, for each camera
+    of ``reg``, ``n_segments`` y4m segments of ``seg_frames`` 4:2:0 frames
+    of a synthetic scene with burned-in timestamps, rendered at ``scale``
+    times the ``hw`` that ``reg`` projects to (camera c seen through
+    ``reg.P[c, 0]`` scaled by it). Returns each camera's frames [C][T]
+    (uint8) and their burned times [T]."""
+    from playground3d_tpu_torch.data.synthetic import SyntheticScene
+    from playground3d_tpu_torch.data.video import SyntheticVideoSource, write_y4m
+
+    rec = os.path.join(root, "recording")
+    os.makedirs(rec)
+    with open(os.path.join(root, "_SESSION_CONFIG.config"), "w") as f:
+        f.write("".join(f"__CAMERA__\nname == {c}\n" for c in reg.names)
+                + "__PERSISTENT-RECORDING__\nrecording_filename == ./recording/record_{cam_name}_%05d.y4m\n")
+    with open(os.path.join(root, "_SESSION_INFO.txt"), "w") as f:
+        f.write("SESSION #1\n")
+    scene = SyntheticScene(n_objects=8, seed=2, x_spawn=(460.0, 740.0), x_visible=(440.0, 780.0))
+    n = seg_frames * n_segments
+    zoom = np.diag([float(scale), float(scale), 1.0])
+
+    def camera(c):
+        src = SyntheticVideoSource(scene, zoom @ reg.P[c, 0], n_frames=n, t0=T0_SESSION, height=hw[0] * scale,
+                                   width=hw[1] * scale, normalized=False, burn_timestamp=True, seed=c)
+        return [(np.clip(fr, 0, 1) * 255).astype(np.uint8) for fr, _ in src]
+
+    def segment(job):
+        c, k = job
+        write_y4m(os.path.join(rec, f"record_{reg.names[c]}_{k:05d}.y4m"),
+                  frames[c][k * seg_frames:(k + 1) * seg_frames])
+
+    with concurrent.futures.ThreadPoolExecutor(len(reg.names) * n_segments) as ex:
+        frames = list(ex.map(camera, range(len(reg.names))))
+        list(ex.map(segment, [(c, k) for c in range(len(reg.names)) for k in range(n_segments)]))
+    return frames, [T0_SESSION + k / 30.0 for k in range(n)]
+
+
+def session_checkpoints(d, reg, hw, depth: int):
+    """The app's detector (``depth``, s2d stem) and ResNet-18 s2d crop net
+    from the app's seeds, written with the port's ``save_params``: class
+    biases raised by 3, the detector's regression bias aimed at
+    ``SESSION_CAR`` in camera 0 (:func:`steer_detector`). Returns their paths."""
+    import torch
+
+    from playground3d_tpu_torch.models.nn import save_params
+    from playground3d_tpu_torch.models.retinanet import retinanet_init
+
+    det = retinanet_init(torch.Generator().manual_seed(0), depth=depth, stem="s2d", device="cpu")
+    crop = retinanet_init(torch.Generator().manual_seed(1), depth=18, stem="s2d", device="cpu")
+    steer_detector(det, reg, hw, SESSION_CAR)
+    with torch.no_grad():
+        for m in (det, crop):
+            m.heads.cls_out.b += 3.0
+    paths = os.path.join(d, "det.npz"), os.path.join(d, "crop.npz")
+    save_params(paths[0], det)
+    save_params(paths[1], crop)
+    return paths
+
+
+def session_ignore(d, reg, hw, right: float = 0.25):
+    """An ignore polygon for camera 0 over the image box of ``SESSION_CAR``
+    and ``right`` of the image width to its right, written as
+    ``ignored_regions/p1c1_ignored.csv``. With zero output convs every
+    anchor scores alike, and the top-k's ties keep camera 0's first anchors:
+    the cells of the top rows, whose boxes are the aimed box shifted right
+    one stride a cell. The polygon takes the first of them. Returns the
+    directory."""
+    from playground3d_tpu_torch.evaluation import geometry_np as G
+
+    corners = G.state_to_im(np.asarray(SESSION_CAR, np.float64)[None], reg.P[0, 0])[0]
+    pad = 16.0 * hw[1] / W
+    (x1, y1), (x2, y2) = corners.min(0) - pad, corners.max(0) + pad
+    x2 += right * hw[1]
+    ig = os.path.join(d, "ignored_regions")
+    os.makedirs(ig)
+    with open(os.path.join(ig, f"{reg.names[0]}_ignored.csv"), "w") as f:
+        f.write(f"{x1},{y1}\n{x2},{y1}\n{x2},{y2}\n{x1},{y2}\n")
+    return ig
+
+
+def session_argv(root, reg_path, ckpts, ig, emit, out, hw, depth, device, clip_len, det_step):
+    return ["--mode", "session", "--session-dir", root, "--registry", reg_path, "--ignore-dir", ig,
+            "--checkpoint", ckpts[0], "--crop-checkpoint", ckpts[1], "--depth", str(depth),
+            "--det-step", str(det_step), "--clip-len", str(clip_len), "--height", str(hw[0]),
+            "--width", str(hw[1]), "--emit", emit, "--out", out, "--device", str(device)]
+
+
+def session_rows(path):
+    from playground3d_tpu_torch.evaluation.csv_io import load_i24_csv, parse_state_row
+
+    _, data = load_i24_csv(path)
+    return {(f, int(r[2])): parse_state_row(r) for f, rows in data.items() for r in rows}
+
+
+def session_small_reference(device, d):
+    """The session app on the card against the CPU on a small session (two
+    cameras, 64x96, ResNet-18 detector, ``--emit yuv420``, the ignore
+    region): the same (frame, id) keys, positions and sizes within 1e-3 ft,
+    speeds within 1e-4 relative."""
+    from playground3d_tpu_torch.apps import track
+
+    hw = (64, 96)
+    reg = bench_registry(*hw, cameras=SESSION_CAMERAS)
+    root = os.path.join(d, "small")
+    write_session(root, reg, hw, seg_frames=6)
+    reg_path = os.path.join(d, "small_registry.npz")
+    reg.save(reg_path)
+    ckpts = session_checkpoints(root, reg, hw, depth=18)
+    ig = session_ignore(root, reg, hw, right=0.0)
+    rows = {}
+    for dev in ("cpu", device):
+        out = os.path.join(d, f"small_{dev}.csv")
+        track.main(session_argv(root, reg_path, ckpts, ig, "yuv420", out, hw, 18, dev, clip_len=6, det_step=3))
+        rows[str(dev)] = session_rows(out)
+    cpu, gpu = rows["cpu"], rows[str(device)]
+    if set(cpu) != set(gpu) or len(cpu) < 12:
+        fail(f"session small: (frame, id) keys differ between the card and the CPU ({len(gpu)} vs {len(cpu)} rows)")
+    pos = max(float(np.abs(cpu[k][:6] - gpu[k][:6]).max()) for k in cpu)
+    speed = max(float(abs(cpu[k][6] - gpu[k][6]) / max(abs(cpu[k][6]), 1.0)) for k in cpu)
+    log(f"session: small run (2 cameras, 64x96, 12 frames, ResNet-18, yuv420, ignore region) card vs CPU: "
+        f"{len(cpu)} rows, keys equal, positions/sizes max_abs_diff {pos:.3g} ft (tolerance 1e-3), speeds "
+        f"max_rel_diff {speed:.3g} (tolerance 1e-4)")
+    if not (pos <= 1e-3 and speed <= 1e-4):
+        fail(f"session small: states differ between the card and the CPU by {pos} ft, speeds by {speed}")
+
+
+def session_native_twins(path):
+    """The port's native host functions on the first 4K frame of ``path``
+    against their numpy twins: the box filters, s2d packs and the timestamp
+    parse equal, the fixed-point YUV converter within 1 LSB of the float one."""
+    from playground3d_tpu_torch.data import native as N
+    from playground3d_tpu_torch.data.timestamps import parse_frame_timestamp
+    from playground3d_tpu_torch.data.video import _Y4MReader, pack_s2d, rgb_from_planes
+
+    rd = _Y4MReader(path)
+    Y, U, V = rd.read_planes()
+    rd.close()
+    rgb = rgb_from_planes(Y, U, V)
+    half = [N.box2_plane(p) for p in (Y, U, V)]
+    exact = {
+        "plane_half": all(np.array_equal(N.plane_half(p), N.box2_plane(p)) for p in (Y, U, V)),
+        "resize_half": np.array_equal(N.resize_half(rgb), N.resize_half_plain(rgb)),
+        "s2d_u8": np.array_equal(N.s2d_u8(rgb), pack_s2d(rgb)),
+        "preprocess_s2d_u8": np.array_equal(N.preprocess_s2d_u8(rgb), pack_s2d(N.resize_half_plain(rgb))),
+        "yuv420_half_to_s2d_u8": np.array_equal(N.yuv420_half_to_s2d_u8(Y, U, V), N.yuv420_to_s2d_u8(*half)),
+        "parse_timestamp": N.parse_timestamp_native(rgb) == parse_frame_timestamp(rgb)[0] is not None,
+    }
+    lsb = {
+        "yuv420_to_rgb": int(np.abs(N.yuv420_to_rgb(Y, U, V).astype(int) - rgb.astype(int)).max()),
+        "yuv420_half_to_s2d_u8": int(np.abs(N.yuv420_half_to_s2d_u8(Y, U, V).astype(int)
+                                            - pack_s2d(rgb_from_planes(*half)).astype(int)).max()),
+    }
+    bad = [k for k, ok in exact.items() if not ok] + [k for k, v in lsb.items() if v > 1]
+    if bad:
+        fail(f"session: native host functions differ from their numpy twins on a 4K frame: {bad} ({lsb})")
+    log(f"session: native host functions on one {Y.shape[0]}x{Y.shape[1]} frame equal their numpy twins "
+        f"({', '.join(exact)}); the fixed-point YUV converter within {max(lsb.values())} LSB of the float one")
+
+
+def session_sources(root, reg, emit, hw):
+    """Each camera's segments through ``VideoFrameSource``, read in full on
+    the host alone (no tracker): the frames, the parsed timestamps, and the
+    host seconds by stage."""
+    from playground3d_tpu_torch.data.session import find_files, get_recording_params
+    from playground3d_tpu_torch.data.video import VideoFrameSource
+
+    rec_dirs, fmts, cams = get_recording_params(root)
+    files = find_files(rec_dirs, fmts, cams)
+    out, timers = {}, {"read": 0.0, "ts": 0.0, "tail": 0.0}
+    t0 = time.perf_counter()
+    for cam in reg.names:
+        items = []
+        for dd, fn, _, c in files:
+            if c == cam:
+                src = VideoFrameSource(os.path.join(dd, fn), resize_hw=hw, emit=emit)
+                items += list(src)
+                for k in timers:
+                    timers[k] += src.timers[k]
+        out[cam] = items
+    return out, timers, time.perf_counter() - t0
+
+
+def session_app_run(device, argv, n_frames):
+    """``apps/track.py`` ``main()`` in-process under the profiler (CUDA
+    activity), with every launch count set to 0 just before and read just
+    after. Returns its stats, launches, host reads, and the card's busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from playground3d_tpu_torch.apps import track
+    from playground3d_tpu_torch.ops.topk import HostSyncs
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    loops0 = dict(HostSyncs.by_loop)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stats = track.main(argv)
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e3
+    if stats["frames"] != n_frames:
+        fail(f"session: the app tracked {stats['frames']} frames of {n_frames}")
+    return stats, launches, loops, busy
+
+
+def session_births(rows):
+    """(x, y) of each track at its first row [n,2]."""
+    first = {}
+    for (f, i), state in sorted(rows.items()):
+        first.setdefault(i, state)
+    return np.array([s[:2] for s in first.values()]).reshape(-1, 2)
+
+
+def near(p, q, ft: float = 3.0):
+    """[len(p)] bool: whether each road point of ``p`` [n,2] lies within
+    ``ft`` of some point of ``q`` [m,2]."""
+    if not len(q):
+        return np.zeros(len(p), bool)
+    return np.sqrt(((p[:, None] - q[None]) ** 2).sum(-1)).min(1) < ft
+
+
+def session_ignore_check(device, reg, ckpt, ig, frames, hw, depth):
+    """The app's detector on one frame of each camera (s2d, on the card) and
+    its parse with the ignore grid: equal to the parse without it of the
+    detections whose box centre (the corners' hull's) lies in no ignored
+    cell, and some did lie in one. Returns the roadway (x, y) of the
+    ignored detections and of the kept ones (each set as the parse leaves
+    it), and the counts of ignored and of all detections."""
+    import torch
+
+    from playground3d_tpu_torch.data.regions import load_ignore_regions
+    from playground3d_tpu_torch.geometry import transforms as T
+    from playground3d_tpu_torch.models.nn import load_params
+    from playground3d_tpu_torch.models.retinanet import detect_multiframe, retinanet_init
+    from playground3d_tpu_torch.pipeline.camera_bank import bank_from_registry, ignore_hits
+    from playground3d_tpu_torch.pipeline.tracker_state import parse_detections_pre
+    from playground3d_tpu_torch.utils.config import TrackerConfig, tracking_x_range
+
+    det = load_params(ckpt, retinanet_init(torch.Generator().manual_seed(0), depth=depth, stem="s2d", device=device))
+    # the session app's configuration (apps/track.py::track_session)
+    cfg = TrackerConfig(max_tracks=64, max_dets=64, x_range=tracking_x_range(reg.names), f_init=2, det_step=6,
+                        crop_slots=32)
+    dets = detect_multiframe(det, frames, pre_topk=cfg.pre_topk, max_dets=cfg.max_dets,
+                             approx_topk=cfg.approx_topk, min_level=cfg.det_min_level)
+    plain = bank_from_registry(reg, device=device)
+    masked = bank_from_registry(reg, ignore_polygons=load_ignore_regions(ig), image_hw=hw, device=device)
+    times = torch.zeros(frames.shape[0], device=device)
+    hull = T.im_hull_xyxy(dets.boxes[:, :16].reshape(-1, 8, 2))
+    hit = ignore_hits(masked, (hull[:, :2] + hull[:, 2:]) / 2, dets.cam_idx) & dets.mask
+    kept = parse_detections_pre(dets, masked, times, cfg)
+    want = parse_detections_pre(dets._replace(mask=dets.mask & ~hit), plain, times, cfg)
+    ignored = parse_detections_pre(dets._replace(mask=hit), plain, times, cfg)
+    if not (torch.equal(kept.mask, want.mask) and torch.equal(kept.state[kept.mask], want.state[want.mask])):
+        fail("session: the parse with the ignore grid differs from the parse of the detections outside it")
+    if not bool(ignored.mask.any()):
+        fail(f"session: {int(hit.sum())} detections lie in the ignored cells and none of them parses")
+    return (ignored.state[ignored.mask][:, :2].cpu().numpy(), kept.state[kept.mask][:, :2].cpu().numpy(),
+            int(hit.sum()), int(dets.mask.sum()))
+
+
+def session_mp4_leg(device, d, reg, frames, reg_path, ckpts, ig, hw, depth):
+    """Where this host has the FFmpeg libraries: one H.264 segment of 12 4K
+    frames per camera through ``AvWriter``, read back by ``AvReader`` inside
+    ``VideoFrameSource`` (timestamps equal the burned ones) and tracked by
+    the session app (``--emit s2d_u8``, the reference's default .mp4
+    layout)."""
+    from playground3d_tpu_torch.data import avdecode
+    from playground3d_tpu_torch.data.video import VideoFrameSource
+
+    root = os.path.join(d, "mp4")
+    os.makedirs(os.path.join(root, "recording"))
+    with open(os.path.join(root, "_SESSION_CONFIG.config"), "w") as f:
+        f.write("".join(f"__CAMERA__\nname == {c}\n" for c in reg.names))
+    with open(os.path.join(root, "_SESSION_INFO.txt"), "w") as f:
+        f.write("SESSION #1\n")
+    t0 = time.time()
+    for c, cam in enumerate(reg.names):
+        path = os.path.join(root, "recording", f"record_{cam}_00000.mp4")
+        with avdecode.AvWriter(path, frames[c][0].shape[1], frames[c][0].shape[0], fps=30, crf=12) as w:
+            for fr in frames[c][:12]:
+                w.add(fr)
+        codec = w.codec
+        got = [t for _f, t in VideoFrameSource(path, resize_hw=hw, emit="s2d_u8")]
+        want = [float(f"{T0_SESSION + k / 30.0:.2f}") for k in range(12)]
+        if got != want:
+            fail(f"session mp4: {cam}'s parsed timestamps {got[:3]}... differ from the burned {want[:3]}...")
+    out = os.path.join("_outputs", "session_mp4.csv")
+    stats, launches, _, _ = session_app_run(
+        device, session_argv(root, reg_path, ckpts, ig, "s2d_u8", out, hw, depth, device, 24, 6), 12)
+    log(f"session: libav found; the mp4 leg ran ({codec}, 2 cameras x 12 4K frames encoded, timestamps "
+        f"equal the burned ones, tracked at {stats['fps']:.2f} "
+        f"frames/s, {len(session_rows(out))} CSV rows) in {time.time() - t0:.1f} s")
+
+
+def phase_session(device, hw=(H, W), depth: int = 50):
+    """Recorded sessions: 2 cameras, each with 2 y4m segments of 12 frames
+    at 3840x2160 4:2:0 with burned timestamps, a registry .npz, an ignore
+    region for camera 0, and checkpoints from the port's ``save_params``
+    (ResNet-50 s2d detector aimed at a car, ResNet-18 s2d crop net), run
+    through ``apps/track.py --mode session`` on the card with ``--emit
+    s2d_u8`` and ``--emit yuv420``. Checks: every parsed timestamp equals
+    the burned one; the two emits' s2d frames on the card are within 1 LSB
+    (the card's YUV kernel equal to its plain version on the session's
+    frames); the parse drops every detection whose centre lies in camera 0's
+    ignored cells, and no track is born at a road position only such
+    detections reach; the native host functions equal their numpy twins on
+    a 4K frame; the card's session CSV equals the CPU's on a small session;
+    the H.264 leg where libav exists.
+    ``hw`` and ``depth`` (the tracked size, the detector's depth) are for a
+    rehearsal at a small size."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from playground3d_tpu_torch.data import avdecode
+    from playground3d_tpu_torch.ops import yuv420
+
+    t_phase = time.time()
+    os.makedirs("_outputs", exist_ok=True)
+    d = tempfile.mkdtemp(prefix="session_", dir=os.path.abspath("_outputs"))
+    try:
+        session_small_reference(device, d)
+        reg = bench_registry(*hw, cameras=SESSION_CAMERAS)
+        reg_path = os.path.join(d, "registry.npz")
+        reg.save(reg_path)
+        root = os.path.join(d, "session")
+        t0 = time.time()
+        frames, burned = write_session(root, reg, hw, seg_frames=12, scale=2)
+        ckpts = session_checkpoints(d, reg, hw, depth=depth)
+        ig = session_ignore(d, reg, hw)
+        n_frames, n_cams = len(burned), len(reg.names)
+        log(f"session: wrote 2 cameras x 2 segments x 12 frames of {2 * hw[1]}x{2 * hw[0]} y4m, checkpoints and the "
+            f"ignore region "
+            f"in {time.time() - t0:.1f} s")
+        session_native_twins(os.path.join(root, "recording", "record_p1c1_00000.y4m"))
+
+        # the host alone: every frame read, parsed and converted by each emit
+        host, first = {}, {}
+        want = [float(f"{t:.2f}") for t in burned]
+        for emit in ("s2d_u8", "yuv420"):
+            items, timers, wall = session_sources(root, reg, emit, hw)
+            for cam, its in items.items():
+                got = [t for _f, t in its]
+                if got != want:
+                    fail(f"session ({emit}): {cam}'s parsed timestamps differ from the burned ones: {got} vs {want}")
+            first[emit] = np.stack([items[c][0][0] for c in reg.names])
+            host[emit] = (timers, wall)
+        s2d_host = torch.as_tensor(first["s2d_u8"]).to(device)
+        buf = torch.as_tensor(first["yuv420"][None]).to(device)  # [1, C, L]
+        on_card = yuv420.yuv420_flat_to_s2d_cuda(buf, hw)[0]
+        if not torch.equal(on_card, yuv420.yuv420_flat_to_s2d_plain(buf, hw)[0]):
+            fail("session: the YUV kernel differs from its plain version on the session's frames")
+        lsb = int((on_card.int() - s2d_host.int()).abs().max())
+        if lsb > 1:
+            fail(f"session: s2d frames from the two emits differ by {lsb} LSB on the card")
+        log(f"session: timestamps parsed from every 4K frame of both cameras equal the burned ones (both emits); "
+            f"the card's s2d frames from --emit yuv420 are within {lsb} LSB of --emit s2d_u8's host-packed ones "
+            f"(tolerance 1); the YUV kernel equals its plain version on them")
+
+        # where the detections in the ignored cells lie on the road, and the others
+        at_ign, at_kept, n_hit, n_det = session_ignore_check(device, reg, ckpts[0], ig, s2d_host, hw, depth)
+        only_ign = at_ign[~near(at_ign, at_kept)]
+        if not len(only_ign):
+            fail("session: every ignored detection parses within 3 ft of a kept one; the check would not bite")
+        log(f"session: of the detector's {n_det} detections on one frame of each camera, {n_hit} lie in camera 0's "
+            f"ignored cells and none survives the parse; {len(only_ign)} road positions only ignored detections "
+            f"reach, {len(at_kept)} kept ones")
+
+        report = {}
+        for emit in ("s2d_u8", "yuv420"):
+            out = os.path.join("_outputs", f"session_{emit}.csv")
+            argv = session_argv(root, reg_path, ckpts, ig, emit, out, hw, depth, device, 24, 6)
+            stats, launches, loops, busy = session_app_run(device, argv, n_frames)
+            need = ["crop_and_resize_s2d", "nms", "auction"] + (["yuv420_flat_to_s2d"] if emit == "yuv420" else [])
+            if any(launches[k] < 1 for k in need) or launches["qconv"] or launches["crop_and_resize"] or (
+                    emit == "s2d_u8" and launches["yuv420_flat_to_s2d"]):
+                fail(f"session ({emit}): kernel launches off for this path: {launches}")
+            if loops.get("drain") != 1:
+                fail(f"session ({emit}): host reads {loops}; one read a clip is the contract")
+            rows = session_rows(out)
+            if not all(np.isfinite(v).all() for v in rows.values()):
+                fail(f"session ({emit}): non-finite states in the CSV")
+            births = session_births(rows)
+            bad = births[near(births, only_ign) & ~near(births, at_kept)]
+            if len(bad) or not len(births):
+                fail(f"session ({emit}): {len(births)} births, {len(bad)} of them where only ignored detections "
+                     f"lie: {bad.tolist()}")
+            wall = stats["frames"] / stats["fps"]
+            timers, host_wall = host[emit]
+            per = n_frames * n_cams
+            log(f"session ({emit}): {n_frames} frames x {n_cams} cameras of {2 * hw[0]}p y4m tracked at {hw[0]}p in one "
+                f"clip at "
+                f"{stats['fps']:.2f} frames/s (track_clips wall {wall:.2f} s, graph capture included; under the "
+                f"profiler); card busy {busy:.1f} ms ({busy / (wall * 1e3) * 100:.1f}% of that wall); host ms per "
+                f"camera-frame in the app: read {stats['read'] / per * 1e3:.2f}, timestamp {stats['ts'] / per * 1e3:.2f},"
+                f" tail {stats['tail'] / per * 1e3:.2f}, pinned staging {stats['stage'] / per * 1e3:.2f}; the host "
+                f"alone: read {timers['read'] / per * 1e3:.2f}, timestamp {timers['ts'] / per * 1e3:.2f}, tail "
+                f"{timers['tail'] / per * 1e3:.2f} ({n_frames / host_wall:.2f} frames/s of 2 cameras); launches "
+                f"{launches}; host reads {loops}; {len(births)} births, none within 3 ft of a road position only "
+                f"ignored detections reach")
+            report[emit] = stats["fps"]
+        log("session: frames/s of the two emits, one call, one card: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in report.items()))
+        if avdecode.available():
+            session_mp4_leg(device, d, reg, frames, reg_path, ckpts, ig, hw, depth)
+        else:
+            log("session: libav not found on this host (pkg-config finds no FFmpeg libraries): the H.264 leg did "
+                "not run; the y4m legs ran")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"session: phase took {time.time() - t_phase:.1f} s")
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2065,6 +2511,7 @@ def main() -> None:
         return
     launches = phase_main(device, loop_calls)
     phase_single(device)
+    phase_session(device)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["launches"] < 1:

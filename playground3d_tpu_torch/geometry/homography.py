@@ -9,6 +9,7 @@ applying the transforms is on-device (see
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -123,3 +124,12 @@ class CameraRegistry:
             "H_inv": self.H_inv.astype(dtype),
             "P": self.P.astype(dtype),
         }
+
+    # persistence (npz + json manifest; no pickle), the JAX package's format
+    def save(self, path: str) -> None:
+        np.savez(path, H=self.H, H_inv=self.H_inv, P=self.P, vps=self.vps, names=json.dumps(self.names))
+
+    @classmethod
+    def load(cls, path: str) -> "CameraRegistry":
+        with np.load(path, allow_pickle=False) as z:
+            return cls(names=json.loads(str(z["names"])), H=z["H"], H_inv=z["H_inv"], P=z["P"], vps=z["vps"])

@@ -50,6 +50,34 @@ def nvcc_path() -> str:
     return path
 
 
+def build_library(name: str, source: Path, compile_cmd: Sequence[str], libs: Sequence[str] = (),
+                  digest_extra: bytes = b"") -> "tuple[Path, str]":
+    """Compile ``source`` with ``compile_cmd`` (compiler and flags) and link
+    ``libs`` into ``_build/lib<name>-<digest>.so``, unless that file exists;
+    returns its path and the compiler's output ("" when it was built
+    already). The digest covers the source, the command, ``libs`` and
+    ``digest_extra``, so an edited source or other flags build anew. The
+    compiler writes a temporary file named with this process's id, which
+    is then renamed into place: processes that build the same library at
+    once each rename a whole file. A failed build raises with the
+    compiler's output."""
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join([*compile_cmd, *libs]).encode() + digest_extra
+    ).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    if lib_path.exists():
+        return lib_path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+    proc = subprocess.run([*compile_cmd, "-o", str(tmp), str(source), *libs], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{name}: {compile_cmd[0]} failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, lib_path)
+    return lib_path, log
+
+
 class KernelLibrary:
     """One ``csrc/<name>.cu`` -> ``_build/lib<name>-<digest>.so`` -> ctypes.
 
@@ -69,24 +97,10 @@ class KernelLibrary:
     def build(self) -> Path:
         """Compile the library if this source and these flags have not been
         built yet; returns its path. Safe to call from several threads."""
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(self.flags).encode()
-        ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{self.name}-{digest}.so"
         with self._lock:
-            if lib_path.exists():
-                return lib_path
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-            proc = subprocess.run(
-                [nvcc_path(), *self.flags, "-o", str(tmp), str(self.source)],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"{self.name}: nvcc failed ({proc.returncode}):\n{self.build_log}")
-            os.replace(tmp, lib_path)
-            return lib_path
+            path, log = build_library(self.name, self.source, [nvcc_path(), *self.flags])
+            self.build_log = log or self.build_log
+            return path
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:

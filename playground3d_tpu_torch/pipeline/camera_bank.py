@@ -26,14 +26,24 @@ class CameraBank(NamedTuple):
     ignore_cell: float = 8.0
 
 
-def bank_from_registry(registry, device: DeviceLike = None) -> CameraBank:
+def bank_from_registry(registry, ignore_polygons=None, image_hw=(1080, 1920), ignore_cell=8,
+                       device: DeviceLike = None) -> CameraBank:
     """Ship a :class:`CameraRegistry`'s float32 arrays to ``device`` (the
-    card unless the caller asks for the CPU). Ignore polygons are not
-    ported yet."""
+    card unless the caller asks for the CPU), with the per-camera ignore
+    grid of ``ignore_polygons`` ({camera: [n,2] polygon} in ``image_hw``
+    pixels, see :func:`~playground3d_tpu_torch.data.regions.ignore_grid`)
+    when there are any."""
     dev = resolve_device(device)
     arrs = registry.device_arrays()
+    ignore = None
+    if ignore_polygons:
+        from playground3d_tpu_torch.data.regions import ignore_grid
+
+        grid = ignore_grid(ignore_polygons, registry.names, image_hw[0], image_hw[1], ignore_cell)
+        ignore = torch.as_tensor(grid, device=dev)
     return CameraBank(
-        H=torch.as_tensor(arrs["H"], device=dev), P=torch.as_tensor(arrs["P"], device=dev)
+        H=torch.as_tensor(arrs["H"], device=dev), P=torch.as_tensor(arrs["P"], device=dev),
+        ignore=ignore, ignore_cell=float(ignore_cell),
     )
 
 

@@ -535,7 +535,16 @@ class MultiCameraTracker:
     models must already sit on ``device`` (the card unless the caller asks
     for the CPU); frames are shipped there as they arrive. ``graphs`` is
     :func:`make_mc_clip_step`'s (True: each branch a CUDA graph on the
-    card; False: eager)."""
+    card; False: eager).
+
+    ``ignore_polygons`` ({camera: [n,2] polygon in ``image_hw`` pixels,
+    reference ignored_regions/*.csv) become the bank's ignore grid, made on
+    the device before any branch is captured: detections whose box centre
+    falls in a camera's region are dropped at parse time. ``on_frame``, if
+    given, is called as ``on_frame(frame_num, frames [C,...], snapshot,
+    ts_bias [C])`` after each :meth:`process` step (the reference's overlay
+    loop, MC3D:733-917); the clip loop :meth:`track_clips` does not call
+    it."""
 
     def __init__(
         self,
@@ -551,6 +560,9 @@ class MultiCameraTracker:
         crop_stem: str = "conv7",
         device: DeviceLike = None,
         graphs: bool = True,
+        ignore_polygons=None,
+        image_hw: Tuple[int, int] = (1080, 1920),
+        on_frame: Optional[Callable] = None,
     ):
         self.device = resolve_device(device)
         self.graphs = graphs  # make_mc_clip_step's: True = CUDA graphs on the card
@@ -565,7 +577,9 @@ class MultiCameraTracker:
             cfg = TrackerConfig(x_range=x_range)
         self.cfg = cfg
         self.kfp = kf_params if kf_params is not None else default_params(device=self.device)
-        self.bank = bank_from_registry(registry, device=self.device)
+        self.bank = bank_from_registry(
+            registry, ignore_polygons=ignore_polygons, image_hw=image_hw, device=self.device
+        )
         if centers is None:
             centers = np.asarray(camera_centers(self.cameras), np.float32)
         self.centers = torch.as_tensor(np.asarray(centers, np.float32), device=self.device)
@@ -599,6 +613,7 @@ class MultiCameraTracker:
         # reading results back ("drain"), and, in track_clips' producer
         # thread, filling pinned buffers and queueing the copies ("stage")
         self.timers = {"detect": 0.0, "crop": 0.0, "drain": 0.0, "stage": 0.0}
+        self.on_frame = on_frame
 
     def _timed(self, stage: str, t0: float) -> None:
         self.timers[stage] += time.time() - t0
@@ -642,11 +657,14 @@ class MultiCameraTracker:
         self._timed(stage, t0)
 
         t0 = time.time()
+        bias = self.ts_bias.cpu().numpy()
         self._append_row(
             frame_num, snap.t.cpu(), snap.ids.cpu().numpy(), snap.raw_mask.cpu().numpy(),
-            snap.states7.cpu().numpy(), snap.classes.cpu().numpy(), self.ts_bias.cpu().numpy(),
+            snap.states7.cpu().numpy(), snap.classes.cpu().numpy(), bias,
         )
         self._timed("drain", t0)
+        if self.on_frame is not None:
+            self.on_frame(frame_num, frames, snap, bias)
         return snap
 
     def _synced_frames(self, sources: List[Iterable], cutoff: int, sync_ms: float):

@@ -92,6 +92,69 @@ _SINGLE = textwrap.dedent(
 )
 
 
+_SESSION = textwrap.dedent(
+    """
+    import os
+    import sys
+    import tempfile
+    import numpy as np
+    from playground3d_tpu_torch.apps import track
+    from playground3d_tpu_torch.data import avdecode, dataset, frame_cache, native, regions, session, video
+    from playground3d_tpu_torch.geometry.homography import CameraRegistry
+    from playground3d_tpu_torch.tools import ref_interop
+
+    d = tempfile.mkdtemp()
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (64, 96, 3), dtype=np.uint8) for _ in range(2)]
+    video.write_y4m(os.path.join(d, "c.y4m"), frames)
+    for emit in ("s2d_u8", "yuv420", "f32"):
+        out = list(video.VideoFrameSource(os.path.join(d, "c.y4m"), resize_hw=(32, 48), emit=emit))
+        assert len(out) == 2
+    from playground3d_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    assert native.LIB._lib is not None and native.LIB.build().parent == BUILD_DIR
+    grid = regions.ignore_grid({"a": np.array([[0, 0], [40, 0], [0, 40]])}, ["a"], 64, 96)
+    assert grid.any() and dataset.pad_labels(np.zeros((2, 21))).shape == (32, 21)
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "playground3d_tpu" or m.startswith("playground3d_tpu."))
+    print("BAD", bad)
+    assert not bad, bad
+    """
+)
+
+
+def test_host_io_loads_no_jax_and_nothing_of_the_jax_package():
+    """The host I/O modules of the session slice: the native tails built
+    and run, the decoders, the session, region and cache helpers."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SESSION], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
+
+
+def test_port_never_runs_make_nor_names_the_jax_packages_native_builds():
+    """The port reads ``native/*.cc`` and builds into its own ``_build/``:
+    no source of it runs ``make`` or names a ``native/lib*.so``."""
+    import re
+    from pathlib import Path
+
+    import playground3d_tpu_torch
+    from playground3d_tpu_torch.data import avdecode, native
+    from playground3d_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    sources = sorted(Path(playground3d_tpu_torch.__file__).parent.rglob("*.py")) + [Path("chip_smoke.py")]
+    assert len(sources) > 40
+    for path in sources:
+        text = path.read_text()
+        assert not re.search(r"[\"']make[\"']", text), path
+        assert not re.search(r"lib(framepipe|avdecode)\.so|native/lib", text), path
+    for lib in (native.LIB, avdecode.LIB):
+        assert lib.source.parent == native.NATIVE_DIR and lib.source.suffix == ".cc" and lib.source.exists()
+    assert native.LIB.build().parent == BUILD_DIR
+
+
 def test_single_camera_loads_no_jax_and_nothing_of_the_jax_package():
     """The slice's new modules and one oracle single-camera step."""
     out = subprocess.run(
@@ -128,12 +191,13 @@ def _entry_points():
         "SingleCameraTracker": lambda: SingleCameraTracker(toy_camera_chain(1)[0], "p1c1", detect_fn=print),
         "oracle_detections": lambda: oracle_detections(SyntheticScene(), 0.0, np.eye(3, 4), 16),
         "track_app": lambda: track.main(["--oracle", "--frames", "1"]),
+        "track_app_session": lambda: track.main(["--mode", "session", "--session-dir", ".", "--registry", "r.npz"]),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["retinanet_init", "default_params", "init_track_state", "MultiCameraTracker",
-             "SingleCameraTracker", "oracle_detections", "track_app"]
+             "SingleCameraTracker", "oracle_detections", "track_app", "track_app_session"]
 )
 def test_default_device_raises_without_cuda(monkeypatch, name):
     """Entry points default to the card; without CUDA they raise instead

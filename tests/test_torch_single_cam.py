@@ -208,7 +208,7 @@ def _run_steps(net, clip=False):
     jreg, _ = jax_bench_camera(HW)
     preg, _ = register_bench_camera(HW)
     jargs = (net["jax"], 18, jax_bank(jreg), jax_kf_params(), jcfg)
-    pargs = (net["port"], bank_from_registry(preg, "cpu"), default_params(device="cpu"), pcfg)
+    pargs = (net["port"], bank_from_registry(preg, device="cpu"), default_params(device="cpu"), pcfg)
     js, ps = jax_init_state(jcfg.max_tracks), init_track_state(pcfg.max_tracks, "cpu")
     if clip:
         js, jsn = jax_clip_step(*jargs, stem=stem)(js, jnp.asarray(frames), jnp.asarray(times))
@@ -332,7 +332,7 @@ def test_stem_mismatch_raises(nets, entry):
     """A detector built with one stem refuses to run under the other."""
     reg, _ = register_bench_camera(HW)
     model, cfg = nets["conv7"]["port"], TrackerConfig(**KNOBS)
-    args = (model, bank_from_registry(reg, "cpu"), default_params(device="cpu"), cfg)
+    args = (model, bank_from_registry(reg, device="cpu"), default_params(device="cpu"), cfg)
     calls = {
         "make_full_step": lambda: make_full_step(*args, stem="s2d"),
         "make_clip_step": lambda: make_clip_step(*args, stem="s2d"),

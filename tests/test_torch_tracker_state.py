@@ -152,7 +152,7 @@ def test_parse_detections_matches(toy_cameras3):
     )
     cfg_kw = dict(phi_nms_im=0.3, phi_nms_space=0.2)
     times = np.array([0.0, 0.01, 0.02], np.float32)
-    jb, pb = jax_bank(toy_cameras3["registry"]), bank_from_registry(toy_cameras3["registry"], "cpu")
+    jb, pb = jax_bank(toy_cameras3["registry"]), bank_from_registry(toy_cameras3["registry"], device="cpu")
     jp = JS.parse_detections(JD(**{k: jnp.asarray(v) for k, v in det.items()}), jb,
                              jnp.asarray(times), JaxConfig(**cfg_kw))
     pp = PS.space_nms_parsed(
