@@ -20,7 +20,10 @@ result line):
              path's sizes and at edges; equal to the plain loops, round
              counts included; NMS on both routes, at every cluster size of
              the one-launch route, batched cases shifted in the kernel, and
-             one ``batched_nms`` at n 512 one kernel launch);
+             one ``batched_nms`` at n 512 one kernel launch), and
+             ``focal_loss.cu`` (the training loss and its gradient, batch 4
+             at 512x768 and batch 2 at 1080x1920, with edge cases: the
+             assignment equal, losses and gradients within 1e-5);
 3. main    - the multi-camera tracker at full width through
              ``MultiCameraTracker.track_clips``: one 1080p camera, ResNet-50
              detector (FPN/heads 256 wide), ResNet-18 crop net, 24-frame
@@ -57,7 +60,18 @@ result line):
              twins, the card's session CSV equal the CPU's on a small
              session, an H.264 leg where libav exists; session frames/s,
              host ms per frame by stage and the card's busy share;
-6. report  - the ``kernels`` JSON line, the card's name and power limit, and
+6. train   - detector training: one ``Trainer.train_step`` on the card
+             against the CPU (depth 18, 64x128); ``apps/train_detector.py``
+             in-process at its defaults (ResNet-50, conv7, FPN/heads 256
+             wide, 4-conv towers, 512x768, batch 4, uint8 frames) for 20
+             steps of 10 an epoch, and the crop net (112 px crops,
+             ResNet-18, 2-conv shared tower): finite losses, the plateau
+             rule, ``focal_loss.cu`` twice a step, checkpoints that load
+             into a RetinaNet, the detector's through ``apps/track.py
+             --mode single``; one Trainer at 1080x1920, batch 2; steps/s,
+             images/s, card busy, host ms per batch, peak memory; then
+             ``apps/fit_filter.py`` into a tracker;
+7. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
@@ -339,6 +353,7 @@ KERNEL_MODULES = (
     "playground3d_tpu_torch.ops.qconv",
     "playground3d_tpu_torch.ops.nms",
     "playground3d_tpu_torch.ops.assignment",
+    "playground3d_tpu_torch.ops.focal_loss",
 )
 
 
@@ -1411,7 +1426,7 @@ def phase_kernels(device):
     log(f"kernels: an empty kernel takes {noop_ms * 1e3:.2f} us between CUDA events "
         f"(that much of every launch below is the launch itself)")
     return [fn(device, flush, noop_ms) for fn in (kernels_crop_resize, kernels_crop_s2d, kernels_yuv, kernels_qconv,
-                                                   kernels_nms, kernels_auction)]
+                                                   kernels_nms, kernels_auction, kernels_focal)]
 
 
 def phase_small_reference(device):
@@ -2475,6 +2490,396 @@ def phase_session(device, hw=(H, W), depth: int = 50):
     log(f"session: phase took {time.time() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+FOCAL_SHAPES = ((4, (512, 768)), (2, (H, W)))  # the app's default batch, TrainConfig's own image shape
+FOCAL_GRAD_OUT = (1.0, 0.7, 1.3)  # d total / d (cls, reg, vp) in the checks: each term weighs differently
+
+
+def focal_inputs(rng, b: int, hw):
+    """Loss inputs on the host for ``b`` images at ``hw``: image i holds
+    [32, 1, 0, 17][i % 4] valid labels; the first image's first six are
+    dyadic boxes on 32x32 anchors (IoU exactly 1.0, 0.5, 0.498, 0.406,
+    0.398 and 0.4 at their anchor), the rest box-like labels of 16-400 px;
+    classification carries values exactly at both clamp bounds and beyond
+    them, regression zero-length axis vectors."""
+    from playground3d_tpu_torch.losses.focal import _SIGNS
+    from playground3d_tpu_torch.models.anchors import anchors_for_shape
+
+    anchors = anchors_for_shape(hw)
+    a, cells_x = anchors.shape[0], hw[1] // 8
+    ann = np.full((b, 32, 21), -1.0, np.float32)
+    S = np.array(_SIGNS)
+
+    def box_label(x0, y0, x1, y1, c):
+        lab = np.zeros(21, np.float32)
+        for k in range(8):
+            lab[2 * k] = x0 if k % 2 == 0 else x1
+            lab[2 * k + 1] = y1 if k < 4 else y0
+        lab[16:21] = x0, y0, x1, y1, c
+        return lab
+
+    def random_label(c):
+        size = rng.uniform(16, 400)
+        ctr = np.array([rng.uniform(0, hw[1]), rng.uniform(0, hw[0])])
+        l, w, h = (rng.normal(0, 1, 2) * size * f for f in (0.3, 0.15, 0.2))
+        corners = ctr + S[:, 0, None] * l + S[:, 1, None] * w + S[:, 2, None] * h
+        return np.concatenate([corners.reshape(-1), corners.min(0), corners.max(0), [c]]).astype(np.float32)
+
+    edge_anchors = []
+    for i in range(b):
+        rows = []
+        if i == 0:
+            fracs = (None, 0.5, 0.498046875, 0.40625, 0.3984375, "tall")
+            for j, frac in enumerate(fracs):
+                idx = (3 * (j + 1) * cells_x + 4 * (j + 1)) * 9 + 3  # a 32x32 anchor, spread out
+                x0, y0, x1, y1 = (float(v) for v in anchors[idx])
+                if frac is None:
+                    rows.append(box_label(x0, y0, x1, y1, j))
+                elif frac == "tall":
+                    rows.append(box_label(x0, y0 - 24.0, x1, y1 + 24.0, j))  # IoU 1024 / 2560 = 0.4
+                else:
+                    rows.append(box_label(x0, y0, x0 + 32.0 * frac, y1, j))
+                edge_anchors.append(idx)
+        n = [32, 1, 0, 17][i % 4]
+        rows += [random_label(rng.integers(0, 8)) for _ in range(n - len(rows))]
+        if rows:
+            ann[i, : len(rows)] = rows
+    cls = (1.0 / (1.0 + np.exp(-rng.normal(-2.0, 1.5, (b, a, 8))))).astype(np.float32)
+    lo, hi = np.float32(1e-4), np.float32(1.0 - 1e-4)
+    cls[0, edge_anchors[0]] = [lo, hi, 5e-5, 0.99995, lo, hi, 0.3, 0.7]
+    cls[-1, :4] = [[lo] * 8, [hi] * 8, [0.0] * 8, [1.0] * 8]
+    reg = rng.normal(0.0, 0.5, (b, a, 12)).astype(np.float32)
+    reg[0, edge_anchors[0], 2:4] = 0.0
+    reg[0, edge_anchors[1], 4:8] = 0.0
+    return cls, reg, ann, anchors
+
+
+def focal_bytes(b: int, a: int) -> "tuple[int, int]":
+    """Bytes each kernel must move (each input read once, each output
+    written once): forward reads classification, regression, labels and
+    anchors and writes argmax (4) and flags (1) per anchor; backward reads
+    the same plus argmax and flags and writes both gradients."""
+    inputs = b * a * (8 + 12) * 4 + b * 32 * 21 * 4 + a * 16
+    fwd = inputs + b * a * 5 + b * 4 + 12
+    bwd = inputs + b * a * 5 + b * 4 + 12 + b * a * (8 + 12) * 4
+    return fwd, bwd
+
+
+def kernels_focal(device, flush, noop_ms):
+    """``focal_loss.cu``: the loss and its gradient against the plain
+    version (autograd), at batch 4 x 512x768 (the app's default) and batch
+    2 x 1080x1920, with the edge cases of :func:`focal_inputs`. The
+    assignment (argmax, positive, positive-or-negative) must be equal, the
+    three losses within 1e-5 relative, the gradients within 1e-5 relative +
+    1e-7 absolute. Times: forward and backward between CUDA events, L2 cold
+    and warm; the plain version's forward and backward."""
+    import torch
+
+    from playground3d_tpu_torch.losses import focal
+    from playground3d_tpu_torch.ops import focal_loss as FL
+
+    rng = np.random.default_rng(11)
+    worst, row = 0.0, None
+    for b, hw in FOCAL_SHAPES:
+        cls, reg, ann, anchors = (torch.as_tensor(x, device=device) for x in focal_inputs(rng, b, hw))
+        a = anchors.shape[0]
+        losses, num_pos, argmax, flags = FL.focal_loss_forward_cuda(cls, reg, ann, anchors)
+        g_out = torch.tensor(FOCAL_GRAD_OUT, device=device)
+        dcls, dreg = FL.focal_loss_backward_cuda(cls, reg, ann, anchors, argmax, flags, num_pos, g_out)
+        iou_max, arg_ref = focal.assign_plain(anchors, ann)
+        has = (ann[..., 20] >= 0).any(1)[:, None]
+        pos_ref = (iou_max >= focal.POS_IOU) & has
+        care_ref = pos_ref | (iou_max < focal.NEG_IOU) | ~has
+        c_t, r_t = cls.clone().requires_grad_(True), reg.clone().requires_grad_(True)
+        ref = focal.detection_loss_plain(c_t, r_t, ann, anchors)
+        gc_ref, gr_ref = torch.autograd.grad(ref, (c_t, r_t), grad_outputs=list(g_out))
+        torch.cuda.synchronize()
+        same = (torch.equal(argmax, arg_ref) and torch.equal((flags & 1).bool(), pos_ref)
+                and torch.equal(((flags >> 1) & 1).bool(), care_ref))
+        if not same:
+            fail(f"focal_loss b{b} {hw}: the kernel's assignment differs from the plain version's")
+        want = torch.stack([x.detach() for x in ref])
+        rel = float(((losses - want).abs() / want.abs().clamp_min(1e-30)).max())
+        over = max(float(((g - w).abs() - (1e-7 + 1e-5 * w.abs())).max()) for g, w in ((dcls, gc_ref), (dreg, gr_ref)))
+        err = max(float((losses - want).abs().max()), float((dcls - gc_ref).abs().max()),
+                  float((dreg - gr_ref).abs().max()))
+        worst = max(worst, err)
+        n_pos = int(pos_ref.sum())
+        log(f"kernels: focal_loss b{b} {hw[0]}x{hw[1]} ({a} anchors, {int((ann[..., 20] >= 0).sum())} labels, "
+            f"{n_pos} positives): assignment equal; losses {[round(float(x), 6) for x in losses]} (plain "
+            f"{[round(float(x), 6) for x in want]}) max rel err {rel:.2e} (tolerance 1e-5); gradients worst excess "
+            f"over 1e-5 rel + 1e-7 abs {over:.2e} (must be <= 0); max_abs_err {err:.3g}")
+        if not rel <= 1e-5 or not over <= 0 or n_pos == 0:
+            fail(f"focal_loss b{b} {hw}: losses rel err {rel}, gradient excess {over}, positives {n_pos}")
+        del ref, c_t, r_t, gc_ref, gr_ref
+
+        fwd = lambda: FL.focal_loss_forward_cuda(cls, reg, ann, anchors)
+        bwd = lambda: FL.focal_loss_backward_cuda(cls, reg, ann, anchors, argmax, flags, num_pos, g_out)
+
+        def plain():
+            c, r = cls.detach().requires_grad_(True), reg.detach().requires_grad_(True)
+            torch.autograd.grad(focal.detection_loss_plain(c, r, ann, anchors), (c, r), grad_outputs=list(g_out))
+
+        fwd_ms = float(np.median([gpu_ms(fwd, iters=20, flush=flush) for _ in range(3)]))
+        bwd_ms = float(np.median([gpu_ms(bwd, iters=20, flush=flush) for _ in range(3)]))
+        fwd_warm, bwd_warm = gpu_ms(fwd, iters=20), gpu_ms(bwd, iters=20)
+        plain_ms = gpu_ms(plain, iters=3, flush=flush)
+        fb, bb = focal_bytes(b, a)
+        bound_f, bound_b = fb / HBM_BYTES_PER_S * 1e3, bb / HBM_BYTES_PER_S * 1e3
+        log(f"kernels: focal_loss b{b} {hw[0]}x{hw[1]} times: forward {fwd_ms * 1e3:.1f} us (L2 cold, median of 3 x "
+            f"20; {fwd_warm * 1e3:.1f} warm), bound {bound_f * 1e3:.1f} us ({fb} bytes at 3.35 TB/s), "
+            f"{bound_f / fwd_ms * 100:.1f}% of bound; backward {bwd_ms * 1e3:.1f} us ({bwd_warm * 1e3:.1f} warm), bound "
+            f"{bound_b * 1e3:.1f} us ({bb} bytes), {bound_b / bwd_ms * 100:.1f}% of bound; plain version forward + "
+            f"backward (autograd) {plain_ms * 1e3:.1f} us; an empty kernel {noop_ms * 1e3:.2f} us; no single "
+            f"library call computes it")
+        if row is None:  # the app's default shape is the row's
+            row = {
+                "name": "focal_loss", "route": "cuda", "source": "playground3d_tpu_torch/csrc/focal_loss.cu",
+                "replaces": "playground3d_tpu/losses/focal.py:187", "bound_by": "bytes",
+                "ms": fwd_ms + bwd_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_f + bound_b,
+            }
+        del cls, reg, ann, anchors, dcls, dreg, argmax, flags
+    row["max_abs_err"] = worst
+    return row
+
+
+def plateau_lrs(lr: float, losses, factor: float = 0.3, patience: int = 1):
+    """The learning rates ReduceLROnPlateau gives after each epoch's loss."""
+    best, bad, out = float("inf"), 0, []
+    for v in losses:
+        if v < best - 1e-6:
+            best, bad = v, 0
+        else:
+            bad += 1
+            if bad > patience:
+                lr, bad = lr * factor, 0
+        out.append(lr)
+    return out
+
+
+def train_small_reference(device):
+    """One ``Trainer.train_step`` on the card against the CPU from the same
+    weights (the port's init from a fixed generator) and batch, depth 18 at
+    64x128: losses within 1e-3 relative, every updated leaf within 2 lr (a
+    near-zero gradient may have the other sign on the other device, and
+    Adam's first step moves each element by lr either way)."""
+    import torch
+
+    from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
+    from playground3d_tpu_torch.models.retinanet import retinanet_init
+    from playground3d_tpu_torch.ops import focal_loss as FL
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer, train_leaves
+
+    cfg = TrainConfig(depth=18, image_shape=(64, 128))
+    ds = SyntheticDetectionDataset(image_shape=(64, 128), n_objects=6, seed=2, zoom=8.0, output_dtype="uint8")
+    frames, labels = next(ds.batches(2))
+    model = retinanet_init(torch.Generator().manual_seed(0), depth=18, device="cpu")
+    out = {}
+    for dev in ("cpu", device):
+        tr = Trainer(cfg, model=copy.deepcopy(model), device=dev)
+        n0 = FL.focal_loss_forward_cuda.launches
+        m = tr.train_step(frames, labels)
+        out[str(dev)] = ({k: float(v) for k, v in m.items()},
+                         {k: t.detach().cpu() for k, t in train_leaves(tr.model).items()})
+        if dev != "cpu" and FL.focal_loss_forward_cuda.launches != n0 + 1:
+            fail("train small: the card's step did not run the loss kernel")
+    (m_c, p_c), (m_g, p_g) = out["cpu"], out[str(device)]
+    rel = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-12) for k in m_c)
+    worst = max(float((p_g[k] - p_c[k]).abs().max()) for k in p_c)
+    log(f"train: small reference (depth 18, 64x128, batch 2, one step) card vs CPU: losses {m_g} (CPU {m_c}), "
+        f"max rel diff {rel:.2e} (tolerance 1e-3); updated leaves max abs diff {worst:.3g} = {worst / cfg.lr:.2f} lr "
+        f"(tolerance 2 lr)")
+    if not rel <= 1e-3 or not worst <= 2 * cfg.lr:
+        fail(f"train small reference: losses rel diff {rel}, parameters differ by {worst}")
+
+
+def train_app_run(device, argv, label: str, batch: int):
+    """``apps/train_detector.py`` in-process under the profiler (CUDA
+    activity), the loss kernels' counts set to 0 just before and read just
+    after; checks finite losses, the plateau rule and the checkpoint.
+    Returns the summary and the kernels' launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from playground3d_tpu_torch.apps import train_detector
+    from playground3d_tpu_torch.ops import focal_loss as FL
+
+    FL.focal_loss_forward_cuda.launches = FL.focal_loss_backward_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        summary = train_detector.main(argv)
+        torch.cuda.synchronize()
+    launches = (FL.focal_loss_forward_cuda.launches, FL.focal_loss_backward_cuda.launches)
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = summary["steps"]
+    losses = [e["loss"] for e in summary["epochs"]]
+    want_lrs = plateau_lrs(float(argv[argv.index("--lr") + 1]) if "--lr" in argv else 1e-4, losses)
+    if launches != (steps, steps):
+        fail(f"train ({label}): loss kernel launches {launches} for {steps} steps (one forward, one backward a step)")
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"train ({label}): epoch losses {losses}")
+    if [e["lr"] for e in summary["epochs"]] != want_lrs:
+        fail(f"train ({label}): learning rates {[e['lr'] for e in summary['epochs']]}, the plateau rule gives {want_lrs}")
+    pf = summary["prefetch"]
+    log(f"train ({label}): {steps} steps in {summary['seconds']:.2f} s (first step included; under the profiler): "
+        f"{steps / summary['seconds']:.3f} steps/s, {steps * batch / summary['seconds']:.2f} images/s; card busy "
+        f"{busy:.1f} ms ({busy / (summary['seconds'] * 1e3) * 100:.1f}% of the wall); host ms per batch in the "
+        f"Prefetcher: produce {pf['produce'] / pf['batches'] * 1e3:.1f}, stage {pf['stage'] / pf['batches'] * 1e3:.2f} "
+        f"({pf['batches']} batches); peak device memory {peak:.2f} GiB; focal_loss launches {sum(launches)} "
+        f"({sum(launches) / steps:.0f} a step); epoch losses {[round(v, 4) for v in losses]}, lr {want_lrs}")
+    return summary, sum(launches)
+
+
+def check_checkpoint(path: str, depth: int, hw, **arch):
+    """The app's checkpoint loads into a RetinaNet (``load_params``) and
+    runs a finite forward."""
+    import torch
+
+    from playground3d_tpu_torch.models.nn import load_params
+    from playground3d_tpu_torch.models.retinanet import forward_raw, retinanet_init
+
+    model = load_params(path, retinanet_init(depth=depth, **arch))
+    with torch.no_grad():
+        cls, reg = forward_raw(model, torch.zeros((1,) + tuple(hw) + (3,), dtype=torch.uint8, device="cuda"))
+    if not (torch.isfinite(cls).all() and torch.isfinite(reg).all()):
+        fail(f"train: the checkpoint {path} gives a non-finite forward")
+    return model
+
+
+def train_full_trainer(device, n_steps: int = 5):
+    """One ``Trainer`` at TrainConfig's own image shape (1080x1920, the
+    ResNet-50 of the defaults), batch 2, ``n_steps`` steps from the
+    Prefetcher: steps/s and images/s after a warm-up step, card busy over
+    the timed steps, host ms per batch, peak memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from playground3d_tpu_torch.data.dataset import Prefetcher, SyntheticDetectionDataset
+    from playground3d_tpu_torch.ops import focal_loss as FL
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig()
+    tr = Trainer(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    ds = SyntheticDetectionDataset(image_shape=cfg.image_shape, output_dtype="uint8", seed=4)
+    batches = Prefetcher(ds.batches(2), depth=3, device=device)
+    try:
+        tr.train_step(*next(batches))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FL.focal_loss_forward_cuda.launches = FL.focal_loss_backward_cuda.launches = 0
+        t0, pf0 = time.time(), dict(batches.seconds, n=batches.batches)
+        losses = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                losses.append(tr.train_step(*next(batches)))
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        pf = {k: batches.seconds[k] - pf0[k] for k in ("produce", "stage")}
+        n_pf = batches.batches - pf0["n"]
+    finally:
+        batches.close()
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e3
+    vals = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(np.isfinite(list(v.values())).all() for v in vals):
+        fail(f"train (1080x1920): non-finite losses {vals}")
+    tr.end_epoch(float(np.mean([v["loss"] for v in vals])))
+    if tr.lr != plateau_lrs(cfg.lr, tr.history)[-1]:
+        fail(f"train (1080x1920): lr {tr.lr} off the plateau rule")
+    launches = FL.focal_loss_forward_cuda.launches + FL.focal_loss_backward_cuda.launches
+    if launches != 2 * n_steps:
+        fail(f"train (1080x1920): {launches} loss kernel launches over {n_steps} steps")
+    os.makedirs("_outputs", exist_ok=True)
+    tr.save(os.path.join("_outputs", "train_1080p.npz"))
+    check_checkpoint(os.path.join("_outputs", "train_1080p.npz"), 50, (H // 4, W // 4))
+    log(f"train (Trainer, 1080x1920, ResNet-50, batch 2): {n_steps} steps after a warm-up in {wall:.2f} s: "
+        f"{n_steps / wall:.3f} steps/s, {2 * n_steps / wall:.2f} images/s; card busy {busy:.1f} ms "
+        f"({busy / (wall * 1e3) * 100:.1f}% of the wall, under the profiler); host ms per batch in the Prefetcher: "
+        f"produce {pf['produce'] / max(n_pf, 1) * 1e3:.1f}, stage {pf['stage'] / max(n_pf, 1) * 1e3:.2f} ({n_pf} "
+        f"batches produced meanwhile); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"focal_loss launches {launches} ({launches / n_steps:.0f} a step); losses "
+        f"{[round(v['loss'], 4) for v in vals]}")
+    del tr
+
+
+def train_fit_filter(device):
+    """``apps/fit_filter.py`` on the tracks of synthetic scenes; its npz
+    through ``params_from_arrays`` into a ``SingleCameraTracker`` on the
+    card, driven by oracle detections."""
+    from playground3d_tpu_torch.apps import fit_filter
+    from playground3d_tpu_torch.data.synthetic import SyntheticScene, oracle_detections
+    from playground3d_tpu_torch.data.toy_cameras import toy_camera_chain
+    from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
+    from playground3d_tpu_torch.track.kf import params_from_arrays
+    from playground3d_tpu_torch.train.fit_kf import load_kf_params
+    from playground3d_tpu_torch.utils.config import TrackerConfig
+
+    os.makedirs("_outputs", exist_ok=True)
+    path = os.path.join("_outputs", "kf_params.npz")
+    fit_filter.main(["--out", path])
+    params = params_from_arrays(load_kf_params(path), device=device)
+    reg = toy_camera_chain(1)[0]
+    scene, rng, t = SyntheticScene(n_objects=4, seed=1), np.random.default_rng(0), [0.0]
+    det = lambda frames: oracle_detections(scene, t[0], reg.P[0, 0], 8, rng=rng, device=device)
+    trk = SingleCameraTracker(reg, "p1c1", cfg=TrackerConfig(max_tracks=8, max_dets=8), kf_params=params,
+                              detect_fn=det, device=device)
+    for f in range(8):
+        t[0] = f / 30.0
+        trk.process_frame(np.zeros((4, 4, 3), np.float32), 1.6e9 + t[0], f)
+    n = sum(len(r[2]) for r in trk.rows)
+    if n == 0 or not all(np.isfinite(np.asarray(r[3])).all() for r in trk.rows):
+        fail("train: the fitted filter's tracker gave no finite tracks")
+    log(f"train: apps.fit_filter -> {path}; its params drove SingleCameraTracker on the card over 8 oracle frames: "
+        f"{n} live (id, frame) rows, all finite")
+
+
+def phase_train(device) -> dict:
+    """Detector training on the card: the card's step against the CPU's on a
+    small input; ``apps/train_detector.py`` at its defaults (ResNet-50,
+    conv7, FPN/heads 256 wide, 4-conv separate towers, 512x768, batch 4,
+    uint8 frames), 20 steps of 10 a epoch, and the crop net (112 px crops,
+    ResNet-18, 2-conv shared tower), each checkpoint loaded back, the
+    detector's run through ``apps/track.py --mode single``; one Trainer at
+    1080x1920; KF fitting into a tracker. Returns the loss kernel's launches
+    on the app's default run (forward + backward)."""
+    import torch
+
+    from playground3d_tpu_torch.apps import track
+
+    t_phase = time.time()
+    train_small_reference(device)
+    os.makedirs("_outputs", exist_ok=True)
+    det_path, crop_path = os.path.join("_outputs", "train_det.npz"), os.path.join("_outputs", "train_crop.npz")
+    for p in (det_path, crop_path):
+        if os.path.exists(p):
+            os.remove(p)
+    _, launches = train_app_run(device, ["--steps", "20", "--steps-per-epoch", "10", "--out", det_path],
+                                "apps.train_detector defaults: ResNet-50, 512x768, batch 4", 4)
+    check_checkpoint(det_path, 50, (512, 768))
+    train_app_run(device, ["--steps", "20", "--steps-per-epoch", "10", "--crop", "--crop-size", "112", "--depth", "18",
+                           "--tower-depth", "2", "--shared-tower", "--out", crop_path],
+                  "apps.train_detector --crop: ResNet-18 crop net, 112 px", 4)
+    check_checkpoint(crop_path, 18, (112, 112), tower_depth=2, shared_tower=True)
+    out = os.path.join("_outputs", "track_trained.csv")
+    t0 = time.time()
+    track.main(["--mode", "single", "--checkpoint", det_path, "--frames", "4", "--out", out])
+    with open(out) as fh:
+        n_rows = sum(1 for _ in fh)
+    log(f"train: apps.track --mode single --checkpoint {det_path} (the trained detector, 1080p rendered frames, "
+        f"4 frames): {time.time() - t0:.1f} s, {n_rows} CSV lines")
+    torch.cuda.empty_cache()
+    train_full_trainer(device)
+    train_fit_filter(device)
+    log(f"train: phase took {time.time() - t_phase:.1f} s")
+    return {"focal_loss": launches}
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2512,6 +2917,7 @@ def main() -> None:
     launches = phase_main(device, loop_calls)
     phase_single(device)
     phase_session(device)
+    launches.update(phase_train(device))
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["launches"] < 1:

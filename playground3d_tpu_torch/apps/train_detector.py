@@ -1,0 +1,131 @@
+"""Detector training CLI (port of ``playground3d_tpu/apps/train_detector.py``;
+reference train_detector_3D_angle.py / train_crop_detector.py).
+
+Trains the directional RetinaNet (full-frame mode) or the crop detector
+(``--crop``: object-centered square crops, the reference's CROP=112
+localizer) on the synthetic dataset or cached .npz shards, with the plateau
+learning-rate schedule and per-epoch npz checkpoints in the JAX package's
+format. Runs on the CUDA card unless ``--device cpu``. A background thread
+renders and stages batches (``data/dataset.py::Prefetcher``); an epoch's
+losses stay on the device and are read once at its end.
+
+Usage:
+    python -m playground3d_tpu_torch.apps.train_detector --steps 500 --batch 8 \\
+        --height 512 --width 768 --out detector.npz
+    python -m playground3d_tpu_torch.apps.train_detector --crop --crop-size 112 ...
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv=None) -> dict:
+    """Run the training loop; -> a summary: steps, wall seconds, per-epoch
+    mean losses and learning rates, the Prefetcher's host seconds by stage
+    and batches, and the checkpoint path."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--steps-per-epoch", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--depth", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--height", type=int, default=512)
+    ap.add_argument("--width", type=int, default=768)
+    ap.add_argument("--zoom", type=float, default=1.5)
+    ap.add_argument("--crop", action="store_true", help="train the crop detector")
+    ap.add_argument("--crop-size", type=int, default=112)
+    ap.add_argument("--shards", nargs="*", default=None, help="cached .npz shards")
+    ap.add_argument("--out", default="detector.npz")
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--dp", action="store_true", help="data-parallel over all devices (not ported yet)")
+    ap.add_argument("--stem", default="conv7", choices=["conv7", "s2d"])
+    ap.add_argument("--feature-size", type=int, default=256)
+    ap.add_argument("--tower-depth", type=int, default=4)
+    ap.add_argument("--shared-tower", action="store_true")
+    ap.add_argument(
+        "--f32-wire", action="store_true",
+        help="ship normalized f32 frames instead of uint8 (4x the transfer)",
+    )
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from playground3d_tpu_torch import resolve_device
+    from playground3d_tpu_torch.data.dataset import (
+        CachedDetectionDataset,
+        Prefetcher,
+        SyntheticDetectionDataset,
+    )
+    from playground3d_tpu_torch.train.trainer import _NO_MESH, TrainConfig, Trainer
+
+    if args.dp:
+        raise NotImplementedError(_NO_MESH)
+    device = resolve_device(args.device)
+    shape = (args.crop_size, args.crop_size) if args.crop else (args.height, args.width)
+    cfg = TrainConfig(
+        depth=args.depth, image_shape=shape, lr=args.lr, stem=args.stem,
+        feature_size=args.feature_size, tower_depth=args.tower_depth,
+        shared_tower=args.shared_tower,
+    )
+    trainer = Trainer(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    if args.resume:
+        trainer.load(args.resume)
+
+    if args.shards:
+        ds = CachedDetectionDataset(args.shards)
+    else:
+        ds = SyntheticDetectionDataset(
+            image_shape=(args.height, args.width),
+            crop_mode=args.crop,
+            crop_size=args.crop_size,
+            zoom=args.zoom,
+            # uint8 to the device, normalized there by forward_raw: 4x fewer
+            # bytes to copy than normalized float32
+            output_dtype="float32" if args.f32_wire else "uint8",
+        )
+    batches = Prefetcher(ds.batches(args.batch), depth=3, device=device)
+
+    start = time.time()
+    epoch_losses, epochs, steps = [], [], 0
+    try:
+        for step, (frames, labels) in zip(range(args.steps), batches):
+            m = trainer.train_step(frames, labels)
+            steps = step + 1
+            # the loss stays a device scalar: a read every step would make the
+            # host wait for the card before it queues the next step
+            epoch_losses.append(m["loss"])
+            if step % 10 == 0:
+                loss = float(m["loss"])
+                rate = (step + 1) / (time.time() - start)
+                print(
+                    f"\rstep {step}: loss={loss:.4f} cls={float(m['cls']):.4f} "
+                    f"reg={float(m['reg']):.4f} vp={float(m['vp']):.4f} "
+                    f"({rate:.2f} it/s)",
+                    end="", flush=True,
+                )
+            if (step + 1) % args.steps_per_epoch == 0:
+                # one read of the epoch's losses
+                mean = float(np.mean(torch.stack(epoch_losses).cpu().numpy()))
+                trainer.end_epoch(mean)
+                epochs.append({"step": step + 1, "loss": mean, "lr": trainer.lr})
+                epoch_losses = []
+                trainer.save(args.out)
+                print(f"\nepoch checkpoint -> {args.out} (lr={trainer.lr:.2e})")
+    finally:
+        batches.close()
+
+    trainer.save(args.out)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.time() - start
+    print(f"\ndone; final checkpoint -> {args.out}")
+    return {"steps": steps, "seconds": seconds, "epochs": epochs, "lr": trainer.lr, "out": args.out,
+            "prefetch": dict(batches.seconds, batches=batches.batches)}
+
+
+if __name__ == "__main__":
+    main()

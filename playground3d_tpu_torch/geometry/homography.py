@@ -1,10 +1,11 @@
-"""Homography fitting and the per-camera correspondence registry (numpy
-copy of ``playground3d_tpu/geometry/homography.py``; ``scale_P_z`` is not
-ported yet).
+"""Homography fitting and the per-camera correspondence registry (port of
+``playground3d_tpu/geometry/homography.py``).
 
 Fitting is offline host-side math (normalized DLT via SVD, float64);
 applying the transforms is on-device (see
-:mod:`playground3d_tpu_torch.geometry.transforms`).
+:mod:`playground3d_tpu_torch.geometry.transforms`). :func:`scale_P_z` is a
+float32 grid search on the CPU through those transforms, as the JAX
+function's is through its own.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["fit_homography", "build_projection", "CameraRegistry"]
+__all__ = ["fit_homography", "build_projection", "find_vanishing_point", "scale_P_z", "CameraRegistry"]
 
 
 def _normalization(points: np.ndarray) -> np.ndarray:
@@ -67,6 +69,71 @@ def build_projection(H_inv: np.ndarray, vp_z: Sequence[float]) -> np.ndarray:
     return P
 
 
+def find_vanishing_point(lines: np.ndarray) -> np.ndarray:
+    """Least-squares vanishing point of lines [n,4] = (x0,y0,x1,y1): the
+    point with the least sum of squared point-line distances, a 2x2
+    normal-equation solve (the reference grid-searches it,
+    homography.py:96-154)."""
+    lines = np.asarray(lines, dtype=np.float64)
+    dx = lines[:, 2] - lines[:, 0]
+    dy = lines[:, 3] - lines[:, 1]
+    norm2 = dx**2 + dy**2 + 1e-12
+    # line: dy*x - dx*y + (dx*y0 - dy*x0) = 0
+    a = dy / np.sqrt(norm2)
+    b = -dx / np.sqrt(norm2)
+    c = (dx * lines[:, 1] - dy * lines[:, 0]) / np.sqrt(norm2)
+    A = np.array([[np.sum(a * a), np.sum(a * b)], [np.sum(a * b), np.sum(b * b)]])
+    rhs = -np.array([np.sum(a * c), np.sum(b * c)])
+    return np.linalg.solve(A, rhs)
+
+
+def scale_P_z(
+    P: np.ndarray,
+    boxes_im: np.ndarray,
+    heights: np.ndarray,
+    H: np.ndarray,
+    granularity: float = 1e-6,
+    max_scale: float = 10.0,
+) -> np.ndarray:
+    """The scale C of P's z column with the least mean reprojection error
+    (the reference's grid refinement, homography.py:607-666): each
+    candidate's error is the mean top plus mean bottom corner pixel distance
+    of im -> state (through ``H``) -> im (through P with column 2 times C),
+    in float32 over the whole 10-point grid at once; the grid shrinks around
+    the best C until its step is below ``granularity``.
+
+    boxes_im: [d,8,2] labeled image boxes; heights: [d] space heights.
+    Returns a copy of P with the scaled z column."""
+    from playground3d_tpu_torch.geometry import transforms as T
+
+    boxes = torch.as_tensor(np.asarray(boxes_im, np.float32))
+    state = T.im_to_state(boxes, torch.as_tensor(np.asarray(H, np.float32)),
+                          torch.as_tensor(np.asarray(heights, np.float32)))
+    space = T.state_to_space(state)  # [d,8,3]
+    P_f = torch.as_tensor(np.asarray(P, np.float32))
+
+    def grid_errors(grid: np.ndarray) -> np.ndarray:
+        errs = []
+        for C in torch.as_tensor(grid, dtype=torch.float32):
+            P_c = P_f.clone()
+            P_c[:, 2] = P_c[:, 2] * C
+            dist = torch.sqrt(torch.sum((boxes - T.space_to_im(space, P_c)) ** 2, dim=-1))
+            errs.append(dist[:, 0:4].mean() + dist[:, 4:8].mean())
+        return torch.stack(errs).numpy()
+
+    grid = np.linspace(granularity, max_scale, num=10)
+    step = grid[1] - grid[0]
+    best_C = grid[0]
+    while step > granularity:
+        best_C = grid[int(np.argmin(grid_errors(grid)))]
+        grid = np.linspace(best_C - step, best_C + step, num=10)
+        step = grid[1] - grid[0]
+
+    P_out = P.copy()
+    P_out[:, 2] *= best_C
+    return P_out
+
+
 @dataclass
 class CameraRegistry:
     """Stacked per-camera correspondences, gatherable by camera index; two
@@ -115,6 +182,10 @@ class CameraRegistry:
             self.H_inv[c, b] = Hi
             self.P[c, b] = Pm
             self.vps[c, b] = vps
+
+    def set_P(self, name: str, P: np.ndarray, bank: str = "both") -> None:
+        for b in {"eb": [0], "wb": [1], "both": [0, 1]}[bank]:
+            self.P[self.index(name), b] = P
 
     def device_arrays(self, dtype=np.float32) -> Dict[str, np.ndarray]:
         """Dense arrays to ship to the device (gathered by camera index and

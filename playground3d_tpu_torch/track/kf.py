@@ -11,7 +11,7 @@ util_track/kf.py). Everything stays float32 with TF32 off.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,6 +78,17 @@ def default_params(
     return KFParams(
         **{k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in arrs.items()}
     )
+
+
+def params_from_arrays(d: Dict[str, np.ndarray], device: DeviceLike = None) -> KFParams:
+    """KFParams from a dict of numpy arrays (``train/fit_kf.py``'s output or
+    a converted reference kf_params pickle): the given fields over the
+    defaults, float32, on ``device``."""
+    base = default_params(device=device)._asdict()
+    for k, v in d.items():
+        if k in base:
+            base[k] = torch.as_tensor(np.asarray(v, dtype=np.float32), device=base[k].device)
+    return KFParams(**base)
 
 
 class KFSlots(NamedTuple):
@@ -225,3 +236,121 @@ def kf_add(
 
 def kf_remove(slots: KFSlots, remove_mask: torch.Tensor) -> KFSlots:
     return slots._replace(mask=slots.mask & ~remove_mask)
+
+
+class BatchedKF:
+    """Host-side wrapper with the reference ``Torch_KF`` API (add / remove /
+    predict / update / view / get_dt) over the functions above: it keeps the
+    id <-> slot map and float64 per-object times on the host, and the filter
+    state on ``device``. The trackers call the functions directly; this is
+    for parity, tests and offline tools such as KF-parameter fitting."""
+
+    def __init__(self, params: Optional[KFParams] = None, capacity: int = 256, device: DeviceLike = None):
+        self.device = resolve_device(device) if params is None else params.F.device
+        self.params = params if params is not None else default_params(device=self.device)
+        self.capacity = capacity
+        self.slots = init_slots(capacity, device=self.device)
+        self.T = np.zeros(capacity, dtype=np.float64)  # absolute times (host)
+        self.slot_of: Dict[int, int] = {}
+        self._free: List[int] = list(range(capacity - 1, -1, -1))
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    @property
+    def ids(self) -> List[int]:
+        return sorted(self.slot_of, key=lambda i: self.slot_of[i])
+
+    def __len__(self) -> int:
+        return len(self.slot_of)
+
+    def get_dt(self, target_time, idxs: Optional[Sequence[int]] = None, use_default=True) -> np.ndarray:
+        """[capacity] per-slot dt to reach target_time (scalar or per-id list)
+        (reference kf.py:120-155). Slots not in ``idxs`` get dt_default (or 0)."""
+        dt = np.zeros(self.capacity, dtype=np.float64)
+        if np.isscalar(target_time):
+            for oid, s in self.slot_of.items():
+                dt[s] = target_time - self.T[s]
+        elif idxs is None:
+            for (oid, s), t in zip(sorted(self.slot_of.items(), key=lambda kv: kv[1]), target_time):
+                dt[s] = t - self.T[s]
+        else:
+            if use_default:
+                for s in self.slot_of.values():
+                    dt[s] = DT_DEFAULT
+            for t, oid in zip(target_time, idxs):
+                s = self.slot_of[oid]
+                dt[s] = t - self.T[s]
+        return dt
+
+    def add(self, detections, obj_ids, directions, times, init_speed=False, classes=None):
+        detections = np.asarray(detections, dtype=np.float32)
+        new_x = np.zeros((self.capacity, STATE_SIZE), dtype=np.float32)
+        new_d = np.ones(self.capacity, dtype=np.float32)
+        add_mask = np.zeros(self.capacity, dtype=bool)
+        cls_arr = np.zeros(self.capacity, dtype=np.int32) if classes is not None else None
+        for i in range(len(obj_ids)):
+            s = self._free.pop()
+            self.slot_of[int(obj_ids[i])] = s
+            new_x[s, : detections.shape[1]] = detections[i]
+            if init_speed:
+                new_x[s, 5] = float(self.params.mu_v)
+            new_d[s] = directions[i]
+            add_mask[s] = True
+            self.T[s] = times[i]
+            if cls_arr is not None:
+                cls_arr[s] = classes[i]
+        self.slots = kf_add(self.slots, self._dev(new_x), self._dev(new_d), self._dev(add_mask), self.params,
+                            self._dev(cls_arr) if cls_arr is not None else None)
+
+    def remove(self, obj_ids):
+        rm = np.zeros(self.capacity, dtype=bool)
+        for oid in obj_ids:
+            s = self.slot_of.pop(int(oid))
+            rm[s] = True
+            self._free.append(s)
+        self.slots = kf_remove(self.slots, self._dev(rm))
+
+    def predict(self, dt=None):
+        if dt is None:
+            dt = np.full(self.capacity, DT_DEFAULT, dtype=np.float64)
+        elif np.isscalar(dt):
+            dt = np.full(self.capacity, float(dt), dtype=np.float64)
+        else:
+            dt = np.asarray(dt, dtype=np.float64)
+        self.slots = kf_predict(self.slots, self._dev(dt.astype(np.float32)), self.params)
+        live = np.zeros(self.capacity, dtype=bool)
+        for s in self.slot_of.values():
+            live[s] = True
+        self.T[live] += dt[live]
+
+    def update(self, detections, obj_ids, measurement_idx=1):
+        m = self.params.H.shape[0] if measurement_idx in (1, 2) else self.params.H3.shape[0]
+        z = np.zeros((self.capacity, m), dtype=np.float32)
+        upd = np.zeros(self.capacity, dtype=bool)
+        detections = np.asarray(detections, dtype=np.float32)
+        for i, oid in enumerate(obj_ids):
+            s = self.slot_of[int(oid)]
+            z[s] = detections[i, :m]
+            upd[s] = True
+        self.slots = kf_update(self.slots, self._dev(z), self._dev(upd), self.params, measurement_idx)
+
+    def view(self, dt=None, with_direction=False):
+        if len(self.slot_of) == 0:
+            return [], np.zeros((0, STATE_SIZE + (1 if with_direction else 0)), np.float32)
+        if dt is None:
+            x = self.slots.x.cpu().numpy()
+        else:
+            if np.isscalar(dt):
+                dt = np.full(self.capacity, float(dt))
+            x = kf_view(self.slots, self._dev(np.asarray(dt, np.float32)), self.params).cpu().numpy()
+        ids = self.ids
+        rows = [self.slot_of[i] for i in ids]
+        states = x[rows]
+        if with_direction:
+            d = self.slots.d.cpu().numpy()[rows]
+            states = np.concatenate([states[:, :5], d[:, None], states[:, 5:6]], axis=1)
+        return ids, states
+
+    def objs(self, with_direction=False):
+        return self.view(dt=None, with_direction=with_direction)

@@ -1,4 +1,5 @@
-"""Tracker configuration (copy of ``playground3d_tpu/utils/config.py``).
+"""Tracker and detector configuration (copy of
+``playground3d_tpu/utils/config.py``).
 
 Field names, defaults and meanings are the JAX package's; see that module
 for the long-form notes on each extension knob.
@@ -57,6 +58,14 @@ class TrackerConfig:
     # refuses True (see models/retinanet.detect_multiframe)
     approx_topk: bool = False
     det_min_level: int = 3  # lowest pyramid level the detector runs heads on
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    depth: int = 50
+    num_classes: int = 8
+    frame_height: int = 1080
+    frame_width: int = 1920
 
 
 # Per-camera visible roadway range [xmin, xmax, y_center] in feet

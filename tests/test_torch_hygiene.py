@@ -124,6 +124,49 @@ _SESSION = textwrap.dedent(
 )
 
 
+_TRAIN = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    import torch
+    from playground3d_tpu_torch.apps import fit_filter, train_detector
+    from playground3d_tpu_torch.data import coco, csv_dataset, dataset, fit_filter_dataset
+    from playground3d_tpu_torch.geometry.homography import find_vanishing_point, scale_P_z
+    from playground3d_tpu_torch.losses.focal import detection_loss
+    from playground3d_tpu_torch.ops import focal_loss
+    from playground3d_tpu_torch.track.kf import BatchedKF, params_from_arrays
+    from playground3d_tpu_torch.train import fit_kf
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
+    from playground3d_tpu_torch.utils import checkpoint
+    from playground3d_tpu_torch.utils.config import DetectorConfig
+
+    ds = dataset.SyntheticDetectionDataset(image_shape=(64, 96), zoom=3.0, output_dtype="uint8")
+    frames, labels = next(ds.batches(2))
+    tr = Trainer(TrainConfig(depth=18, image_shape=(64, 96), feature_size=32, tower_depth=1), device="cpu")
+    m = tr.train_step(frames, labels)
+    assert np.isfinite(float(m["loss"])) and tr.state.step == 1
+    kf = BatchedKF(device="cpu")
+    kf.add(np.ones((1, 5), np.float32), [0], np.ones(1), np.zeros(1))
+    kf.predict()
+    assert focal_loss.LIB._lib is None  # the CPU built no kernel
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "playground3d_tpu" or m.startswith("playground3d_tpu."))
+    print("BAD", bad)
+    assert not bad, bad
+    """
+)
+
+
+def test_training_loads_no_jax_and_nothing_of_the_jax_package():
+    """The training modules and one CPU training step."""
+    out = subprocess.run(
+        [sys.executable, "-c", _TRAIN], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
+
+
 def test_host_io_loads_no_jax_and_nothing_of_the_jax_package():
     """The host I/O modules of the session slice: the native tails built
     and run, the decoders, the session, region and cache helpers."""
@@ -182,6 +225,9 @@ def _entry_points():
     from playground3d_tpu_torch.data.synthetic import SyntheticScene, oracle_detections
     from playground3d_tpu_torch.data.toy_cameras import toy_camera_chain
     from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
+    from playground3d_tpu_torch.apps import train_detector
+    from playground3d_tpu_torch.track.kf import BatchedKF
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
 
     return {
         "retinanet_init": lambda: retinanet_init(depth=18),
@@ -192,12 +238,16 @@ def _entry_points():
         "oracle_detections": lambda: oracle_detections(SyntheticScene(), 0.0, np.eye(3, 4), 16),
         "track_app": lambda: track.main(["--oracle", "--frames", "1"]),
         "track_app_session": lambda: track.main(["--mode", "session", "--session-dir", ".", "--registry", "r.npz"]),
+        "Trainer": lambda: Trainer(TrainConfig(depth=18)),
+        "train_app": lambda: train_detector.main(["--steps", "1", "--depth", "18"]),
+        "BatchedKF": lambda: BatchedKF(),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["retinanet_init", "default_params", "init_track_state", "MultiCameraTracker",
-             "SingleCameraTracker", "oracle_detections", "track_app", "track_app_session"]
+             "SingleCameraTracker", "oracle_detections", "track_app", "track_app_session", "Trainer",
+             "train_app", "BatchedKF"]
 )
 def test_default_device_raises_without_cuda(monkeypatch, name):
     """Entry points default to the card; without CUDA they raise instead
@@ -236,10 +286,10 @@ def test_no_module_of_the_port_imports_jax():
     assert "BAD []" in out.stdout and "MODULES" in out.stdout
 
 
-_SOURCES = ["crop_resize", "crop_resize_s2d", "yuv420_s2d", "qconv", "nms", "auction"]
+_SOURCES = ["crop_resize", "crop_resize_s2d", "yuv420_s2d", "qconv", "nms", "auction", "focal_loss"]
 _LOADERS = {
     "crop_resize": "crop_resize", "crop_resize_s2d": "crop_mxu", "yuv420_s2d": "yuv420", "qconv": "qconv",
-    "nms": "nms", "auction": "assignment",
+    "nms": "nms", "auction": "assignment", "focal_loss": "focal_loss",
 }
 
 
@@ -263,7 +313,8 @@ def test_every_kernel_source_is_built_by_the_one_loader(source):
 def _wrapper_calls():
     """wrapper name -> (CUDA wrapper call, plain call, dispatching call) on
     small CPU tensors."""
-    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, nms, qconv, roi_align, yuv420
+    from playground3d_tpu_torch.losses import focal
+    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, focal_loss, nms, qconv, roi_align, yuv420
 
     frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     s2d = torch.zeros((1, 4, 4, 48), dtype=torch.uint8)
@@ -273,6 +324,9 @@ def _wrapper_calls():
     x, wq, scale = torch.zeros((1, 4, 4, 16), dtype=torch.int8), torch.ones((8, 1, 1, 16), dtype=torch.int8), torch.ones(8)
     nb, ns, nm = torch.tensor([[0.0, 0.0, 2.0, 2.0], [1.0, 1.0, 3.0, 3.0]]), torch.tensor([0.9, 0.5]), torch.ones(2, dtype=torch.bool)
     b, rm, cm = torch.rand(3, 2), torch.ones(3, dtype=torch.bool), torch.ones(2, dtype=torch.bool)
+    ann = torch.full((1, 2, 21), -1.0)
+    ann[0, 0] = torch.tensor([0.0, 0.0, 6.0, 6.0] * 4 + [0.0, 0.0, 6.0, 6.0, 1.0])
+    loss_in = (torch.full((1, 1, 8), 0.25), torch.zeros((1, 1, 12)), ann, boxes)
     return {
         "crop_resize": (lambda: crop_resize.crop_and_resize_cuda(frames, boxes, idx, 4),
                         lambda: roi_align.crop_and_resize_plain(frames, boxes, idx, 4),
@@ -290,6 +344,9 @@ def _wrapper_calls():
         "auction": (lambda: assignment.assign_auction_cuda(b, rm, cm),
                     lambda: assignment.assign_auction_plain(b, rm, cm),
                     lambda: assignment.assign_auction(b, rm, cm)),
+        "focal_loss": (lambda: focal_loss.focal_loss_forward_cuda(*loss_in),
+                       lambda: focal.detection_loss_plain(*loss_in),
+                       lambda: focal.detection_loss(*loss_in)),
     }
 
 
