@@ -2494,15 +2494,18 @@ def phase_session(device, hw=(H, W), depth: int = 50):
 # training
 # ---------------------------------------------------------------------------
 
-FOCAL_SHAPES = ((4, (512, 768)), (2, (H, W)))  # the app's default batch, TrainConfig's own image shape
+# the app's default batch and shape, TrainConfig's own image shape, and the
+# crop net's (the app's batch at --crop-size 112)
+FOCAL_SHAPES = ((4, (512, 768)), (2, (H, W)), (4, (112, 112)))
 FOCAL_GRAD_OUT = (1.0, 0.7, 1.3)  # d total / d (cls, reg, vp) in the checks: each term weighs differently
 
 
 def focal_inputs(rng, b: int, hw):
     """Loss inputs on the host for ``b`` images at ``hw``: image i holds
     [32, 1, 0, 17][i % 4] valid labels; the first image's first six are
-    dyadic boxes on 32x32 anchors (IoU exactly 1.0, 0.5, 0.498, 0.406,
-    0.398 and 0.4 at their anchor), the rest box-like labels of 16-400 px;
+    dyadic boxes on 32x32 anchors of the 8-pixel level, two rows of three
+    apart from each other (IoU exactly 1.0, 0.5, 0.498, 0.406, 0.398 and 0.4
+    at their anchor), the rest box-like labels of 16-400 px;
     classification carries values exactly at both clamp bounds and beyond
     them, regression zero-length axis vectors."""
     from playground3d_tpu_torch.losses.focal import _SIGNS
@@ -2534,7 +2537,7 @@ def focal_inputs(rng, b: int, hw):
         if i == 0:
             fracs = (None, 0.5, 0.498046875, 0.40625, 0.3984375, "tall")
             for j, frac in enumerate(fracs):
-                idx = (3 * (j + 1) * cells_x + 4 * (j + 1)) * 9 + 3  # a 32x32 anchor, spread out
+                idx = ((2 + 8 * (j // 3)) * cells_x + 2 + 5 * (j % 3)) * 9 + 3  # a 32x32 anchor
                 x0, y0, x1, y1 = (float(v) for v in anchors[idx])
                 if frac is None:
                     rows.append(box_label(x0, y0, x1, y1, j))
@@ -2557,21 +2560,26 @@ def focal_inputs(rng, b: int, hw):
     return cls, reg, ann, anchors
 
 
-def focal_bytes(b: int, a: int) -> "tuple[int, int]":
-    """Bytes each kernel must move (each input read once, each output
-    written once): forward reads classification, regression, labels and
-    anchors and writes argmax (4) and flags (1) per anchor; backward reads
-    the same plus argmax and flags and writes both gradients."""
-    inputs = b * a * (8 + 12) * 4 + b * 32 * 21 * 4 + a * 16
-    fwd = inputs + b * a * 5 + b * 4 + 12
-    bwd = inputs + b * a * 5 + b * 4 + 12 + b * a * (8 + 12) * 4
+def focal_bytes(b: int, a: int, n_care: int, n_pos: int) -> "tuple[int, int]":
+    """Bytes each kernel must move for this run's data (each value it needs
+    read once, each output written once). Forward: the labels, the anchors,
+    classification at the ``n_care`` anchors that count (positive or
+    negative) and regression at the ``n_pos`` positives; it writes argmax
+    (4) and flags (1) per anchor, the positive counts and the three losses.
+    Backward: the labels, the flags, the positive counts and grad_output,
+    classification and argmax at the anchors that count, anchor and
+    regression at the positives; it writes both gradients in full."""
+    labels = b * 32 * 21 * 4
+    fwd = labels + a * 16 + n_care * 8 * 4 + n_pos * 12 * 4 + b * a * 5 + b * 4 + 12
+    bwd = labels + b * a + b * 4 + 12 + n_care * (8 + 1) * 4 + n_pos * (4 + 12) * 4 + b * a * (8 + 12) * 4
     return fwd, bwd
 
 
 def kernels_focal(device, flush, noop_ms):
     """``focal_loss.cu``: the loss and its gradient against the plain
-    version (autograd), at batch 4 x 512x768 (the app's default) and batch
-    2 x 1080x1920, with the edge cases of :func:`focal_inputs`. The
+    version (autograd), at batch 4 x 512x768 (the app's default), batch
+    2 x 1080x1920 and batch 4 x 112x112 (the crop net), with the edge cases
+    of :func:`focal_inputs`. The
     assignment (argmax, positive, positive-or-negative) must be equal, the
     three losses within 1e-5 relative, the gradients within 1e-5 relative +
     1e-7 absolute. Times: forward and backward between CUDA events, L2 cold
@@ -2627,7 +2635,7 @@ def kernels_focal(device, flush, noop_ms):
         bwd_ms = float(np.median([gpu_ms(bwd, iters=20, flush=flush) for _ in range(3)]))
         fwd_warm, bwd_warm = gpu_ms(fwd, iters=20), gpu_ms(bwd, iters=20)
         plain_ms = gpu_ms(plain, iters=3, flush=flush)
-        fb, bb = focal_bytes(b, a)
+        fb, bb = focal_bytes(b, a, int(care_ref.sum()), n_pos)
         bound_f, bound_b = fb / HBM_BYTES_PER_S * 1e3, bb / HBM_BYTES_PER_S * 1e3
         log(f"kernels: focal_loss b{b} {hw[0]}x{hw[1]} times: forward {fwd_ms * 1e3:.1f} us (L2 cold, median of 3 x "
             f"20; {fwd_warm * 1e3:.1f} warm), bound {bound_f * 1e3:.1f} us ({fb} bytes at 3.35 TB/s), "
@@ -2661,39 +2669,91 @@ def plateau_lrs(lr: float, losses, factor: float = 0.3, patience: int = 1):
 
 
 def train_small_reference(device):
-    """One ``Trainer.train_step`` on the card against the CPU from the same
-    weights (the port's init from a fixed generator) and batch, depth 18 at
-    64x128: losses within 1e-3 relative, every updated leaf within 2 lr (a
-    near-zero gradient may have the other sign on the other device, and
-    Adam's first step moves each element by lr either way)."""
+    """The card against the CPU at depth 18 and 64x128 on the same batch,
+    from the port's init with a fixed generator. First the whole-model
+    gradient at float32 (TF32 off on the card), with non-zero output convs
+    so the gradient reaches every layer and layer2's BN statistics away
+    from identity, as ``tests/test_torch_train.py`` holds the CPU against
+    JAX: per leaf within 2e-3 of the CPU's by norm. Then one
+    ``Trainer.train_step`` at its bf16 from the init itself (its output
+    convs are zero, so only they and the biases get a gradient; with the
+    random ones the sigmoids saturate, and a bf16 rounding that moves an
+    output across the clamp changes its gradient by up to 1e4): losses
+    within 1e-3 relative; the step's gradients (clipped, before Adam) per
+    leaf within 3e-2 by norm; every updated leaf within 2 lr (a near-zero
+    gradient may have the other sign on the other device, and Adam's first
+    step moves each element by lr either way)."""
     import torch
 
     from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
+    from playground3d_tpu_torch.models.anchors import anchors_for_shape
     from playground3d_tpu_torch.models.retinanet import retinanet_init
     from playground3d_tpu_torch.ops import focal_loss as FL
-    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer, train_leaves
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer, loss_fn, make_optimizer, train_leaves
 
     cfg = TrainConfig(depth=18, image_shape=(64, 128))
     ds = SyntheticDetectionDataset(image_shape=(64, 128), n_objects=6, seed=2, zoom=8.0, output_dtype="uint8")
     frames, labels = next(ds.batches(2))
     model = retinanet_init(torch.Generator().manual_seed(0), depth=18, device="cpu")
+    randomized = copy.deepcopy(model)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for k, t in train_leaves(randomized).items():
+            if k.endswith(("cls_out/w", "reg_out/w")):
+                t.copy_(torch.as_tensor(rng.normal(0, 0.02, tuple(t.shape)).astype(np.float32)))
+            elif k.startswith("backbone/layer2/") and "/bn1/" in k:
+                lo, hi = {"scale": (0.5, 1.5), "var": (0.5, 2.0)}.get(k.rsplit("/", 1)[1], (-0.1, 0.1))
+                t.copy_(torch.as_tensor(rng.uniform(lo, hi, tuple(t.shape)).astype(np.float32)))
+
+    def worst_leaf(got, want):
+        """-> (the largest |got - want| / |want| over the leaves, its leaf)."""
+        rel = {k: float((got[k] - want[k]).norm() / want[k].norm().clamp_min(1e-30)) for k in want}
+        k = max(rel, key=rel.get)
+        return rel[k], k
+
+    grads = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", device):
+            m = copy.deepcopy(randomized).to(dev)
+            make_optimizer(cfg, m)
+            anchors = torch.as_tensor(anchors_for_shape((64, 128)), device=dev)
+            total, parts = loss_fn(m, torch.as_tensor(frames, device=dev), torch.as_tensor(labels, device=dev),
+                                   anchors, dtype=torch.float32)
+            total.backward()
+            grads[str(dev)] = {k: t.grad.detach().cpu() for k, t in train_leaves(m).items()}
+            if float(parts[1].detach()) <= 0:
+                fail("train small: the batch has no positive anchor")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    f32_rel, f32_leaf = worst_leaf(grads[str(device)], grads["cpu"])
+    zero = sum(float(g.norm()) == 0.0 for g in grads["cpu"].values())
+    if zero >= len(grads["cpu"]) // 10:
+        fail(f"train small: {zero} of {len(grads['cpu'])} leaves have no gradient")
+
     out = {}
     for dev in ("cpu", device):
         tr = Trainer(cfg, model=copy.deepcopy(model), device=dev)
         n0 = FL.focal_loss_forward_cuda.launches
         m = tr.train_step(frames, labels)
-        out[str(dev)] = ({k: float(v) for k, v in m.items()},
-                         {k: t.detach().cpu() for k, t in train_leaves(tr.model).items()})
+        leaves = train_leaves(tr.model)
+        out[str(dev)] = ({k: float(v) for k, v in m.items()}, {k: t.detach().cpu() for k, t in leaves.items()},
+                         {k: t.grad.detach().cpu() for k, t in leaves.items()})
         if dev != "cpu" and FL.focal_loss_forward_cuda.launches != n0 + 1:
             fail("train small: the card's step did not run the loss kernel")
-    (m_c, p_c), (m_g, p_g) = out["cpu"], out[str(device)]
+    (m_c, p_c, g_c), (m_g, p_g, g_g) = out["cpu"], out[str(device)]
     rel = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-12) for k in m_c)
+    bf16_rel, bf16_leaf = worst_leaf({k: g_g[k] for k in g_c if float(g_c[k].norm()) > 0},
+                                     {k: g for k, g in g_c.items() if float(g.norm()) > 0})
     worst = max(float((p_g[k] - p_c[k]).abs().max()) for k in p_c)
-    log(f"train: small reference (depth 18, 64x128, batch 2, one step) card vs CPU: losses {m_g} (CPU {m_c}), "
-        f"max rel diff {rel:.2e} (tolerance 1e-3); updated leaves max abs diff {worst:.3g} = {worst / cfg.lr:.2f} lr "
-        f"(tolerance 2 lr)")
-    if not rel <= 1e-3 or not worst <= 2 * cfg.lr:
-        fail(f"train small reference: losses rel diff {rel}, parameters differ by {worst}")
+    log(f"train: small reference (depth 18, 64x128, batch 2) card vs CPU: float32 gradient worst leaf "
+        f"{f32_rel:.2e} ({f32_leaf}; tolerance 2e-3 by norm); one bf16 step: losses {m_g} (CPU {m_c}), max rel diff "
+        f"{rel:.2e} (tolerance 1e-3); step gradient ({sum(float(g.norm()) > 0 for g in g_c.values())} leaves) worst leaf {bf16_rel:.2e} ({bf16_leaf}; tolerance 3e-2 by norm); "
+        f"updated leaves max abs diff {worst:.3g} = {worst / cfg.lr:.2f} lr (tolerance 2 lr)")
+    if not f32_rel <= 2e-3 or not rel <= 1e-3 or not bf16_rel <= 3e-2 or not worst <= 2 * cfg.lr:
+        fail(f"train small reference: float32 gradient {f32_rel} ({f32_leaf}), losses rel diff {rel}, bf16 "
+             f"gradient {bf16_rel} ({bf16_leaf}), parameters differ by {worst}")
 
 
 def train_app_run(device, argv, label: str, batch: int):

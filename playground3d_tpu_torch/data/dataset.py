@@ -466,11 +466,12 @@ class Prefetcher:
 
     Each array of a batch becomes a tensor on ``device`` (the card unless
     the caller asks for the CPU): on a CUDA device through pinned host
-    memory and a ``non_blocking`` copy on the producer thread's current
-    stream, so the next batch is in flight while the step runs.
-    ``seconds`` sums the producers' host time by stage (``produce``: the
-    dataset; ``stage``: pinning and the copy's enqueue) over ``batches``
-    batches.
+    memory and a ``non_blocking`` copy on a side stream of the producer
+    thread's own, so the copy overlaps the step that runs on the consumer's
+    stream; ``__next__`` makes the consumer's stream wait for the batch's
+    copy and hands the tensors over to that stream. ``seconds`` sums the
+    producers' host time by stage (``produce``: the dataset; ``stage``:
+    pinning and the copy's enqueue) over ``batches`` batches.
     """
 
     def __init__(
@@ -500,21 +501,27 @@ class Prefetcher:
         for t in self.threads:
             t.start()
 
-    def _stage(self, item, t0: float):
+    def _stage(self, item, t0: float, stream=None):
+        """-> (tensors, the event their copy is done at or None)."""
         t1 = time.perf_counter()
-        item = tuple(self._to_device(a) for a in item)
+        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in item]
+        ready = None
+        if stream is None:
+            tensors = tuple(t.to(self.device) for t in tensors)
+        else:
+            with torch.cuda.stream(stream):
+                tensors = tuple(t.pin_memory().to(self.device, non_blocking=True) for t in tensors)
+                ready = torch.cuda.Event()
+                ready.record(stream)
         t2 = time.perf_counter()
         with self._lock:
             self.seconds["produce"] += t1 - t0
             self.seconds["stage"] += t2 - t1
             self.batches += 1
-        return item
+        return tensors, ready
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+    def _side_stream(self):
+        return torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def _put(self, item) -> bool:
         """Bounded put that re-checks the stop flag, so producer threads see
@@ -529,21 +536,23 @@ class Prefetcher:
 
     def _work_iter(self, it):
         try:
+            stream = self._side_stream()
             while not self._stop:
                 t0 = time.perf_counter()
                 try:
                     item = next(it)
                 except StopIteration:
                     return
-                if not self._put(self._stage(item, t0)):
+                if not self._put(self._stage(item, t0, stream)):
                     return
         finally:
             self._put(self._done)
 
     def _work_factory(self, factory):
+        stream = self._side_stream()
         while not self._stop:
             t0 = time.perf_counter()
-            if not self._put(self._stage(factory(), t0)):
+            if not self._put(self._stage(factory(), t0, stream)):
                 return
 
     def close(self, timeout: float = 10.0):
@@ -568,4 +577,10 @@ class Prefetcher:
         item = self.q.get()
         if item is self._done:
             raise StopIteration
-        return item
+        tensors, ready = item
+        if ready is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(ready)
+            for t in tensors:
+                t.record_stream(current)
+        return tensors

@@ -72,8 +72,8 @@ class Conv(nn.Module):
         # PyTorch's CPU bf16 convolution leaves the weight gradient's padding
         # taps unset (NaN at random) for a 1-pixel input at stride 2 with
         # implicit padding; padded explicitly, every tap reads a zero
-        cpu_one_pixel = x.device.type == "cpu" and stride > 1 and 1 in x.shape[2:]
-        if ph[0] == ph[1] and pw[0] == pw[1] and not cpu_one_pixel:
+        one_pixel = stride > 1 and 1 in x.shape[2:]
+        if ph[0] == ph[1] and pw[0] == pw[1] and not one_pixel:
             out = F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]))
         else:
             out = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w, stride=stride)
