@@ -22,8 +22,11 @@ result line):
              the one-launch route, batched cases shifted in the kernel, and
              one ``batched_nms`` at n 512 one kernel launch), and
              ``focal_loss.cu`` (the training loss and its gradient, batch 4
-             at 512x768 and batch 2 at 1080x1920, with edge cases: the
-             assignment equal, losses and gradients within 1e-5);
+             at 512x768, batch 2 at 1080x1920 and batch 4 at 112x112, with
+             edge cases and labels at the edges of the forward's label
+             cull: the assignment equal, a second forward bit-equal, losses
+             and gradients within 1e-5; each pass's events time beside the
+             kernel's own under the profiler);
 3. main    - the multi-camera tracker at full width through
              ``MultiCameraTracker.track_clips``: one 1080p camera, ResNet-50
              detector (FPN/heads 256 wide), ResNet-18 crop net, 24-frame
@@ -66,7 +69,8 @@ result line):
              wide, 4-conv towers, 512x768, batch 4, uint8 frames) for 20
              steps of 10 an epoch, and the crop net (112 px crops,
              ResNet-18, 2-conv shared tower): finite losses, the plateau
-             rule, ``focal_loss.cu`` twice a step, checkpoints that load
+             rule, ``focal_loss.cu`` twice a step (and its device time a
+             step), checkpoints that load
              into a RetinaNet, the detector's through ``apps/track.py
              --mode single``; one Trainer at 1080x1920, batch 2; steps/s,
              images/s, card busy, host ms per batch, peak memory; then
@@ -2507,7 +2511,9 @@ def focal_inputs(rng, b: int, hw):
     apart from each other (IoU exactly 1.0, 0.5, 0.498, 0.406, 0.398 and 0.4
     at their anchor), the rest box-like labels of 16-400 px;
     classification carries values exactly at both clamp bounds and beyond
-    them, regression zero-length axis vectors."""
+    them, regression zero-length axis vectors. The second image then gets
+    labels at the edges of the forward's cull (:func:`cull_edge_labels`)
+    after its own, drawn from no random numbers."""
     from playground3d_tpu_torch.losses.focal import _SIGNS
     from playground3d_tpu_torch.models.anchors import anchors_for_shape
 
@@ -2557,7 +2563,41 @@ def focal_inputs(rng, b: int, hw):
     reg = rng.normal(0.0, 0.5, (b, a, 12)).astype(np.float32)
     reg[0, edge_anchors[0], 2:4] = 0.0
     reg[0, edge_anchors[1], 4:8] = 0.0
+    if b > 1:
+        edges = cull_edge_labels(anchors, hw, box_label)
+        ann[1, 1 : 1 + len(edges)] = edges
     return cls, reg, ann, anchors
+
+
+def cull_edge_labels(anchors, hw, box_label):
+    """Label rows at the edges of ``focal_loss.cu``'s cull, for an image
+    whose first label is an ordinary one (rows with class -1 are padding
+    between them): a box whose left edge lies exactly on the right edge of
+    one warp's 32 anchors (disjoint from that warp, IoU 0 there), one that
+    overlaps another warp by one ulp (kept there), one whose top edge lies
+    on the bottom edge of the warp that spans the 8- and 16-pixel levels,
+    a box with a NaN corner coordinate (kept, never assigned), and a band
+    beyond 2^60 wide (outside the bound that lets a first label start the
+    cull; an IoU just above 0)."""
+    cells_y, cells_x = -(-hw[0] // 8), -(-hw[1] // 8)
+
+    def warp_hull(cy, cx):
+        g = (cy * cells_x + cx) * 9 // 32
+        w = anchors[32 * g : 32 * g + 32]
+        return w[:, 0].min(), w[:, 1].min(), w[:, 2].max(), w[:, 3].max()
+
+    pad = np.full(21, -1.0, np.float32)
+    x0, y0, x1, y1 = warp_hull(cells_y * 3 // 5, cells_x // 3)
+    touch_right = box_label(x1, y0, x1 + 48.0, y1, 1)
+    x0, y0, x1, y1 = warp_hull(cells_y // 3, cells_x * 3 // 5)
+    sliver = box_label(np.nextafter(x1, np.float32(-np.inf)), y0, x1 + 48.0, y1, 2)
+    g = cells_y * cells_x * 9 // 32  # the warp at the end of the 8-pixel level
+    w = anchors[32 * g : 32 * g + 32]
+    touch_below = box_label(w[:, 0].min(), w[:, 3].max(), w[:, 2].max(), w[:, 3].max() + 40.0, 3)
+    nan_corner = box_label(0.25 * hw[1], 0.25 * hw[0], 0.5 * hw[1], 0.5 * hw[0], 4)
+    nan_corner[2] = np.nan
+    wide = box_label(-(2.0 ** 61), 0.7 * hw[0], 2.0 ** 61, 0.7 * hw[0] + 12.0, 5)
+    return np.stack([pad, touch_right, pad, sliver, touch_below, nan_corner, pad, wide])
 
 
 def focal_bytes(b: int, a: int, n_care: int, n_pos: int) -> "tuple[int, int]":
@@ -2567,11 +2607,12 @@ def focal_bytes(b: int, a: int, n_care: int, n_pos: int) -> "tuple[int, int]":
     negative) and regression at the ``n_pos`` positives; it writes argmax
     (4) and flags (1) per anchor, the positive counts and the three losses.
     Backward: the labels, the flags, the positive counts and grad_output,
-    classification and argmax at the anchors that count, anchor and
-    regression at the positives; it writes both gradients in full."""
+    classification at the anchors that count, argmax, anchor and regression
+    at the positives (an anchor that is not positive needs no label); it
+    writes both gradients in full."""
     labels = b * 32 * 21 * 4
     fwd = labels + a * 16 + n_care * 8 * 4 + n_pos * 12 * 4 + b * a * 5 + b * 4 + 12
-    bwd = labels + b * a + b * 4 + 12 + n_care * (8 + 1) * 4 + n_pos * (4 + 12) * 4 + b * a * (8 + 12) * 4
+    bwd = labels + b * a + b * 4 + 12 + n_care * 8 * 4 + n_pos * (1 + 4 + 12) * 4 + b * a * (8 + 12) * 4
     return fwd, bwd
 
 
@@ -2583,7 +2624,9 @@ def kernels_focal(device, flush, noop_ms):
     assignment (argmax, positive, positive-or-negative) must be equal, the
     three losses within 1e-5 relative, the gradients within 1e-5 relative +
     1e-7 absolute. Times: forward and backward between CUDA events, L2 cold
-    and warm; the plain version's forward and backward."""
+    and warm, and each kernel's own device time under the profiler
+    (:func:`kernel_split`, L2 cold); the plain version's forward and
+    backward."""
     import torch
 
     from playground3d_tpu_torch.losses import focal
@@ -2591,6 +2634,7 @@ def kernels_focal(device, flush, noop_ms):
 
     rng = np.random.default_rng(11)
     worst, row = 0.0, None
+    us = lambda ms: "not seen by the profiler" if ms is None else f"{ms * 1e3:.1f} us"
     for b, hw in FOCAL_SHAPES:
         cls, reg, ann, anchors = (torch.as_tensor(x, device=device) for x in focal_inputs(rng, b, hw))
         a = anchors.shape[0]
@@ -2609,6 +2653,9 @@ def kernels_focal(device, flush, noop_ms):
                 and torch.equal(((flags >> 1) & 1).bool(), care_ref))
         if not same:
             fail(f"focal_loss b{b} {hw}: the kernel's assignment differs from the plain version's")
+        again = FL.focal_loss_forward_cuda(cls, reg, ann, anchors)
+        if not (torch.equal(again[0], losses) and torch.equal(again[1], num_pos)):
+            fail(f"focal_loss b{b} {hw}: a second forward gave other losses {again[0].tolist()} ({losses.tolist()})")
         want = torch.stack([x.detach() for x in ref])
         rel = float(((losses - want).abs() / want.abs().clamp_min(1e-30)).max())
         over = max(float(((g - w).abs() - (1e-7 + 1e-5 * w.abs())).max()) for g, w in ((dcls, gc_ref), (dreg, gr_ref)))
@@ -2617,7 +2664,8 @@ def kernels_focal(device, flush, noop_ms):
         worst = max(worst, err)
         n_pos = int(pos_ref.sum())
         log(f"kernels: focal_loss b{b} {hw[0]}x{hw[1]} ({a} anchors, {int((ann[..., 20] >= 0).sum())} labels, "
-            f"{n_pos} positives): assignment equal; losses {[round(float(x), 6) for x in losses]} (plain "
+            f"{n_pos} positives): assignment equal, a second run bit-equal; losses "
+            f"{[round(float(x), 6) for x in losses]} (plain "
             f"{[round(float(x), 6) for x in want]}) max rel err {rel:.2e} (tolerance 1e-5); gradients worst excess "
             f"over 1e-5 rel + 1e-7 abs {over:.2e} (must be <= 0); max_abs_err {err:.3g}")
         if not rel <= 1e-5 or not over <= 0 or n_pos == 0:
@@ -2634,12 +2682,15 @@ def kernels_focal(device, flush, noop_ms):
         fwd_ms = float(np.median([gpu_ms(fwd, iters=20, flush=flush) for _ in range(3)]))
         bwd_ms = float(np.median([gpu_ms(bwd, iters=20, flush=flush) for _ in range(3)]))
         fwd_warm, bwd_warm = gpu_ms(fwd, iters=20), gpu_ms(bwd, iters=20)
+        fwd_k = kernel_split(fwd, ["focal_forward_kernel"], flush=flush)["focal_forward_kernel"]
+        bwd_k = kernel_split(bwd, ["focal_backward_kernel"], flush=flush)["focal_backward_kernel"]
         plain_ms = gpu_ms(plain, iters=3, flush=flush)
         fb, bb = focal_bytes(b, a, int(care_ref.sum()), n_pos)
         bound_f, bound_b = fb / HBM_BYTES_PER_S * 1e3, bb / HBM_BYTES_PER_S * 1e3
         log(f"kernels: focal_loss b{b} {hw[0]}x{hw[1]} times: forward {fwd_ms * 1e3:.1f} us (L2 cold, median of 3 x "
-            f"20; {fwd_warm * 1e3:.1f} warm), bound {bound_f * 1e3:.1f} us ({fb} bytes at 3.35 TB/s), "
-            f"{bound_f / fwd_ms * 100:.1f}% of bound; backward {bwd_ms * 1e3:.1f} us ({bwd_warm * 1e3:.1f} warm), bound "
+            f"20; {fwd_warm * 1e3:.1f} warm; kernel alone {us(fwd_k)}), bound {bound_f * 1e3:.1f} us ({fb} bytes "
+            f"at 3.35 TB/s), {bound_f / fwd_ms * 100:.1f}% of bound; backward {bwd_ms * 1e3:.1f} us "
+            f"({bwd_warm * 1e3:.1f} warm; kernel alone {us(bwd_k)}), bound "
             f"{bound_b * 1e3:.1f} us ({bb} bytes), {bound_b / bwd_ms * 100:.1f}% of bound; plain version forward + "
             f"backward (autograd) {plain_ms * 1e3:.1f} us; an empty kernel {noop_ms * 1e3:.2f} us; no single "
             f"library call computes it")
@@ -2775,7 +2826,9 @@ def train_app_run(device, argv, label: str, batch: int):
         summary = train_detector.main(argv)
         torch.cuda.synchronize()
     launches = (FL.focal_loss_forward_cuda.launches, FL.focal_loss_backward_cuda.launches)
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e3
+    kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in kern) / 1e3
+    loss_ms = sum(ev.self_device_time_total for ev in kern if "focal_" in ev.key) / 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = summary["steps"]
     losses = [e["loss"] for e in summary["epochs"]]
@@ -2792,7 +2845,8 @@ def train_app_run(device, argv, label: str, batch: int):
         f"{busy:.1f} ms ({busy / (summary['seconds'] * 1e3) * 100:.1f}% of the wall); host ms per batch in the "
         f"Prefetcher: produce {pf['produce'] / pf['batches'] * 1e3:.1f}, stage {pf['stage'] / pf['batches'] * 1e3:.2f} "
         f"({pf['batches']} batches); peak device memory {peak:.2f} GiB; focal_loss launches {sum(launches)} "
-        f"({sum(launches) / steps:.0f} a step); epoch losses {[round(v, 4) for v in losses]}, lr {want_lrs}")
+        f"({sum(launches) / steps:.0f} a step), their device time {loss_ms / steps * 1e3:.1f} us a step; epoch "
+        f"losses {[round(v, 4) for v in losses]}, lr {want_lrs}")
     return summary, sum(launches)
 
 
@@ -2845,7 +2899,9 @@ def train_full_trainer(device, n_steps: int = 5):
         n_pf = batches.batches - pf0["n"]
     finally:
         batches.close()
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e3
+    kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in kern) / 1e3
+    loss_ms = sum(ev.self_device_time_total for ev in kern if "focal_" in ev.key) / 1e3
     vals = [{k: float(v) for k, v in m.items()} for m in losses]
     if not all(np.isfinite(list(v.values())).all() for v in vals):
         fail(f"train (1080x1920): non-finite losses {vals}")
@@ -2863,8 +2919,8 @@ def train_full_trainer(device, n_steps: int = 5):
         f"({busy / (wall * 1e3) * 100:.1f}% of the wall, under the profiler); host ms per batch in the Prefetcher: "
         f"produce {pf['produce'] / max(n_pf, 1) * 1e3:.1f}, stage {pf['stage'] / max(n_pf, 1) * 1e3:.2f} ({n_pf} "
         f"batches produced meanwhile); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"focal_loss launches {launches} ({launches / n_steps:.0f} a step); losses "
-        f"{[round(v['loss'], 4) for v in vals]}")
+        f"focal_loss launches {launches} ({launches / n_steps:.0f} a step), their device time "
+        f"{loss_ms / n_steps * 1e3:.1f} us a step; losses {[round(v['loss'], 4) for v in vals]}")
     del tr
 
 

@@ -39,7 +39,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--shards", nargs="*", default=None, help="cached .npz shards")
     ap.add_argument("--out", default="detector.npz")
     ap.add_argument("--resume", default=None)
-    ap.add_argument("--dp", action="store_true", help="data-parallel over all devices (not ported yet)")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel over all devices (one device trains as without it; more raise)")
     ap.add_argument("--stem", default="conv7", choices=["conv7", "s2d"])
     ap.add_argument("--feature-size", type=int, default=256)
     ap.add_argument("--tower-depth", type=int, default=4)
@@ -60,11 +61,12 @@ def main(argv=None) -> dict:
         Prefetcher,
         SyntheticDetectionDataset,
     )
-    from playground3d_tpu_torch.train.trainer import _NO_MESH, TrainConfig, Trainer
+    from playground3d_tpu_torch.train.trainer import _NO_MESH, TrainConfig, Trainer, data_parallel_devices
 
-    if args.dp:
-        raise NotImplementedError(_NO_MESH)
     device = resolve_device(args.device)
+    # JAX's mesh of one device trains as no mesh does
+    if args.dp and data_parallel_devices(device) > 1:
+        raise NotImplementedError(_NO_MESH)
     shape = (args.crop_size, args.crop_size) if args.crop else (args.height, args.width)
     cfg = TrainConfig(
         depth=args.depth, image_shape=shape, lr=args.lr, stem=args.stem,

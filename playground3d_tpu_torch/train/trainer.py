@@ -18,7 +18,9 @@ The step runs ``forward_raw`` (bf16 convs, float32 sigmoid heads), the loss
 (``losses/focal.py``: the CUDA kernels on the card), the backward, optax's
 ``clip_by_global_norm`` and Adam (``torch.optim.Adam``, optax's ``adam`` up
 to rounding), and reads nothing back to the host: the metrics stay on the
-device. Data parallelism (``mesh=``) is ROADMAP queue 1 item 8 and raises.
+device. Data parallelism over more than one device (``mesh=``) is ROADMAP
+queue 1 item 4 and raises; ``apps/train_detector.py --dp`` with one visible
+device trains as without it, as JAX's one-device mesh does.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from playground3d_tpu_torch import DeviceLike, resolve_device
 from playground3d_tpu_torch.losses.focal import detection_loss
 from playground3d_tpu_torch.models.retinanet import RetinaNet, _anchors, forward_raw, retinanet_init
 
-_NO_MESH = "data-parallel training (mesh= / --dp) is not ported yet: ROADMAP queue 1 item 8"
+_NO_MESH = "data-parallel training over more than one device (mesh= / --dp) is not ported yet: ROADMAP queue 1 item 4"
 _QUANT = ("wq", "ws", "xs")
 
 
@@ -52,6 +54,13 @@ class TrainConfig:
     feature_size: int = 256
     tower_depth: int = 4
     shared_tower: bool = False
+
+
+def data_parallel_devices(device: torch.device) -> int:
+    """The devices a ``--dp`` run spans: JAX's ``make_mesh()`` takes every
+    device of the backend (``parallel/mesh.py:31-42``), so every visible
+    card, or the one CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def train_leaves(model: RetinaNet) -> Dict[str, torch.Tensor]:

@@ -395,13 +395,30 @@ def test_train_state_resume_gives_the_same_next_step(tmp_path, batch):
     assert mgr.restore(PT.Trainer(cfg, device="cpu")).state.step == 2
 
 
-def test_no_data_parallel_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+def test_trainer_mesh_still_raises():
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         PT.Trainer(PT.TrainConfig(depth=18), mesh=object(), device="cpu")
+
+
+def test_one_device_dp_trains_as_without_it(tmp_path, monkeypatch):
+    """``--dp`` over the one CPU device runs the no-DP path (JAX's mesh of
+    one device): the same checkpoint, parameter for parameter; with more
+    than one device it raises, naming queue 1 item 4."""
     from playground3d_tpu_torch.apps import train_detector
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        train_detector.main(["--dp", "--device", "cpu"])
+    argv = ["--depth", "18", "--height", "64", "--width", "96", "--steps", "2", "--steps-per-epoch", "2",
+            "--batch", "2", "--zoom", "3", "--device", "cpu"]
+    outs = {}
+    for dp in (False, True):
+        outs[dp] = str(tmp_path / f"dp{int(dp)}.npz")
+        train_detector.main(argv + ["--out", outs[dp]] + (["--dp"] if dp else []))
+    with np.load(outs[False]) as a, np.load(outs[True]) as b:
+        assert a.files == b.files and len(a.files) > 50
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    monkeypatch.setattr(PT, "data_parallel_devices", lambda device: 2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        train_detector.main(argv + ["--out", str(tmp_path / "x.npz"), "--dp"])
 
 
 @pytest.mark.parametrize("mode", ["full", "crop"])
