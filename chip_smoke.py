@@ -2501,6 +2501,8 @@ def phase_session(device, hw=(H, W), depth: int = 50):
 # the app's default batch and shape, TrainConfig's own image shape, and the
 # crop net's (the app's batch at --crop-size 112)
 FOCAL_SHAPES = ((4, (512, 768)), (2, (H, W)), (4, (112, 112)))
+# checked, not timed: more images than the forward has slots, one block an image
+FOCAL_MANY = (300, (128, 128))
 FOCAL_GRAD_OUT = (1.0, 0.7, 1.3)  # d total / d (cls, reg, vp) in the checks: each term weighs differently
 
 
@@ -2620,7 +2622,7 @@ def kernels_focal(device, flush, noop_ms):
     """``focal_loss.cu``: the loss and its gradient against the plain
     version (autograd), at batch 4 x 512x768 (the app's default), batch
     2 x 1080x1920 and batch 4 x 112x112 (the crop net), with the edge cases
-    of :func:`focal_inputs`. The
+    of :func:`focal_inputs`, and at ``FOCAL_MANY`` (checked, not timed). The
     assignment (argmax, positive, positive-or-negative) must be equal, the
     three losses within 1e-5 relative, the gradients within 1e-5 relative +
     1e-7 absolute. Times: forward and backward between CUDA events, L2 cold
@@ -2635,7 +2637,7 @@ def kernels_focal(device, flush, noop_ms):
     rng = np.random.default_rng(11)
     worst, row = 0.0, None
     us = lambda ms: "not seen by the profiler" if ms is None else f"{ms * 1e3:.1f} us"
-    for b, hw in FOCAL_SHAPES:
+    for b, hw in FOCAL_SHAPES + (FOCAL_MANY,):
         cls, reg, ann, anchors = (torch.as_tensor(x, device=device) for x in focal_inputs(rng, b, hw))
         a = anchors.shape[0]
         losses, num_pos, argmax, flags = FL.focal_loss_forward_cuda(cls, reg, ann, anchors)
@@ -2671,6 +2673,8 @@ def kernels_focal(device, flush, noop_ms):
         if not rel <= 1e-5 or not over <= 0 or n_pos == 0:
             fail(f"focal_loss b{b} {hw}: losses rel err {rel}, gradient excess {over}, positives {n_pos}")
         del ref, c_t, r_t, gc_ref, gr_ref
+        if (b, hw) == FOCAL_MANY:
+            continue
 
         fwd = lambda: FL.focal_loss_forward_cuda(cls, reg, ann, anchors)
         bwd = lambda: FL.focal_loss_backward_cuda(cls, reg, ann, anchors, argmax, flags, num_pos, g_out)

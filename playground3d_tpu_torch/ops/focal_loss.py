@@ -44,10 +44,8 @@ BIG = 2.0 ** 60  # coordinates within this bound cannot overflow the IoU
 class FocalPlan(NamedTuple):
     """What the host decides for one call, from shapes alone."""
 
-    mode: str  # "parts" or "whole": how the forward shares tiles out (csrc/focal_loss.cu)
     tiles: int  # anchor tiles of THREADS an image
-    parts_per_image: int  # "parts": forward blocks an image (1 under "whole")
-    images_per_block: int  # "whole": images a forward block finishes (1 under "parts")
+    parts_per_image: int  # forward blocks an image
     grid: int  # forward blocks
     tiles_per_block: int  # tiles a forward block walks, at most
     partials: int  # doubles in the forward's partials buffer
@@ -56,28 +54,22 @@ class FocalPlan(NamedTuple):
 
 
 def launch_plan(b: int, a: int, k: int = 8, m: int = 32) -> FocalPlan:
-    """The forward's fixed split of ``b`` images of ``a`` anchors over at
-    most SLOTS blocks, so that tile-to-block map and reduction order depend
-    on the shapes alone: "parts" (at most SLOTS images) gives each image
-    ``parts_per_image`` blocks, block p of them its every
-    ``parts_per_image``-th tile from tile p; "whole" gives each block
-    ``images_per_block`` whole images. And both kernels' shared memory.
-    ``csrc/focal_loss.cu::make_plan`` computes the same and refuses a launch
-    whose grid or shared memory differs. Raises ValueError for sizes the
-    kernels do not take."""
+    """The forward's fixed split of ``b`` images of ``a`` anchors, so that
+    tile-to-block map and reduction order depend on the shapes alone: each
+    image gets ``parts_per_image`` = min(SLOTS // b, tiles) blocks, at least
+    one, and block p of them its every ``parts_per_image``-th tile from tile
+    p. And both kernels' shared memory. ``csrc/focal_loss.cu::make_plan``
+    computes the same and refuses a launch whose grid or shared memory
+    differs. Raises ValueError for sizes the kernels do not take."""
     if not (1 <= b <= 65535 and a >= 1 and 1 <= k <= MAX_CLASSES and 1 <= m <= MAX_LABELS):
         raise ValueError(f"focal_loss: the kernel takes 1-65,535 images, at least 1 anchor, 1-{MAX_CLASSES} "
                          f"classes and 1-{MAX_LABELS} label rows, got {b}, {a}, {k}, {m}")
     if b * a * N_REG >= 2 ** 40:
         raise ValueError(f"focal_loss: {b} x {a} anchors exceed the kernel's 40-bit element offsets")
     tiles = -(-a // THREADS)
-    if b <= SLOTS:
-        ppi = min(SLOTS // b, tiles)
-        mode, ipb, grid, per_block = "parts", 1, b * ppi, -(-tiles // ppi)
-    else:
-        ipb = -(-b // SLOTS)
-        mode, ppi, grid, per_block = "whole", 1, -(-b // ipb), ipb * tiles
-    return FocalPlan(mode, tiles, ppi, ipb, grid, per_block, 4 * grid, HEADER_BYTES + m * LABEL_BYTES,
+    ppi = max(1, min(SLOTS // b, tiles))
+    grid = b * ppi
+    return FocalPlan(tiles, ppi, grid, -(-tiles // ppi), 4 * grid, HEADER_BYTES + m * LABEL_BYTES,
                      THREADS * (k + N_REG) * 4)
 
 

@@ -23,27 +23,23 @@ from playground3d_tpu_torch.ops import focal_loss as FL
 torch.set_num_threads(1)
 
 
-def _walk(plan, b, g):
+def _walk(plan, g):
     """The flat tile indices (image-major) forward block g walks, as the
     kernel computes them from the plan."""
-    t, ppi, ipb = plan.tiles, plan.parts_per_image, plan.images_per_block
-    if plan.mode == "parts":
-        img = g // ppi
-        return list(range(img * t + g % ppi, (img + 1) * t, ppi))
-    return list(range(g * ipb * t, min(b, (g + 1) * ipb) * t))
+    t, ppi = plan.tiles, plan.parts_per_image
+    img = g // ppi
+    return list(range(img * t + g % ppi, (img + 1) * t, ppi))
 
 
 def _check_plan(plan, b, a, k, m):
-    assert plan.tiles == -(-a // FL.THREADS) and 1 <= plan.grid <= FL.SLOTS
-    walks = [_walk(plan, b, g) for g in range(plan.grid)]
+    assert plan.tiles == -(-a // FL.THREADS) and 1 <= plan.grid <= max(FL.SLOTS, b)
+    walks = [_walk(plan, g) for g in range(plan.grid)]
     assert all(walks) and max(map(len, walks)) == plan.tiles_per_block
     flat = sorted(i for w in walks for i in w)
     assert flat == list(range(b * plan.tiles))  # every tile once
-    if plan.mode == "parts":  # block g holds image g // ppi, in slot g % ppi of partials [B][ppi][4]
-        assert b <= FL.SLOTS and plan.images_per_block == 1 and plan.grid == b * plan.parts_per_image
-        assert all({i // plan.tiles for i in w} == {g // plan.parts_per_image} for g, w in enumerate(walks))
-    else:
-        assert b > FL.SLOTS and plan.parts_per_image == 1
+    # block g holds image g // ppi, in slot g % ppi of partials [B][ppi][4]
+    assert plan.grid == b * plan.parts_per_image
+    assert all({i // plan.tiles for i in w} == {g // plan.parts_per_image} for g, w in enumerate(walks))
     assert plan.partials == 4 * plan.grid
     assert plan.forward_smem == FL.HEADER_BYTES + m * FL.LABEL_BYTES <= 48 * 1024  # no opt-in needed
     assert plan.backward_smem == FL.THREADS * (k + FL.N_REG) * 4 <= 48 * 1024
@@ -57,18 +53,20 @@ def _check_plan(plan, b, a, k, m):
 def test_launch_plan_at_the_three_shapes(b, hw, ppi, grid, per_block):
     a = anchors_for_shape(hw).shape[0]
     plan = FL.launch_plan(b, a)
-    assert (plan.mode, plan.parts_per_image, plan.grid, plan.tiles_per_block) == ("parts", ppi, grid, per_block)
+    assert (plan.parts_per_image, plan.grid, plan.tiles_per_block) == (ppi, grid, per_block)
     assert (plan.forward_smem, plan.backward_smem) == (5008, 20480)
     _check_plan(plan, b, a, 8, 32)
 
 
-@pytest.mark.parametrize("b,a,m,mode", [
-    (1, 1, 1, "parts"), (1, 400000, 64, "parts"), (17, 100, 16, "parts"), (264, 10, 32, "parts"),
-    (265, 600, 32, "whole"), (528, 300, 32, "whole"), (65535, 2394, 32, "whole"), (65535, 1, 64, "whole"),
+@pytest.mark.parametrize("b,a,m,ppi", [
+    (1, 1, 1, 1), (1, 400000, 64, 264), (17, 100, 16, 1), (17, 3000, 16, 12), (264, 10, 32, 1),
+    (265, 600, 32, 1), (528, 300, 32, 1), (65535, 2394, 32, 1), (65535, 1, 64, 1),
 ])
-def test_launch_plan_modes(b, a, m, mode):
+def test_launch_plan_modes(b, a, m, ppi):
+    """One split at every batch: min(SLOTS // b, tiles) blocks an image, at
+    least one (one block an image above SLOTS images)."""
     plan = FL.launch_plan(b, a, 8, m)
-    assert plan.mode == mode
+    assert (plan.parts_per_image, plan.grid) == (ppi, b * ppi)
     if b * plan.tiles < 20000:
         _check_plan(plan, b, a, 8, m)
 
@@ -83,7 +81,7 @@ def test_launch_plan_limits(b, a, k, m):
             FL.launch_plan(b, a, k, m)
         return
     plan = FL.launch_plan(b, a, k, m)
-    assert 1 <= plan.grid <= FL.SLOTS and plan.forward_smem <= FL.MAX_SHARED_BYTES
+    assert 1 <= plan.grid <= max(FL.SLOTS, b) <= 65535 and plan.forward_smem <= FL.MAX_SHARED_BYTES
     assert plan.backward_smem <= FL.MAX_SHARED_BYTES and plan.partials == 4 * plan.grid
     if b * plan.tiles <= 3000:
         _check_plan(plan, b, a, k, m)
