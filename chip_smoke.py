@@ -75,11 +75,27 @@ result line):
              --mode single``; one Trainer at 1080x1920, batch 2; steps/s,
              images/s, card busy, host ms per batch, peak memory; then
              ``apps/fit_filter.py`` into a tracker;
-7. report  - the ``kernels`` JSON line, the card's name and power limit, and
+7. apps    - the last one-card apps and tools: ``apps/detect_video.py``
+             (card against CPU at 64x96, then its defaults: ResNet-50
+             conv7, 1080p, 24 frames; the CSV and its fps trailer),
+             ``detect_singleframe`` (card against CPU at 128x192; at 1080p
+             its NMS at n 4,096 takes the two-launch route) and
+             ``models/retinanet2d.py::detect_2d`` (card against CPU at
+             128x192; ResNet-50, 80 classes at 1080p), ``tools/
+             benchmark_speed.py`` at its defaults, the demos with short
+             training at 512x768 (``demo_e2e --quantize``; ``demo_e2e_mc``
+             trained once, then tracked float and ``--quantize --cd-max 8``
+             from its checkpoints; ``auto_label_e2e``), each run's
+             ``qconv``, ``nms``, ``auction``, ``crop_resize_s2d`` and
+             ``focal_loss`` launches counted on their own, and
+             ``TrackOverlayWriter`` as the ``on_frame`` of one clip of the
+             multi-camera tracker (a PNG a camera a frame);
+8. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
-kernel; it prints no result line). ``--loop-calls PATH`` also saves the main
+kernel; it prints no result line); ``--apps-only`` runs phase 1 and phase 7
+alone (no result line). ``--loop-calls PATH`` also saves the main
 path's recorded NMS and auction calls to PATH, for
 ``scripts/nms_auction_times.py --calls PATH``.
 
@@ -3000,6 +3016,443 @@ def phase_train(device) -> dict:
     return {"focal_loss": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the apps and tools
+# ---------------------------------------------------------------------------
+
+
+def app_counters():
+    """name in the apps phase's lines -> the wrappers that count its
+    launches (the loss: forward and backward)."""
+    from playground3d_tpu_torch.ops import assignment, crop_mxu, focal_loss, nms, qconv
+
+    return {
+        "qconv": (qconv.qconv_cuda,),
+        "nms": (nms.nms_cuda,),
+        "auction": (assignment.assign_auction_cuda,),
+        "crop_resize_s2d": (crop_mxu.crop_and_resize_s2d_cuda,),
+        "focal_loss": (focal_loss.focal_loss_forward_cuda, focal_loss.focal_loss_backward_cuda),
+    }
+
+
+def counted(fn):
+    """Run ``fn()`` with every app counter set to 0 just before and read
+    just after -> (its result, {name: launches})."""
+    import torch
+
+    counters = app_counters()
+    for wrappers in counters.values():
+        for w in wrappers:
+            w.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: sum(w.launches for w in wrappers) for name, wrappers in counters.items()}
+
+
+def counts_text(launches: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in launches.items())
+
+
+def quiet(fn):
+    """Run ``fn()`` with its standard output captured -> (result, text): an
+    app's own progress lines stay out of the run's tail."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def zero_head_checkpoint(path: str, depth: int = 18, seed: int = 0):
+    """A conv7 RetinaNet checkpoint with zero output convs and random
+    per-channel biases: every score and box is its bias, whatever the
+    backbone computes, so the card and the CPU decide ties alike."""
+    import torch
+
+    from playground3d_tpu_torch.models.nn import save_params
+    from playground3d_tpu_torch.models.retinanet import retinanet_init
+
+    m = retinanet_init(torch.Generator().manual_seed(seed), depth=depth, device="cpu")
+    rng = np.random.default_rng(seed + 40)
+    with torch.no_grad():
+        m.heads.cls_out.b.copy_(torch.as_tensor(rng.normal(-1.0, 1.5, m.heads.cls_out.b.shape[0]), dtype=torch.float32))
+        m.heads.reg_out.b.copy_(torch.as_tensor(rng.normal(0.0, 0.2, m.heads.reg_out.b.shape[0]), dtype=torch.float32))
+    save_params(path, m)
+    return path
+
+
+def detections_equal(label: str, cpu, card) -> str:
+    """Two Detections (or detect_2d tuples): masks and classes equal, boxes
+    within 1e-3, scores within 1e-6 relative."""
+    cpu = [t.cpu() for t in cpu]
+    card = [t.cpu() for t in card]
+    named = dict(zip(("scores", "classes", "boxes", "mask") if len(cpu) == 4 else
+                     ("scores", "classes", "boxes", "cam_idx", "mask"), range(len(cpu))))
+    for k in ("classes", "mask") + (("cam_idx",) if "cam_idx" in named else ()):
+        if not np.array_equal(cpu[named[k]].numpy(), card[named[k]].numpy()):
+            fail(f"apps: {label}: {k} differs between the card and the CPU")
+    mask = cpu[named["mask"]].numpy()
+    if mask.sum() < 4:
+        fail(f"apps: {label}: only {mask.sum()} detections kept on the small input")
+    db = float(np.abs(cpu[named["boxes"]].numpy() - card[named["boxes"]].numpy())[mask].max())
+    s0, s1 = cpu[named["scores"]].numpy()[mask], card[named["scores"]].numpy()[mask]
+    ds = float(np.max(np.abs(s0 - s1) / np.abs(s0)))
+    if not (db <= 1e-3 and ds <= 1e-6):
+        fail(f"apps: {label}: boxes differ by {db} or scores by {ds} (relative) between the card and the CPU")
+    return f"{int(mask.sum())} kept, masks/classes equal, boxes max_abs_diff {db:.3g}, scores max_rel_diff {ds:.3g}"
+
+
+def read_detections_csv(path):
+    import csv
+
+    with open(path) as fh:
+        rows = list(csv.reader(fh))
+    return rows[0], rows[1:-1], rows[-1]
+
+
+def apps_detect_video(device, hw=(H, W), depth: int = 50, n_frames: int = T_CLIP):
+    """``apps/detect_video.py`` in-process: the card against the CPU at
+    64x96, depth 18 (a zero-head checkpoint), then at its defaults
+    (ResNet-50 conv7, 1080x1920 synthetic frames) for 24 frames."""
+    from playground3d_tpu_torch.apps import detect_video
+    from playground3d_tpu_torch.ops.nms import launch_plan
+
+    os.makedirs("_outputs", exist_ok=True)
+    ckpt = zero_head_checkpoint(os.path.join("_outputs", "apps_det_small.npz"))
+    small = ["--frames", "3", "--depth", "18", "--height", "64", "--width", "96", "--checkpoint", ckpt, "--conf", "0.5"]
+    got = {}
+    for dev in ("cpu", str(device)):
+        out = os.path.join("_outputs", f"detect_video_small_{dev.replace(':', '')}.csv")
+        quiet(lambda: detect_video.main(small + ["--out", out, "--device", dev]))
+        got[dev] = read_detections_csv(out)
+    (h0, r0, _), (h1, r1, _) = got["cpu"], got[str(device)]
+    if h0 != h1 or len(r0) != len(r1) or len(r0) < 24:
+        fail(f"apps: detect_video small: {len(r1)} rows on the card, {len(r0)} on the CPU")
+    a, b = np.asarray(r0, np.float64), np.asarray(r1, np.float64)
+    if not np.array_equal(a[:, :3], b[:, :3]):
+        fail("apps: detect_video small: frames, timestamps or classes differ between the card and the CPU")
+    dc, db = float(np.max(np.abs(a[:, 3] - b[:, 3]) / a[:, 3])), float(np.abs(a[:, 4:] - b[:, 4:]).max())
+    if not (dc <= 1e-6 and db <= 1e-3):
+        fail(f"apps: detect_video small: confidences differ by {dc} (relative) or corners by {db}")
+    log(f"apps: detect_video small (depth 18, 64x96, 3 frames) card vs CPU: {len(r1)} rows, frames/classes equal, "
+        f"confidence max_rel_diff {dc:.3g}, corners max_abs_diff {db:.3g}")
+
+    out = os.path.join("_outputs", "detect_video.csv")
+    argv = ["--frames", str(n_frames), "--out", out, "--height", str(hw[0]), "--width", str(hw[1]), "--depth", str(depth),
+            "--device", str(device)]
+    _, launches = counted(lambda: quiet(lambda: detect_video.main(argv)))
+    header, rows, trailer = read_detections_csv(out)
+    if len(header) != 24 or len(trailer) != 1 or not trailer[0].startswith("Processing fps: "):
+        fail(f"apps: detect_video: header {header[:4]}..., trailer {trailer}")
+    if rows and not np.isfinite(np.asarray(rows, np.float64)).all():
+        fail("apps: detect_video: non-finite values in the CSV")
+    fps = float(trailer[0].split(": ")[1])
+    if launches["nms"] != n_frames or launches["qconv"] or launches["auction"]:
+        fail(f"apps: detect_video: launches {launches} for {n_frames} frames (one batched_nms a frame)")
+    plan = launch_plan(4096)
+    t0 = time.time()
+    for _ in detect_video.synthetic_source(hw[0], hw[1], n_frames):
+        pass
+    host_fps = n_frames / (time.time() - t0)
+    log(f"apps: detect_video defaults (ResNet-{depth} conv7, {hw[0]}x{hw[1]}, {n_frames} synthetic frames, pre_topk 4,096): "
+        f"{fps:.2f} frames/s (the CSV's trailer: host clock, first frame and every read included), {len(rows)} rows "
+        f"above conf 0.3; nms {launches['nms'] / n_frames:.0f} call a frame, the "
+        f"{'one' if plan.one_launch else 'two'}-launch route at n 4,096; the app's synthetic source alone (rendering "
+        f"and normalizing on the host): {host_fps:.2f} frames/s")
+    return launches
+
+
+def apps_detect_singleframe(device, hw=(H, W), depth: int = 50):
+    """``detect_singleframe``: the card against the CPU at 128x192 (depth
+    18, zero-head weights), then ResNet-50 conv7 at 1080x1920 with its
+    defaults (pre_topk 4,096, max_dets 256): its NMS takes the two-launch
+    route (the class shift, the beats grid and the loop block: 3 nodes in
+    a CUDA graph of its call) and is called once."""
+    import torch
+
+    from playground3d_tpu_torch.models.nn import load_params
+    from playground3d_tpu_torch.models.retinanet import detect_singleframe, retinanet_init
+    from playground3d_tpu_torch.ops import nms as N
+    from playground3d_tpu_torch.ops.cuda_build import calls_recorded
+
+    ckpt = zero_head_checkpoint(os.path.join("_outputs", "apps_single_small.npz"), seed=3)
+    small = load_params(ckpt, retinanet_init(depth=18, device="cpu"))
+    x = torch.as_tensor(np.random.default_rng(6).uniform(-1, 1, (128, 192, 3)).astype(np.float32))
+    cpu = detect_singleframe(small, x, max_dets=64)
+    card = detect_singleframe(copy.deepcopy(small).to(device), x.to(device), max_dets=64)
+    log(f"apps: detect_singleframe small (depth 18, 128x192, pre_topk 4,096) card vs CPU: "
+        f"{detections_equal('detect_singleframe small', cpu, card)}")
+
+    model = retinanet_init(torch.Generator().manual_seed(0), depth=depth, device=device)
+    image = torch.as_tensor(np.random.default_rng(7).uniform(-1, 1, hw + (3,)).astype(np.float32)).to(device)
+    with calls_recorded() as seen:  # measurement: the NMS call's own arguments, uncounted
+        detect_singleframe(model, image)
+        torch.cuda.synchronize()
+    calls = [args for wrapper, args in seen if wrapper is N.nms_cuda]
+    if len(calls) != 1 or calls[0][0].shape[0] != 4096:
+        fail(f"apps: detect_singleframe: {len(calls)} NMS calls, n {[c[0].shape[0] for c in calls]}")
+    nodes = launched_kernels(lambda: N.nms_cuda(*calls[0]))
+    # the two-launch route: beats grid + loop block, after the kernel that
+    # shifts the class groups apart (batched_nms passes groups)
+    if nodes != 3 or N.launch_plan(4096).one_launch or calls[0][-1] is None:
+        fail(f"apps: detect_singleframe: its NMS at n 4,096 is {nodes} kernels, not the two-launch route's "
+             f"shift + beats + loop")
+    det, launches = counted(lambda: detect_singleframe(model, image))
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(5):
+        detect_singleframe(model, image)
+    e.record()
+    torch.cuda.synchronize()
+    if launches["nms"] != 1 or not torch.isfinite(det.boxes[det.mask]).all() or det.scores.shape != (256,):
+        fail(f"apps: detect_singleframe 1080p: launches {launches}, {int(det.mask.sum())} kept")
+    log(f"apps: detect_singleframe (ResNet-{depth} conv7, {hw[0]}x{hw[1]}, pre_topk 4,096, max_dets 256): "
+        f"{int(det.mask.sum())} kept, finite; nms 1 call = {nodes} kernels (the two-launch route: the class "
+        f"shift, the beats grid, the loop block); "
+        f"{s.elapsed_time(e) / 5:.2f} ms a call (CUDA events, mean of 5)")
+    return launches
+
+
+def apps_detect_2d(device, hw=(H, W), depth: int = 50):
+    """``models/retinanet2d.py``: ``detect_2d`` on the card against the CPU
+    at 128x192 (depth 18, 4 classes, zero output convs with random
+    per-channel biases), then once at 1080x1920 with ResNet-50 and 80
+    classes."""
+    import torch
+
+    from playground3d_tpu_torch.models.anchors import num_anchors_for_shape
+    from playground3d_tpu_torch.models.retinanet2d import detect_2d, retinanet2d_init
+
+    small = retinanet2d_init(torch.Generator().manual_seed(2), num_classes=4, depth=18, device="cpu")
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        small.heads.cls_out.b.copy_(torch.as_tensor(rng.normal(-1.0, 1.0, 36), dtype=torch.float32))
+        small.heads.reg_out.b.copy_(torch.as_tensor(rng.normal(0.0, 0.3, 36), dtype=torch.float32))
+    x = torch.as_tensor(np.random.default_rng(8).uniform(-1, 1, (128, 192, 3)).astype(np.float32))
+    cpu = detect_2d(small, x, max_dets=32)
+    card = detect_2d(copy.deepcopy(small).to(device), x.to(device), max_dets=32)
+    log(f"apps: detect_2d small (depth 18, 4 classes, 128x192) card vs CPU: "
+        f"{detections_equal('detect_2d small', cpu, card)}")
+
+    model = retinanet2d_init(torch.Generator().manual_seed(0), num_classes=80, depth=depth, device=device)
+    image = torch.as_tensor(np.random.default_rng(9).uniform(-1, 1, hw + (3,)).astype(np.float32)).to(device)
+    (scores, classes, boxes, mask), launches = counted(lambda: detect_2d(model, image))
+    if launches["nms"] != 1 or scores.shape != (100,) or not torch.isfinite(boxes).all():
+        fail(f"apps: detect_2d 1080p: launches {launches}, shapes {tuple(scores.shape)}")
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(3):
+        detect_2d(model, image)
+    e.record()
+    torch.cuda.synchronize()
+    log(f"apps: detect_2d (ResNet-{depth}, 80 classes, {hw[0]}x{hw[1]}: the top 1,000 of {num_anchors_for_shape(hw) * 80:,} scores): "
+        f"{int(mask.sum())} kept above 0.05 (focal-prior heads score 0.01), finite; nms calls {launches['nms']}; "
+        f"{s.elapsed_time(e) / 3:.2f} ms a call (CUDA events, mean of 3)")
+    return launches
+
+
+def apps_benchmark_speed(device, argv=()):
+    """``tools/benchmark_speed.py`` at its defaults (540x960, ResNet-50,
+    batches 1/2/4/8, 10 iterations): its lines."""
+    from playground3d_tpu_torch.tools import benchmark_speed
+
+    _, text = quiet(lambda: benchmark_speed.main(list(argv) + ["--device", str(device)]))
+    lines = text.strip().splitlines()
+    if len(lines) != 5 or not lines[0].startswith("device: "):
+        fail(f"apps: benchmark_speed printed {lines}")
+    for line in lines:
+        log(f"apps: benchmark_speed: {line}")
+
+
+def apps_forward_share(device, hw=(512, 768), depth: int = 50, batch: int = 4, n: int = 5):
+    """How much of a training step is the forward: one ``Trainer.train_step``
+    (``apps/train_detector.py``'s defaults: ResNet-50 conv7, FPN/heads 256,
+    uint8 frames, batch 4 at 512x768) and one ``forward_raw`` of the same
+    batch without gradients, each ``n`` times after a warm-up, their card
+    busy time under the profiler and their wall time by CUDA events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
+    from playground3d_tpu_torch.models.retinanet import forward_raw
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    frames, labels = next(SyntheticDetectionDataset(image_shape=hw, output_dtype="uint8").batches(batch))
+    frames, labels = torch.as_tensor(frames).to(device), torch.as_tensor(labels).to(device)
+    trainer = Trainer(TrainConfig(depth=depth, image_shape=hw), generator=torch.Generator().manual_seed(0),
+                      device=device)
+
+    def forward():
+        with torch.no_grad():
+            forward_raw(trainer.model, frames)
+
+    def measure(fn):
+        for _ in range(2):
+            fn()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+        return busy / n / 1e3, s.elapsed_time(e) / n
+
+    step_busy, step_wall = measure(lambda: trainer.train_step(frames, labels))
+    fwd_busy, fwd_wall = measure(forward)
+    if not step_busy > 0:
+        fail("apps: the profiler saw no device time in a training step")
+        return
+    log(f"apps: forward's share of a training step (ResNet-{depth} conv7, {hw[0]}x{hw[1]}, batch {batch}, uint8; "
+        f"mean of {n}): step busy {step_busy:.2f} ms / wall {step_wall:.2f} ms; forward without gradients busy "
+        f"{fwd_busy:.2f} ms / wall {fwd_wall:.2f} ms: {fwd_busy / step_busy * 100:.1f}% of the step's busy time")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def app_metrics(metrics, keys=("Recall", "Precision", "MOTA", "ID switches")) -> str:
+    return ", ".join(f"{k} {float(metrics[k]):.3f}" for k in keys)
+
+
+def apps_demos(device, scale=(), hw=(512, 768), al_hw=(256, 384)):
+    """The demos with short training at full width (512x768, depth 18, 3
+    cameras): ``demo_e2e --quantize``; ``demo_e2e_mc`` trained once
+    (``--sequences 0``), then tracking float and ``--quantize --cd-max 8``
+    from its checkpoints; ``auto_label_e2e``. Each run's launches are
+    counted on their own. No quality floor: the nets are barely trained.
+    ``scale`` (arguments given last) and the sizes cut a CPU rehearsal."""
+    from playground3d_tpu_torch.apps import auto_label_e2e, demo_e2e, demo_e2e_mc
+
+    out_dir = os.path.join("_outputs", "apps")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {}
+
+    def run(label, app, argv, need):
+        t0 = time.time()
+        (metrics, text), launches = counted(lambda: quiet(lambda: app.main(argv)))
+        missing = [k for k in need if launches[k] < 1]
+        if missing:
+            fail(f"apps: {label}: no launch of {missing} ({counts_text(launches)})")
+        runs[label] = launches
+        log(f"apps: {label}: {time.time() - t0:.1f} s; {app_metrics(metrics) if metrics else 'trained'}; "
+            f"launches {counts_text(launches)}")
+        return metrics, text
+
+    prefix = os.path.join(out_dir, "demo")
+    _, text = run("demo_e2e --steps 100 --quantize (ResNet-18 s2d, 512x768, 90 frames)", demo_e2e,
+                  ["--steps", "100", "--quantize", "--out-prefix", prefix, "--device", str(device), *scale],
+                  ("focal_loss", "qconv", "nms", "auction"))
+    losses = text.split("training done; loss ")[1].split("\n")[0].split(" -> ")
+    if not all(np.isfinite([float(v) for v in losses])):
+        fail(f"apps: demo_e2e: losses {losses}")
+    check_checkpoint(prefix + "_detector.npz", 18, hw, stem="s2d")
+
+    prefix = os.path.join(out_dir, "mc")
+    _, text = run("demo_e2e_mc --steps 100 --crop-steps 60 --sequences 0 (train only)", demo_e2e_mc,
+                  ["--steps", "100", "--crop-steps", "60", "--sequences", "0", "--out-prefix", prefix,
+                   "--device", str(device), *scale, *(["--crop-steps", "2"] if scale else [])], ("focal_loss",))
+    for tag in ("detector", "crop-detector"):
+        loss = float(text.split(f"{tag} done: loss=")[1].split("\n")[0])
+        if not np.isfinite(loss):
+            fail(f"apps: demo_e2e_mc: {tag} loss {loss}")
+    check_checkpoint(prefix + "_det.npz", 18, hw, stem="s2d")
+    check_checkpoint(prefix + "_crop.npz", 18, (112, 112))
+    ckpts = ["--det-ckpt", prefix + "_det.npz", "--crop-ckpt", prefix + "_crop.npz"]
+    for label, extra in (("float", []), ("--quantize --cd-max 8", ["--quantize", "--cd-max", "8"])):
+        need = ("qconv", "nms", "auction", "crop_resize_s2d") if extra else ("nms", "auction", "crop_resize_s2d")
+        run(f"demo_e2e_mc {label} from the checkpoints (3 cameras, 60 frames)", demo_e2e_mc,
+            ckpts + extra + ["--out-prefix", prefix + ("_int8" if extra else "_float"), "--device", str(device), *scale],
+            need)
+
+    run("auto_label_e2e --steps 100 (256x384, 60 frames)", auto_label_e2e,
+        ["--steps", "100", "--out-prefix", os.path.join(out_dir, "al"), "--device", str(device), *scale,
+         "--height", str(al_hw[0]), "--width", str(al_hw[1])],
+        ("focal_loss", "nms"))
+    for suffix in (".y4m", "_session.npz", "_pred.csv", "_gt.csv"):
+        if not os.path.exists(os.path.join(out_dir, "al") + suffix):
+            fail(f"apps: auto_label_e2e wrote no {suffix}")
+    return prefix, runs
+
+
+def apps_overlay(device, prefix, n_frames: int = T_CLIP, hw=(512, 768)):
+    """``TrackOverlayWriter`` as ``on_frame`` of the multi-camera tracker
+    over one clip (``process`` a frame) with the demo's trained nets: a PNG
+    a camera a frame."""
+    import torch
+
+    from playground3d_tpu_torch.apps.demo_e2e_mc import shifted_registry
+    from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
+    from playground3d_tpu_torch.data.synthetic import SyntheticScene, render_frame
+    from playground3d_tpu_torch.models.nn import load_params
+    from playground3d_tpu_torch.models.retinanet import retinanet_init
+    from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
+    from playground3d_tpu_torch.tools.visualize import TrackOverlayWriter
+    from playground3d_tpu_torch.utils.config import TrackerConfig
+
+    ds = SyntheticDetectionDataset(image_shape=hw)
+    shifts = [0.0, 160.0, 320.0]
+    reg, projectors = shifted_registry(ds, shifts)
+    cameras = list(projectors)
+    det = load_params(prefix + "_det.npz", retinanet_init(depth=18, stem="s2d", device=device))
+    crop = load_params(prefix + "_crop.npz", retinanet_init(depth=18, device=device))
+    out = os.path.join("_outputs", "apps", "overlay")
+    writer = TrackOverlayWriter(reg, cameras, out)
+    cfg = TrackerConfig(max_tracks=32, max_dets=48, pre_topk=1024, x_range=(415.0, 1030.0), sigma_d=0.25,
+                        sigma_c=0.2, det_step=3, estimate_ts_bias=False, merge_dist_ft=12.0)
+    trk = MultiCameraTracker(reg, cameras, cfg=cfg, det_model=det, crop_model=crop,
+                             centers=np.array([[565.0 + dx, 60.0] for dx in shifts], np.float32),
+                             stem="s2d", crop_stem="conv7", device=device, on_frame=writer)
+    scene = SyntheticScene(n_objects=10, seed=99, x_spawn=(465.0, 980.0), x_visible=(445.0, 1000.0))
+    rng = np.random.default_rng(5)
+    t0 = time.time()
+    for f in range(n_frames):
+        frames = np.stack([(np.clip(render_frame(scene, f / 30.0, reg.P[ci, 0], height=hw[0], width=hw[1], rng=rng,
+                                                 normalized=False)[0], 0, 1) * 255).astype(np.uint8)
+                           for ci in range(len(cameras))])
+        trk.process(frames, [1.6e9 + f / 30.0] * len(cameras), f)
+    writer.close()
+    torch.cuda.synchronize()
+    pngs = sorted(os.path.join(c, p) for c in cameras for p in os.listdir(os.path.join(out, c)) if p.endswith(".png"))
+    if writer.frames_written != n_frames or len(pngs) != n_frames * len(cameras):
+        fail(f"apps: TrackOverlayWriter wrote {len(pngs)} PNGs for {n_frames} frames x {len(cameras)} cameras")
+    log(f"apps: TrackOverlayWriter on MultiCameraTracker.process (3 cameras, {hw[0]}x{hw[1]}, {n_frames} frames): "
+        f"{len(pngs)} PNGs in {out} ({time.time() - t0:.1f} s, rendering and PNG encoding included)")
+
+
+def phase_apps(device, rehearse: bool = False) -> dict:
+    """The last one-card apps and tools on the card: ``detect_video``,
+    ``detect_singleframe``, ``detect_2d``, ``benchmark_speed``, the demos
+    with short training, ``TrackOverlayWriter``. Returns each run's
+    launches. ``rehearse`` cuts every size and step count, for a run on
+    the CPU with the card's calls stubbed."""
+    import torch
+
+    t_phase = time.time()
+    hw, depth = ((64, 96), 18) if rehearse else ((H, W), 50)
+    runs = {"detect_video": apps_detect_video(device, hw, depth, 3 if rehearse else T_CLIP)}
+    runs["detect_singleframe"] = apps_detect_singleframe(device, hw, depth)
+    runs["detect_2d"] = apps_detect_2d(device, hw, depth)
+    torch.cuda.empty_cache()
+    apps_benchmark_speed(device, ["--depth", "18", "--height", "64", "--width", "96", "--iters", "1"] if rehearse else ())
+    apps_forward_share(device, *(((64, 96), 18, 2, 1) if rehearse else ()))
+    small = ["--steps", "2", "--batch", "2", "--frames", "6", "--height", "64", "--width", "96", "--zoom", "3"]
+    prefix, demos = apps_demos(device, small if rehearse else (), (64, 96) if rehearse else (512, 768),
+                               (96, 144) if rehearse else (256, 384))
+    runs.update(demos)
+    apps_overlay(device, prefix, 3 if rehearse else T_CLIP, (64, 96) if rehearse else (512, 768))
+    log(f"apps: phase took {time.time() - t_phase:.1f} s")
+    return runs
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3011,14 +3464,16 @@ def device_line() -> str:
 def main() -> None:
     import torch
 
-    args, kernels_only, loop_calls = sys.argv[1:], False, None
+    args, kernels_only, apps_only, loop_calls = sys.argv[1:], False, False, None
     while args:
         if args[0] == "--kernels-only":
             kernels_only, args = True, args[1:]
+        elif args[0] == "--apps-only":
+            apps_only, args = True, args[1:]
         elif args[0] == "--loop-calls" and len(args) > 1:
             loop_calls, args = os.path.abspath(args[1]), args[2:]
         else:
-            fail(f"unknown arguments {args} (the options are --kernels-only and --loop-calls PATH)")
+            fail(f"unknown arguments {args} (the options are --kernels-only, --apps-only and --loop-calls PATH)")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     try:
@@ -3030,6 +3485,10 @@ def main() -> None:
 
     t0 = time.time()
     phase_build()
+    if apps_only:
+        phase_apps(device)
+        log(f"total: {time.time() - t0:.1f} s (apps only: no result line)")
+        return
     entries = phase_kernels(device)
     if kernels_only:
         log(f"total: {time.time() - t0:.1f} s (kernels only: no result line)")
@@ -3038,6 +3497,7 @@ def main() -> None:
     phase_single(device)
     phase_session(device)
     launches.update(phase_train(device))
+    phase_apps(device)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["launches"] < 1:

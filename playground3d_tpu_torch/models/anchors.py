@@ -68,3 +68,9 @@ def anchors_for_shape(
         shifts = np.stack([mx, my, mx, my], axis=-1).reshape(-1, 1, 4)  # [K,1,4]
         out.append((shifts + base[None]).reshape(-1, 4))
     return np.concatenate(out, axis=0).astype(np.float32)
+
+
+def num_anchors_for_shape(
+    image_shape: Tuple[int, int], levels: Tuple[int, ...] = PYRAMID_LEVELS
+) -> int:
+    return anchors_for_shape(tuple(image_shape), levels).shape[0]

@@ -4,7 +4,9 @@ of ``playground3d_tpu/models/retinanet.py``; the int8 paths are in
 
 ``forward_raw`` is the training / raw forward, ``detect_multiframe`` the
 batched multi-camera detector (reference MULTI_FRAME, model.py:311-344),
-``localize`` the crop detector (LOCALIZE, model.py:362-363). Public inputs
+``detect_singleframe`` the one-image per-class detector (the reference's
+default path, model.py:365-397), ``localize`` the crop detector (LOCALIZE,
+model.py:362-363). Public inputs
 are NHWC images, as in the JAX package.
 """
 
@@ -19,7 +21,7 @@ from torch import nn
 
 from playground3d_tpu_torch import DeviceLike, resolve_device
 from playground3d_tpu_torch.models import quant
-from playground3d_tpu_torch.models.anchors import anchors_for_shape
+from playground3d_tpu_torch.models.anchors import PYRAMID_LEVELS, anchors_for_shape
 from playground3d_tpu_torch.models.decode import decode_regression
 from playground3d_tpu_torch.models.fpn import FPN
 from playground3d_tpu_torch.models.heads import Heads
@@ -185,6 +187,43 @@ def detect_multiframe(
         classes=top_classes[keep],
         boxes=top_boxes[keep],
         cam_idx=top_cam[keep],
+        mask=keep_mask,
+    )
+
+
+@torch.no_grad()
+def detect_singleframe(
+    model: RetinaNet,
+    image: torch.Tensor,
+    score_threshold: float = 1e-25,
+    nms_iou: float = 0.5,
+    pre_topk: int = 4096,
+    max_dets: int = 256,
+) -> Detections:
+    """One image [H,W,3] (or s2d-packed) -> per-class NMS detections: every
+    (anchor, class) score competes; the top ``pre_topk`` pairs of the A·K
+    flattened scores (lower index first on ties) are decoded and NMS runs
+    grouped by class on the 2D boxes (cols 16:20). ``cam_idx`` is zeros."""
+    anchors = _anchors(_image_shape_of(image[None], model.stem), PYRAMID_LEVELS, image.device)
+    cls, reg = forward_raw(model, image[None])
+    cls, reg = cls[0], reg[0]  # [A,K], [A,12]
+    a, n_cls = anchors.shape[0], model.num_classes
+    k = min(pre_topk, a * n_cls)
+    top_scores, top_idx = top_k(cls.reshape(-1), k)
+    anchor_idx = top_idx // n_cls
+    class_idx = (top_idx % n_cls).to(torch.int32)
+    top_boxes = decode_regression(reg[anchor_idx], anchors[anchor_idx])
+    valid = top_scores > score_threshold
+
+    keep_idx, keep_mask = batched_nms(
+        top_boxes[:, 16:20], top_scores, class_idx, valid, nms_iou, max_keep=max_dets
+    )
+    keep = keep_idx.long()
+    return Detections(
+        scores=top_scores[keep],
+        classes=class_idx[keep],
+        boxes=top_boxes[keep],
+        cam_idx=torch.zeros_like(keep_idx, dtype=torch.int32),
         mask=keep_mask,
     )
 

@@ -228,6 +228,10 @@ def _entry_points():
     from playground3d_tpu_torch.apps import train_detector
     from playground3d_tpu_torch.track.kf import BatchedKF
     from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
+    from playground3d_tpu_torch.apps import auto_label_e2e, demo_e2e, demo_e2e_mc, detect_video
+    from playground3d_tpu_torch.models.retinanet import detect_singleframe
+    from playground3d_tpu_torch.models.retinanet2d import retinanet2d_init
+    from playground3d_tpu_torch.tools import benchmark_speed
 
     return {
         "retinanet_init": lambda: retinanet_init(depth=18),
@@ -241,13 +245,21 @@ def _entry_points():
         "Trainer": lambda: Trainer(TrainConfig(depth=18)),
         "train_app": lambda: train_detector.main(["--steps", "1", "--depth", "18"]),
         "BatchedKF": lambda: BatchedKF(),
+        "detect_video": lambda: detect_video.main(["--frames", "1", "--depth", "18"]),
+        "benchmark_speed": lambda: benchmark_speed.main(["--depth", "18", "--batches", "1"]),
+        "demo_e2e": lambda: demo_e2e.main(["--steps", "1"]),
+        "demo_e2e_mc": lambda: demo_e2e_mc.main(["--steps", "1", "--crop-steps", "1"]),
+        "auto_label_e2e": lambda: auto_label_e2e.main(["--steps", "1"]),
+        "retinanet2d_init": lambda: retinanet2d_init(num_classes=4, depth=18),
+        "detect_singleframe": lambda: detect_singleframe(retinanet_init(depth=18), torch.zeros((64, 96, 3))),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["retinanet_init", "default_params", "init_track_state", "MultiCameraTracker",
              "SingleCameraTracker", "oracle_detections", "track_app", "track_app_session", "Trainer",
-             "train_app", "BatchedKF"]
+             "train_app", "BatchedKF", "detect_video", "benchmark_speed", "demo_e2e", "demo_e2e_mc",
+             "auto_label_e2e", "retinanet2d_init", "detect_singleframe"]
 )
 def test_default_device_raises_without_cuda(monkeypatch, name):
     """Entry points default to the card; without CUDA they raise instead
@@ -284,6 +296,19 @@ def test_no_module_of_the_port_imports_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout and "MODULES" in out.stdout
+
+
+@pytest.mark.parametrize("module", ["ops.qconv", "ops.crop_resize", "ops.nms", "models.nn", "models"])
+def test_a_module_imports_first_in_a_fresh_interpreter(module):
+    """``chip_smoke.py`` imports the kernel loaders before anything else:
+    each imports with nothing of the package loaded before it (the
+    ``models`` exports load lazily, or ``ops.qconv`` -> ``models.nn`` ->
+    ``models.retinanet`` -> ``models.quant`` -> ``ops.qconv`` is a cycle)."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"import playground3d_tpu_torch.{module} as m; print(m.__name__)"],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 _SOURCES = ["crop_resize", "crop_resize_s2d", "yuv420_s2d", "qconv", "nms", "auction", "focal_loss"]
