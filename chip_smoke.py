@@ -80,8 +80,11 @@ result line):
              conv7, 1080p, 24 frames; the CSV and its fps trailer),
              ``detect_singleframe`` (card against CPU at 128x192; at 1080p
              its NMS at n 4,096 takes the two-launch route) and
-             ``models/retinanet2d.py::detect_2d`` (card against CPU at
-             128x192; ResNet-50, 80 classes at 1080p), ``tools/
+             ``models/retinanet2d.py`` (``forward_raw_2d`` card against
+             CPU at 64x96 with random output convs, ``detect_2d`` at
+             128x192; ResNet-50, 80 classes at 1080p); at 1080p each
+             detector's heads have spread biases, so detections pass the
+             thresholds and each NMS call has boxes to suppress, ``tools/
              benchmark_speed.py`` at its defaults, the demos with short
              training at 512x768 (``demo_e2e --quantize``; ``demo_e2e_mc``
              trained once, then tracked float and ``--quantize --cd-max 8``
@@ -94,8 +97,7 @@ result line):
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
-kernel; it prints no result line); ``--apps-only`` runs phase 1 and phase 7
-alone (no result line). ``--loop-calls PATH`` also saves the main
+kernel; it prints no result line). ``--loop-calls PATH`` also saves the main
 path's recorded NMS and auction calls to PATH, for
 ``scripts/nms_auction_times.py --calls PATH``.
 
@@ -3066,22 +3068,62 @@ def quiet(fn):
     return out, buf.getvalue()
 
 
+def spread_biases(heads, rng, cls_sd: float, reg_sd: float) -> None:
+    """Random per-channel biases for a detector's output convs (class
+    logits around -1, regression around 0): a fresh detector's focal-prior
+    heads score every anchor 0.01, below every app's threshold. With the
+    output convs' weights zero, as initialized, every score and box is its
+    bias, whatever the backbone computes, so the card and the CPU decide
+    ties alike."""
+    import torch
+
+    with torch.no_grad():
+        for conv, mean, sd in ((heads.cls_out, -1.0, cls_sd), (heads.reg_out, 0.0, reg_sd)):
+            conv.b.copy_(torch.as_tensor(rng.normal(mean, sd, conv.b.shape[0]), dtype=torch.float32))
+
+
 def zero_head_checkpoint(path: str, depth: int = 18, seed: int = 0):
     """A conv7 RetinaNet checkpoint with zero output convs and random
-    per-channel biases: every score and box is its bias, whatever the
-    backbone computes, so the card and the CPU decide ties alike."""
+    per-channel biases (:func:`spread_biases`)."""
     import torch
 
     from playground3d_tpu_torch.models.nn import save_params
     from playground3d_tpu_torch.models.retinanet import retinanet_init
 
     m = retinanet_init(torch.Generator().manual_seed(seed), depth=depth, device="cpu")
-    rng = np.random.default_rng(seed + 40)
-    with torch.no_grad():
-        m.heads.cls_out.b.copy_(torch.as_tensor(rng.normal(-1.0, 1.5, m.heads.cls_out.b.shape[0]), dtype=torch.float32))
-        m.heads.reg_out.b.copy_(torch.as_tensor(rng.normal(0.0, 0.2, m.heads.reg_out.b.shape[0]), dtype=torch.float32))
+    spread_biases(m.heads, np.random.default_rng(seed + 40), 1.5, 0.2)
     save_params(path, m)
     return path
+
+
+def recorded_nms(fn, label: str):
+    """Run ``fn()`` with its launches listed, not counted, and replay its
+    one NMS call alone -> (n, text): the kernels of that call are the
+    nodes of a CUDA graph that captures it, which must be the route that
+    ``launch_plan(n)`` names (one launch, or the beats grid and the loop
+    block), plus, on the two-launch route, the kernel that shifts the
+    class groups apart when the call passes groups (the one launch shifts
+    them inside)."""
+    import torch
+
+    from playground3d_tpu_torch.ops import nms as N
+    from playground3d_tpu_torch.ops.cuda_build import calls_recorded
+
+    with calls_recorded() as seen:  # measurement: the NMS call's own arguments, uncounted
+        fn()
+        torch.cuda.synchronize()
+    calls = [args for wrapper, args in seen if wrapper is N.nms_cuda]
+    if len(calls) != 1:
+        fail(f"apps: {label}: {len(calls)} NMS calls, n {[c[0].shape[0] for c in calls]}")
+    n, grouped = calls[0][0].shape[0], calls[0][-1] is not None
+    one = N.launch_plan(n).one_launch
+    nodes = launched_kernels(lambda: N.nms_cuda(*calls[0]))
+    shift = grouped and not one  # the one-launch route shifts the groups inside
+    if nodes != (1 if one else 2) + shift:
+        fail(f"apps: {label}: its NMS at n {n} is {nodes} kernels, not launch_plan({n})'s route"
+             f"{' and the class shift' if shift else ''}")
+    return n, (f"its NMS call at n {n:,} is {nodes} kernels: the {'one' if one else 'two'}-launch route"
+               f"{' after the class shift' if shift else ''}")
 
 
 def detections_equal(label: str, cpu, card) -> str:
@@ -3113,16 +3155,17 @@ def read_detections_csv(path):
     return rows[0], rows[1:-1], rows[-1]
 
 
-def apps_detect_video(device, hw=(H, W), depth: int = 50, n_frames: int = T_CLIP):
+def apps_detect_video(device, ckpt: str):
     """``apps/detect_video.py`` in-process: the card against the CPU at
     64x96, depth 18 (a zero-head checkpoint), then at its defaults
-    (ResNet-50 conv7, 1080x1920 synthetic frames) for 24 frames."""
+    (ResNet-50 conv7, 1080x1920 synthetic frames) for 24 frames from
+    ``ckpt`` (ResNet-50, zero output convs with spread biases, so rows pass
+    the app's confidence threshold and its NMS has boxes to suppress)."""
     from playground3d_tpu_torch.apps import detect_video
-    from playground3d_tpu_torch.ops.nms import launch_plan
 
-    os.makedirs("_outputs", exist_ok=True)
-    ckpt = zero_head_checkpoint(os.path.join("_outputs", "apps_det_small.npz"))
-    small = ["--frames", "3", "--depth", "18", "--height", "64", "--width", "96", "--checkpoint", ckpt, "--conf", "0.5"]
+    small_ckpt = zero_head_checkpoint(os.path.join("_outputs", "apps_det_small.npz"))
+    small = ["--frames", "3", "--depth", "18", "--height", "64", "--width", "96", "--checkpoint", small_ckpt,
+             "--conf", "0.5"]
     got = {}
     for dev in ("cpu", str(device)):
         out = os.path.join("_outputs", f"detect_video_small_{dev.replace(':', '')}.csv")
@@ -3141,65 +3184,53 @@ def apps_detect_video(device, hw=(H, W), depth: int = 50, n_frames: int = T_CLIP
         f"confidence max_rel_diff {dc:.3g}, corners max_abs_diff {db:.3g}")
 
     out = os.path.join("_outputs", "detect_video.csv")
-    argv = ["--frames", str(n_frames), "--out", out, "--height", str(hw[0]), "--width", str(hw[1]), "--depth", str(depth),
-            "--device", str(device)]
-    _, launches = counted(lambda: quiet(lambda: detect_video.main(argv)))
+    argv = ["--out", out, "--checkpoint", ckpt, "--device", str(device)]
+    n, route = recorded_nms(lambda: quiet(lambda: detect_video.main(argv + ["--frames", "1"])), "detect_video")
+    _, launches = counted(lambda: quiet(lambda: detect_video.main(argv + ["--frames", str(T_CLIP)])))
     header, rows, trailer = read_detections_csv(out)
     if len(header) != 24 or len(trailer) != 1 or not trailer[0].startswith("Processing fps: "):
         fail(f"apps: detect_video: header {header[:4]}..., trailer {trailer}")
-    if rows and not np.isfinite(np.asarray(rows, np.float64)).all():
-        fail("apps: detect_video: non-finite values in the CSV")
+    if not rows or not np.isfinite(np.asarray(rows, np.float64)).all():
+        fail(f"apps: detect_video: {len(rows)} rows above conf 0.3, or non-finite values in the CSV")
+    if {int(r[0]) for r in rows} != set(range(T_CLIP)):
+        fail(f"apps: detect_video: rows for frames {sorted({int(r[0]) for r in rows})}, not each of {T_CLIP}")
     fps = float(trailer[0].split(": ")[1])
-    if launches["nms"] != n_frames or launches["qconv"] or launches["auction"]:
-        fail(f"apps: detect_video: launches {launches} for {n_frames} frames (one batched_nms a frame)")
-    plan = launch_plan(4096)
+    if launches["nms"] != T_CLIP or launches["qconv"] or launches["auction"]:
+        fail(f"apps: detect_video: launches {launches} for {T_CLIP} frames (one batched_nms a frame)")
     t0 = time.time()
-    for _ in detect_video.synthetic_source(hw[0], hw[1], n_frames):
+    for _ in detect_video.synthetic_source(H, W, T_CLIP):
         pass
-    host_fps = n_frames / (time.time() - t0)
-    log(f"apps: detect_video defaults (ResNet-{depth} conv7, {hw[0]}x{hw[1]}, {n_frames} synthetic frames, pre_topk 4,096): "
+    host_fps = T_CLIP / (time.time() - t0)
+    log(f"apps: detect_video defaults (ResNet-50 conv7, {H}x{W}, {T_CLIP} synthetic frames, spread-bias heads): "
         f"{fps:.2f} frames/s (the CSV's trailer: host clock, first frame and every read included), {len(rows)} rows "
-        f"above conf 0.3; nms {launches['nms'] / n_frames:.0f} call a frame, the "
-        f"{'one' if plan.one_launch else 'two'}-launch route at n 4,096; the app's synthetic source alone (rendering "
-        f"and normalizing on the host): {host_fps:.2f} frames/s")
+        f"above conf 0.3 (every frame); nms {launches['nms'] / T_CLIP:.0f} call a frame, {route}; the app's "
+        f"synthetic source alone (rendering and normalizing on the host): {host_fps:.2f} frames/s")
     return launches
 
 
-def apps_detect_singleframe(device, hw=(H, W), depth: int = 50):
+def apps_detect_singleframe(device, ckpt: str):
     """``detect_singleframe``: the card against the CPU at 128x192 (depth
-    18, zero-head weights), then ResNet-50 conv7 at 1080x1920 with its
-    defaults (pre_topk 4,096, max_dets 256): its NMS takes the two-launch
-    route (the class shift, the beats grid and the loop block: 3 nodes in
-    a CUDA graph of its call) and is called once."""
+    18, zero-head weights), then ResNet-50 conv7 from ``ckpt`` at 1080x1920
+    with its defaults (pre_topk 4,096, max_dets 256): its NMS takes the
+    two-launch route and is called once."""
     import torch
 
     from playground3d_tpu_torch.models.nn import load_params
     from playground3d_tpu_torch.models.retinanet import detect_singleframe, retinanet_init
-    from playground3d_tpu_torch.ops import nms as N
-    from playground3d_tpu_torch.ops.cuda_build import calls_recorded
 
-    ckpt = zero_head_checkpoint(os.path.join("_outputs", "apps_single_small.npz"), seed=3)
-    small = load_params(ckpt, retinanet_init(depth=18, device="cpu"))
+    small = load_params(zero_head_checkpoint(os.path.join("_outputs", "apps_single_small.npz"), seed=3),
+                        retinanet_init(depth=18, device="cpu"))
     x = torch.as_tensor(np.random.default_rng(6).uniform(-1, 1, (128, 192, 3)).astype(np.float32))
     cpu = detect_singleframe(small, x, max_dets=64)
     card = detect_singleframe(copy.deepcopy(small).to(device), x.to(device), max_dets=64)
     log(f"apps: detect_singleframe small (depth 18, 128x192, pre_topk 4,096) card vs CPU: "
         f"{detections_equal('detect_singleframe small', cpu, card)}")
 
-    model = retinanet_init(torch.Generator().manual_seed(0), depth=depth, device=device)
-    image = torch.as_tensor(np.random.default_rng(7).uniform(-1, 1, hw + (3,)).astype(np.float32)).to(device)
-    with calls_recorded() as seen:  # measurement: the NMS call's own arguments, uncounted
-        detect_singleframe(model, image)
-        torch.cuda.synchronize()
-    calls = [args for wrapper, args in seen if wrapper is N.nms_cuda]
-    if len(calls) != 1 or calls[0][0].shape[0] != 4096:
-        fail(f"apps: detect_singleframe: {len(calls)} NMS calls, n {[c[0].shape[0] for c in calls]}")
-    nodes = launched_kernels(lambda: N.nms_cuda(*calls[0]))
-    # the two-launch route: beats grid + loop block, after the kernel that
-    # shifts the class groups apart (batched_nms passes groups)
-    if nodes != 3 or N.launch_plan(4096).one_launch or calls[0][-1] is None:
-        fail(f"apps: detect_singleframe: its NMS at n 4,096 is {nodes} kernels, not the two-launch route's "
-             f"shift + beats + loop")
+    model = load_params(ckpt, retinanet_init(depth=50, device=device))
+    image = torch.as_tensor(np.random.default_rng(7).uniform(-1, 1, (H, W, 3)).astype(np.float32)).to(device)
+    n, route = recorded_nms(lambda: detect_singleframe(model, image), "detect_singleframe")
+    if n != 4096 or "two-launch" not in route:
+        fail(f"apps: detect_singleframe: {route}, not the two-launch route at n 4,096")
     det, launches = counted(lambda: detect_singleframe(model, image))
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     s.record()
@@ -3207,59 +3238,79 @@ def apps_detect_singleframe(device, hw=(H, W), depth: int = 50):
         detect_singleframe(model, image)
     e.record()
     torch.cuda.synchronize()
-    if launches["nms"] != 1 or not torch.isfinite(det.boxes[det.mask]).all() or det.scores.shape != (256,):
-        fail(f"apps: detect_singleframe 1080p: launches {launches}, {int(det.mask.sum())} kept")
-    log(f"apps: detect_singleframe (ResNet-{depth} conv7, {hw[0]}x{hw[1]}, pre_topk 4,096, max_dets 256): "
-        f"{int(det.mask.sum())} kept, finite; nms 1 call = {nodes} kernels (the two-launch route: the class "
-        f"shift, the beats grid, the loop block); "
-        f"{s.elapsed_time(e) / 5:.2f} ms a call (CUDA events, mean of 5)")
+    kept = int(det.mask.sum())
+    if launches["nms"] != 1 or not kept or not torch.isfinite(det.boxes[det.mask]).all() or det.scores.shape != (256,):
+        fail(f"apps: detect_singleframe 1080p: launches {launches}, {kept} kept")
+    log(f"apps: detect_singleframe (ResNet-50 conv7, {H}x{W}, spread-bias heads, pre_topk 4,096, max_dets 256): "
+        f"{kept} kept, finite; {route}; {s.elapsed_time(e) / 5:.2f} ms a call (CUDA events, mean of 5)")
     return launches
 
 
-def apps_detect_2d(device, hw=(H, W), depth: int = 50):
-    """``models/retinanet2d.py``: ``detect_2d`` on the card against the CPU
-    at 128x192 (depth 18, 4 classes, zero output convs with random
-    per-channel biases), then once at 1080x1920 with ResNet-50 and 80
-    classes."""
+def apps_detect_2d(device):
+    """``models/retinanet2d.py`` on the card against the CPU at a small size
+    (depth 18, 4 classes): ``forward_raw_2d`` in bf16 with random output
+    convs at 64x96 (so the backbone, FPN and towers decide every output),
+    held as the CPU tests hold it to JAX (logits and regression within 2e-2
+    relative plus 2e-2 of the largest); ``detect_2d`` with zero output
+    convs and spread biases at 128x192. Then ``detect_2d`` once at
+    1080x1920 with ResNet-50, 80 classes and spread biases."""
     import torch
 
     from playground3d_tpu_torch.models.anchors import num_anchors_for_shape
-    from playground3d_tpu_torch.models.retinanet2d import detect_2d, retinanet2d_init
+    from playground3d_tpu_torch.models.retinanet2d import detect_2d, forward_raw_2d, retinanet2d_init
+
+    net = retinanet2d_init(torch.Generator().manual_seed(1), num_classes=4, depth=18, device="cpu")
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        for conv in (net.heads.cls_out, net.heads.reg_out):
+            conv.w.copy_(torch.as_tensor(rng.normal(0, 0.0015, tuple(conv.w.shape)), dtype=torch.float32))
+    x = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, (1, 64, 96, 3)).astype(np.float32))
+    (c0, r0), (c1, r1) = forward_raw_2d(net, x), forward_raw_2d(copy.deepcopy(net).to(device), x.to(device))
+    l0, l1 = (np.log(c) - np.log1p(-c) for c in (c0.double().cpu().numpy(), c1.double().cpu().numpy()))
+    r0, r1 = r0.cpu().numpy(), r1.cpu().numpy()
+    if not np.abs(l0).max() < 15:
+        fail(f"apps: forward_raw_2d small: logits up to {np.abs(l0).max()}, past what the sigmoid keeps exactly")
+    for name, p, q in (("logits", l1, l0), ("regression", r1, r0)):
+        if not np.allclose(p, q, rtol=2e-2, atol=2e-2 * np.abs(q).max()):
+            fail(f"apps: forward_raw_2d small: {name} differ between the card and the CPU by up to "
+                 f"{np.abs(p - q).max()} (largest {np.abs(q).max()})")
+    log(f"apps: forward_raw_2d small (depth 18, 4 classes, 64x96, bf16, random output convs) card vs CPU: logits "
+        f"max_abs_diff {np.abs(l1 - l0).max():.3g} of {np.abs(l0).max():.3g}, regression {np.abs(r1 - r0).max():.3g} "
+        f"of {np.abs(r0).max():.3g} (tolerance 2e-2 relative + 2e-2 of the largest)")
 
     small = retinanet2d_init(torch.Generator().manual_seed(2), num_classes=4, depth=18, device="cpu")
-    rng = np.random.default_rng(4)
-    with torch.no_grad():
-        small.heads.cls_out.b.copy_(torch.as_tensor(rng.normal(-1.0, 1.0, 36), dtype=torch.float32))
-        small.heads.reg_out.b.copy_(torch.as_tensor(rng.normal(0.0, 0.3, 36), dtype=torch.float32))
+    spread_biases(small.heads, np.random.default_rng(4), 1.0, 0.3)
     x = torch.as_tensor(np.random.default_rng(8).uniform(-1, 1, (128, 192, 3)).astype(np.float32))
     cpu = detect_2d(small, x, max_dets=32)
     card = detect_2d(copy.deepcopy(small).to(device), x.to(device), max_dets=32)
     log(f"apps: detect_2d small (depth 18, 4 classes, 128x192) card vs CPU: "
         f"{detections_equal('detect_2d small', cpu, card)}")
 
-    model = retinanet2d_init(torch.Generator().manual_seed(0), num_classes=80, depth=depth, device=device)
-    image = torch.as_tensor(np.random.default_rng(9).uniform(-1, 1, hw + (3,)).astype(np.float32)).to(device)
+    model = retinanet2d_init(torch.Generator().manual_seed(0), num_classes=80, depth=50, device=device)
+    spread_biases(model.heads, np.random.default_rng(10), 1.0, 0.2)
+    image = torch.as_tensor(np.random.default_rng(9).uniform(-1, 1, (H, W, 3)).astype(np.float32)).to(device)
     (scores, classes, boxes, mask), launches = counted(lambda: detect_2d(model, image))
-    if launches["nms"] != 1 or scores.shape != (100,) or not torch.isfinite(boxes).all():
-        fail(f"apps: detect_2d 1080p: launches {launches}, shapes {tuple(scores.shape)}")
+    kept = int(mask.sum())
+    if launches["nms"] != 1 or scores.shape != (100,) or not kept or not torch.isfinite(boxes).all():
+        fail(f"apps: detect_2d 1080p: launches {launches}, shapes {tuple(scores.shape)}, {kept} kept")
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     s.record()
     for _ in range(3):
         detect_2d(model, image)
     e.record()
     torch.cuda.synchronize()
-    log(f"apps: detect_2d (ResNet-{depth}, 80 classes, {hw[0]}x{hw[1]}: the top 1,000 of {num_anchors_for_shape(hw) * 80:,} scores): "
-        f"{int(mask.sum())} kept above 0.05 (focal-prior heads score 0.01), finite; nms calls {launches['nms']}; "
-        f"{s.elapsed_time(e) / 3:.2f} ms a call (CUDA events, mean of 3)")
+    log(f"apps: detect_2d (ResNet-50, 80 classes, {H}x{W}, spread-bias heads: the top 1,000 of "
+        f"{num_anchors_for_shape((H, W)) * 80:,} scores): {kept} kept above 0.05, finite; nms calls "
+        f"{launches['nms']}; {s.elapsed_time(e) / 3:.2f} ms a call (CUDA events, mean of 3)")
     return launches
 
 
-def apps_benchmark_speed(device, argv=()):
+def apps_benchmark_speed(device):
     """``tools/benchmark_speed.py`` at its defaults (540x960, ResNet-50,
     batches 1/2/4/8, 10 iterations): its lines."""
     from playground3d_tpu_torch.tools import benchmark_speed
 
-    _, text = quiet(lambda: benchmark_speed.main(list(argv) + ["--device", str(device)]))
+    _, text = quiet(lambda: benchmark_speed.main(["--device", str(device)]))
     lines = text.strip().splitlines()
     if len(lines) != 5 or not lines[0].startswith("device: "):
         fail(f"apps: benchmark_speed printed {lines}")
@@ -3267,7 +3318,7 @@ def apps_benchmark_speed(device, argv=()):
         log(f"apps: benchmark_speed: {line}")
 
 
-def apps_forward_share(device, hw=(512, 768), depth: int = 50, batch: int = 4, n: int = 5):
+def apps_forward_share(device, n: int = 5):
     """How much of a training step is the forward: one ``Trainer.train_step``
     (``apps/train_detector.py``'s defaults: ResNet-50 conv7, FPN/heads 256,
     uint8 frames, batch 4 at 512x768) and one ``forward_raw`` of the same
@@ -3281,9 +3332,10 @@ def apps_forward_share(device, hw=(512, 768), depth: int = 50, batch: int = 4, n
     from playground3d_tpu_torch.models.retinanet import forward_raw
     from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
 
+    hw, batch = (512, 768), 4
     frames, labels = next(SyntheticDetectionDataset(image_shape=hw, output_dtype="uint8").batches(batch))
     frames, labels = torch.as_tensor(frames).to(device), torch.as_tensor(labels).to(device)
-    trainer = Trainer(TrainConfig(depth=depth, image_shape=hw), generator=torch.Generator().manual_seed(0),
+    trainer = Trainer(TrainConfig(depth=50, image_shape=hw), generator=torch.Generator().manual_seed(0),
                       device=device)
 
     def forward():
@@ -3312,7 +3364,7 @@ def apps_forward_share(device, hw=(512, 768), depth: int = 50, batch: int = 4, n
     if not step_busy > 0:
         fail("apps: the profiler saw no device time in a training step")
         return
-    log(f"apps: forward's share of a training step (ResNet-{depth} conv7, {hw[0]}x{hw[1]}, batch {batch}, uint8; "
+    log(f"apps: forward's share of a training step (ResNet-50 conv7, {hw[0]}x{hw[1]}, batch {batch}, uint8; "
         f"mean of {n}): step busy {step_busy:.2f} ms / wall {step_wall:.2f} ms; forward without gradients busy "
         f"{fwd_busy:.2f} ms / wall {fwd_wall:.2f} ms: {fwd_busy / step_busy * 100:.1f}% of the step's busy time")
     del trainer
@@ -3323,13 +3375,14 @@ def app_metrics(metrics, keys=("Recall", "Precision", "MOTA", "ID switches")) ->
     return ", ".join(f"{k} {float(metrics[k]):.3f}" for k in keys)
 
 
-def apps_demos(device, scale=(), hw=(512, 768), al_hw=(256, 384)):
+def apps_demos(device):
     """The demos with short training at full width (512x768, depth 18, 3
     cameras): ``demo_e2e --quantize``; ``demo_e2e_mc`` trained once
     (``--sequences 0``), then tracking float and ``--quantize --cd-max 8``
-    from its checkpoints; ``auto_label_e2e``. Each run's launches are
-    counted on their own. No quality floor: the nets are barely trained.
-    ``scale`` (arguments given last) and the sizes cut a CPU rehearsal."""
+    from its checkpoints; ``auto_label_e2e`` at 256x384. Each run's
+    launches are counted on their own. No quality floor: the nets are
+    barely trained. -> (the multi-camera demo's checkpoint prefix, each
+    run's launches)."""
     from playground3d_tpu_torch.apps import auto_label_e2e, demo_e2e, demo_e2e_mc
 
     out_dir = os.path.join("_outputs", "apps")
@@ -3349,33 +3402,33 @@ def apps_demos(device, scale=(), hw=(512, 768), al_hw=(256, 384)):
 
     prefix = os.path.join(out_dir, "demo")
     _, text = run("demo_e2e --steps 100 --quantize (ResNet-18 s2d, 512x768, 90 frames)", demo_e2e,
-                  ["--steps", "100", "--quantize", "--out-prefix", prefix, "--device", str(device), *scale],
+                  ["--steps", "100", "--quantize", "--out-prefix", prefix, "--device", str(device)],
                   ("focal_loss", "qconv", "nms", "auction"))
     losses = text.split("training done; loss ")[1].split("\n")[0].split(" -> ")
     if not all(np.isfinite([float(v) for v in losses])):
         fail(f"apps: demo_e2e: losses {losses}")
-    check_checkpoint(prefix + "_detector.npz", 18, hw, stem="s2d")
+    check_checkpoint(prefix + "_detector.npz", 18, (512, 768), stem="s2d")
 
     prefix = os.path.join(out_dir, "mc")
     _, text = run("demo_e2e_mc --steps 100 --crop-steps 60 --sequences 0 (train only)", demo_e2e_mc,
                   ["--steps", "100", "--crop-steps", "60", "--sequences", "0", "--out-prefix", prefix,
-                   "--device", str(device), *scale, *(["--crop-steps", "2"] if scale else [])], ("focal_loss",))
+                   "--device", str(device)], ("focal_loss",))
     for tag in ("detector", "crop-detector"):
         loss = float(text.split(f"{tag} done: loss=")[1].split("\n")[0])
         if not np.isfinite(loss):
             fail(f"apps: demo_e2e_mc: {tag} loss {loss}")
-    check_checkpoint(prefix + "_det.npz", 18, hw, stem="s2d")
+    check_checkpoint(prefix + "_det.npz", 18, (512, 768), stem="s2d")
     check_checkpoint(prefix + "_crop.npz", 18, (112, 112))
     ckpts = ["--det-ckpt", prefix + "_det.npz", "--crop-ckpt", prefix + "_crop.npz"]
     for label, extra in (("float", []), ("--quantize --cd-max 8", ["--quantize", "--cd-max", "8"])):
         need = ("qconv", "nms", "auction", "crop_resize_s2d") if extra else ("nms", "auction", "crop_resize_s2d")
         run(f"demo_e2e_mc {label} from the checkpoints (3 cameras, 60 frames)", demo_e2e_mc,
-            ckpts + extra + ["--out-prefix", prefix + ("_int8" if extra else "_float"), "--device", str(device), *scale],
+            ckpts + extra + ["--out-prefix", prefix + ("_int8" if extra else "_float"), "--device", str(device)],
             need)
 
     run("auto_label_e2e --steps 100 (256x384, 60 frames)", auto_label_e2e,
-        ["--steps", "100", "--out-prefix", os.path.join(out_dir, "al"), "--device", str(device), *scale,
-         "--height", str(al_hw[0]), "--width", str(al_hw[1])],
+        ["--steps", "100", "--out-prefix", os.path.join(out_dir, "al"), "--device", str(device),
+         "--height", "256", "--width", "384"],
         ("focal_loss", "nms"))
     for suffix in (".y4m", "_session.npz", "_pred.csv", "_gt.csv"):
         if not os.path.exists(os.path.join(out_dir, "al") + suffix):
@@ -3383,10 +3436,10 @@ def apps_demos(device, scale=(), hw=(512, 768), al_hw=(256, 384)):
     return prefix, runs
 
 
-def apps_overlay(device, prefix, n_frames: int = T_CLIP, hw=(512, 768)):
+def apps_overlay(device, prefix):
     """``TrackOverlayWriter`` as ``on_frame`` of the multi-camera tracker
-    over one clip (``process`` a frame) with the demo's trained nets: a PNG
-    a camera a frame."""
+    over one clip (``process`` a frame, 512x768) with the demo's trained
+    nets: a PNG a camera a frame."""
     import torch
 
     from playground3d_tpu_torch.apps.demo_e2e_mc import shifted_registry
@@ -3398,6 +3451,7 @@ def apps_overlay(device, prefix, n_frames: int = T_CLIP, hw=(512, 768)):
     from playground3d_tpu_torch.tools.visualize import TrackOverlayWriter
     from playground3d_tpu_torch.utils.config import TrackerConfig
 
+    hw = (512, 768)
     ds = SyntheticDetectionDataset(image_shape=hw)
     shifts = [0.0, 160.0, 320.0]
     reg, projectors = shifted_registry(ds, shifts)
@@ -3414,7 +3468,7 @@ def apps_overlay(device, prefix, n_frames: int = T_CLIP, hw=(512, 768)):
     scene = SyntheticScene(n_objects=10, seed=99, x_spawn=(465.0, 980.0), x_visible=(445.0, 1000.0))
     rng = np.random.default_rng(5)
     t0 = time.time()
-    for f in range(n_frames):
+    for f in range(T_CLIP):
         frames = np.stack([(np.clip(render_frame(scene, f / 30.0, reg.P[ci, 0], height=hw[0], width=hw[1], rng=rng,
                                                  normalized=False)[0], 0, 1) * 255).astype(np.uint8)
                            for ci in range(len(cameras))])
@@ -3422,33 +3476,32 @@ def apps_overlay(device, prefix, n_frames: int = T_CLIP, hw=(512, 768)):
     writer.close()
     torch.cuda.synchronize()
     pngs = sorted(os.path.join(c, p) for c in cameras for p in os.listdir(os.path.join(out, c)) if p.endswith(".png"))
-    if writer.frames_written != n_frames or len(pngs) != n_frames * len(cameras):
-        fail(f"apps: TrackOverlayWriter wrote {len(pngs)} PNGs for {n_frames} frames x {len(cameras)} cameras")
-    log(f"apps: TrackOverlayWriter on MultiCameraTracker.process (3 cameras, {hw[0]}x{hw[1]}, {n_frames} frames): "
+    if writer.frames_written != T_CLIP or len(pngs) != T_CLIP * len(cameras):
+        fail(f"apps: TrackOverlayWriter wrote {len(pngs)} PNGs for {T_CLIP} frames x {len(cameras)} cameras")
+    log(f"apps: TrackOverlayWriter on MultiCameraTracker.process (3 cameras, {hw[0]}x{hw[1]}, {T_CLIP} frames): "
         f"{len(pngs)} PNGs in {out} ({time.time() - t0:.1f} s, rendering and PNG encoding included)")
 
 
-def phase_apps(device, rehearse: bool = False) -> dict:
+def phase_apps(device) -> dict:
     """The last one-card apps and tools on the card: ``detect_video``,
     ``detect_singleframe``, ``detect_2d``, ``benchmark_speed``, the demos
     with short training, ``TrackOverlayWriter``. Returns each run's
-    launches. ``rehearse`` cuts every size and step count, for a run on
-    the CPU with the card's calls stubbed."""
+    launches."""
     import torch
 
     t_phase = time.time()
-    hw, depth = ((64, 96), 18) if rehearse else ((H, W), 50)
-    runs = {"detect_video": apps_detect_video(device, hw, depth, 3 if rehearse else T_CLIP)}
-    runs["detect_singleframe"] = apps_detect_singleframe(device, hw, depth)
-    runs["detect_2d"] = apps_detect_2d(device, hw, depth)
+    os.makedirs("_outputs", exist_ok=True)
+    # one ResNet-50 conv7 detector with spread-bias heads for both 1080p detect paths
+    ckpt = zero_head_checkpoint(os.path.join("_outputs", "apps_det_r50.npz"), depth=50, seed=1)
+    runs = {"detect_video": apps_detect_video(device, ckpt)}
+    runs["detect_singleframe"] = apps_detect_singleframe(device, ckpt)
+    runs["detect_2d"] = apps_detect_2d(device)
     torch.cuda.empty_cache()
-    apps_benchmark_speed(device, ["--depth", "18", "--height", "64", "--width", "96", "--iters", "1"] if rehearse else ())
-    apps_forward_share(device, *(((64, 96), 18, 2, 1) if rehearse else ()))
-    small = ["--steps", "2", "--batch", "2", "--frames", "6", "--height", "64", "--width", "96", "--zoom", "3"]
-    prefix, demos = apps_demos(device, small if rehearse else (), (64, 96) if rehearse else (512, 768),
-                               (96, 144) if rehearse else (256, 384))
+    apps_benchmark_speed(device)
+    apps_forward_share(device)
+    prefix, demos = apps_demos(device)
     runs.update(demos)
-    apps_overlay(device, prefix, 3 if rehearse else T_CLIP, (64, 96) if rehearse else (512, 768))
+    apps_overlay(device, prefix)
     log(f"apps: phase took {time.time() - t_phase:.1f} s")
     return runs
 
@@ -3464,16 +3517,14 @@ def device_line() -> str:
 def main() -> None:
     import torch
 
-    args, kernels_only, apps_only, loop_calls = sys.argv[1:], False, False, None
+    args, kernels_only, loop_calls = sys.argv[1:], False, None
     while args:
         if args[0] == "--kernels-only":
             kernels_only, args = True, args[1:]
-        elif args[0] == "--apps-only":
-            apps_only, args = True, args[1:]
         elif args[0] == "--loop-calls" and len(args) > 1:
             loop_calls, args = os.path.abspath(args[1]), args[2:]
         else:
-            fail(f"unknown arguments {args} (the options are --kernels-only, --apps-only and --loop-calls PATH)")
+            fail(f"unknown arguments {args} (the options are --kernels-only and --loop-calls PATH)")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     try:
@@ -3485,10 +3536,6 @@ def main() -> None:
 
     t0 = time.time()
     phase_build()
-    if apps_only:
-        phase_apps(device)
-        log(f"total: {time.time() - t0:.1f} s (apps only: no result line)")
-        return
     entries = phase_kernels(device)
     if kernels_only:
         log(f"total: {time.time() - t0:.1f} s (kernels only: no result line)")

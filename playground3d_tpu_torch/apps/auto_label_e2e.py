@@ -20,6 +20,7 @@ NMSes a frame on the device and crosses to the host once a frame.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -36,7 +37,7 @@ def main(argv=None):
     ap.add_argument("--zoom", type=float, default=1.5)
     ap.add_argument("--det-ckpt", default=None, help="skip training")
     ap.add_argument("--sigma-d", type=float, default=0.3)
-    ap.add_argument("--out-prefix", default="/tmp/auto_label")
+    ap.add_argument("--out-prefix", default="_outputs/auto_label")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
@@ -66,6 +67,7 @@ def main(argv=None):
     from playground3d_tpu_torch.utils.constants import CLASS_NAMES
 
     device = resolve_device(args.device)
+    os.makedirs(os.path.dirname(args.out_prefix) or ".", exist_ok=True)
     t_start = time.time()
 
     def log(msg):

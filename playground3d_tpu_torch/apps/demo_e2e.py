@@ -18,6 +18,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -62,7 +63,7 @@ def main(argv=None):
         "--det-ckpt", default=None,
         help="load a trained detector npz and skip training (quality A/B runs)",
     )
-    ap.add_argument("--out-prefix", default="/tmp/demo_e2e")
+    ap.add_argument("--out-prefix", default="_outputs/demo_e2e")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
@@ -73,6 +74,7 @@ def main(argv=None):
     from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
 
     device = resolve_device(args.device)
+    os.makedirs(os.path.dirname(args.out_prefix) or ".", exist_ok=True)
     t0 = time.time()
 
     def log(msg):

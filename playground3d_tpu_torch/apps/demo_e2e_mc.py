@@ -25,6 +25,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -110,7 +111,7 @@ def main(argv=None):
         help="warm-start training from the periodic out-prefix checkpoints "
         "if present (optimizer state is reinitialized, only params carry over)",
     )
-    ap.add_argument("--out-prefix", default="/tmp/demo_mc")
+    ap.add_argument("--out-prefix", default="_outputs/demo_mc")
     ap.add_argument(
         "--per-frame", action="store_true",
         help="track with one process() call per frame (eager) instead of "
@@ -186,8 +187,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    import os
-
     import torch
 
     from playground3d_tpu_torch import resolve_device
@@ -198,6 +197,7 @@ def main(argv=None):
     from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
 
     device = resolve_device(args.device)
+    os.makedirs(os.path.dirname(args.out_prefix) or ".", exist_ok=True)
     t0 = time.time()
 
     def log(msg):
