@@ -43,16 +43,29 @@ result line):
              are recorded, replayed through their kernels and timed.
              Before that, the card's clip is held against the CPU's on a
              small input for each transport and for a quantized pair;
-4. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
+4. variants - the JAX clip's two variants, ``make_mc_clip_step(
+             batch_detects=True)`` (the clip's detect frames through one
+             detector forward, a CUDA graph of its own) and ``unroll=True``
+             (the whole clip one CUDA graph), called directly as ``bench.py``
+             calls them: the shipped configuration over the main phase's two
+             clips, each an eager clip and three captured runs that must
+             equal the three-branch captured clip and read the card once a
+             clip, launches a clip as the code implies; a conv7 + float
+             unrolled clip (``crop_resize.cu`` inside the clip graph); and
+             the batched detector pass at N 4 against four single-frame
+             passes with random output convs (reported bit for bit);
+5. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
              against the CPU at 64x96 (conv7 + float, s2d + int8); the shipped
              int8 ResNet-50 s2d detector on 24 uint8 s2d-packed 1080p frames
-             through ``SingleCameraTracker.track`` (``qconv.cu`` exactly 102
-             launches a frame, no crop or YUV kernel, one host read a frame,
-             the NMS and auction rounds read from the card's counters, the
-             CSV written and read back); then ``apps/track.py --mode single`` (real conv7 detector,
-             rendered 1080p frames) and ``--mode multi --oracle``, both with
-             ``--eval``;
-5. session - recorded sessions through ``apps/track.py --mode session``: a
+             through ``SingleCameraTracker.track``, its step one CUDA graph
+             a frame, against an eager run of the same frames (``qconv.cu``
+             exactly 102 launches a frame, no crop or YUV kernel, one host
+             read a frame and no other wait under the sync-debug mode, the
+             NMS and auction rounds read from the card's counters, the CSV
+             written and read back); then ``apps/track.py --mode single``
+             (real conv7 detector, rendered 1080p frames) and ``--mode multi
+             --oracle``, both with ``--eval``;
+6. session - recorded sessions through ``apps/track.py --mode session``: a
              session directory of two cameras' 3840x2160 y4m segments with
              burned timestamps, an ignore region and checkpoints, tracked at
              1080p on the card with ``--emit s2d_u8`` (the fused 4K host
@@ -63,7 +76,7 @@ result line):
              twins, the card's session CSV equal the CPU's on a small
              session, an H.264 leg where libav exists; session frames/s,
              host ms per frame by stage and the card's busy share;
-6. train   - detector training: one ``Trainer.train_step`` on the card
+7. train   - detector training: one ``Trainer.train_step`` on the card
              against the CPU (depth 18, 64x128); ``apps/train_detector.py``
              in-process at its defaults (ResNet-50, conv7, FPN/heads 256
              wide, 4-conv towers, 512x768, batch 4, uint8 frames) for 20
@@ -75,7 +88,7 @@ result line):
              --mode single``; one Trainer at 1080x1920, batch 2; steps/s,
              images/s, card busy, host ms per batch, peak memory; then
              ``apps/fit_filter.py`` into a tracker;
-7. apps    - the last one-card apps and tools: ``apps/detect_video.py``
+8. apps    - the last one-card apps and tools: ``apps/detect_video.py``
              (card against CPU at 64x96, then its defaults: ResNet-50
              conv7, 1080p, 24 frames; the CSV and its fps trailer),
              ``detect_singleframe`` (card against CPU at 128x192; at 1080p
@@ -93,7 +106,7 @@ result line):
              ``focal_loss`` launches counted on their own, and
              ``TrackOverlayWriter`` as the ``on_frame`` of one clip of the
              multi-camera tracker (a PNG a camera a frame);
-8. report  - the ``kernels`` JSON line, the card's name and power limit, and
+9. report  - the ``kernels`` JSON line, the card's name and power limit, and
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
@@ -1636,18 +1649,20 @@ def graph_nodes(graph) -> int:
     return int(n.value)
 
 
-def graph_detail(clip, label: str):
-    """Per branch of the captured clip: graph nodes, the launches it
-    credits, a replay's time (CUDA events, median of 5), and the card's busy
-    time and kernels in one replay under the profiler. Replays run on the
-    clip's static buffers (the timed runs are over)."""
+def graph_detail(clip, label: str, phase: str = "main"):
+    """Per graph of the captured clip (a branch, the batched detector pass
+    or the whole unrolled clip): graph nodes, the launches it credits, its
+    capture and instantiate time (host), a replay's time (CUDA events,
+    median of 5), and the card's busy time and kernels in one replay under
+    the profiler. Replays run on the clip's static buffers (the timed runs
+    are over)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     medians = {}
     for runner in clip.runners.values():
-        for name, (graph, tally) in runner.graphs.items():
+        for name, (graph, tally) in runner.programs.graphs.items():
             times = []  # graph.replay() alone credits no launch: these replays are measurement
             for _ in range(5):
                 s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1657,16 +1672,20 @@ def graph_detail(clip, label: str):
                 torch.cuda.synchronize()
                 times.append(s.elapsed_time(e))
             medians[name] = replay_ms = float(np.median(times))
-            line = (f"main ({label}): graph {name}: {graph_nodes(graph)} nodes, kernel launches credited "
-                    f"{ {k.__name__: v for k, v in tally.items()} }, replay {replay_ms:.3f} ms median of 5 "
-                    f"(CUDA events)")
+            cap_s, inst_s = runner.programs.capture_s[name]
+            line = (f"{phase} ({label}): graph {name}: {graph_nodes(graph)} nodes, kernel launches credited "
+                    f"{ {k.__name__: v for k, v in tally.items()} }, captured in {cap_s:.3f} s and instantiated "
+                    f"in {inst_s:.3f} s (host), replay {replay_ms:.3f} ms median of 5 (CUDA events)")
             with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 graph.replay()
                 torch.cuda.synchronize()
             kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
             busy_ms = sum(ev.self_device_time_total for ev in kern) / 1e3
+            qk = [ev for ev in kern if "qconv_kernel" in ev.key]
             line += (f"; one replay under the profiler: card busy {busy_ms:.3f} ms ({busy_ms / replay_ms * 100:.0f}% "
-                     f"of the replay's time), {sum(ev.count for ev in kern)} kernels" if busy_ms > 0
+                     f"of the replay's time), {sum(ev.count for ev in kern)} kernels"
+                     + (f", qconv_kernel {sum(ev.self_device_time_total for ev in qk) / 1e3:.3f} ms over "
+                        f"{sum(ev.count for ev in qk)}" if qk else "") if busy_ms > 0
                      else "; the profiler saw no device time (card busy not measured)")
             log(line)
     return medians
@@ -1678,43 +1697,96 @@ def clip_outcome(trk, conf_cnt0):
     return births, float((trk.state.conf_cnt - conf_cnt0).clamp(min=0).sum())
 
 
+def variant_clip(trk, det, crop, graphs: bool, variant: dict):
+    """``make_mc_clip_step`` with a variant of the JAX clip, called
+    directly as ``bench.py`` calls it (the tracker exposes no variant)."""
+    from playground3d_tpu_torch.pipeline.multi_cam import make_mc_clip_step
+
+    return make_mc_clip_step(det, trk.bank, trk.centers, trk.kfp, trk.cfg, crop_model=crop, stem=det.stem,
+                             crop_stem=crop.stem, graphs=graphs, **variant)
+
+
+def captured_names(variant: dict):
+    """The graphs a clip of ``make_mc_clip_step(**variant)`` captures."""
+    if variant.get("unroll"):
+        return ["clip"]
+    return (["batched"] if variant.get("batch_detects") else []) + ["crop", "detect", "passthrough"]
+
+
+def rows_diff(what: str, trk, other):
+    """(states7, final kf.x) max abs differences of ``trk`` from ``other``
+    (trackers or their kept rows and state); fails unless the rows' frames,
+    ids and classes and the final masks and ids are equal and both
+    differences are within 1e-4."""
+    if len(trk.rows) != len(other.rows):
+        fail(f"{what}: {len(trk.rows)} rows against {len(other.rows)}")
+    worst = 0.0
+    for rg, re_ in zip(trk.rows, other.rows):
+        if rg[0] != re_[0] or not (np.array_equal(rg[2], re_[2]) and np.array_equal(rg[4], re_[4])):
+            fail(f"{what}: frame {rg[0]}: ids or classes differ")
+        if not np.isfinite(rg[3]).all():
+            fail(f"{what}: non-finite states at frame {rg[0]}")
+        if len(rg[3]):
+            worst = max(worst, float(np.abs(rg[3] - re_[3]).max()))
+    import torch
+
+    live = other.state.kf.mask
+    if not torch.equal(trk.state.kf.mask, live) or not torch.equal(trk.state.ids, other.state.ids):
+        fail(f"{what}: the final masks or ids differ")
+    kfx = float((trk.state.kf.x - other.state.kf.x)[live].abs().max()) if live.any() else 0.0
+    if not (worst <= 1e-4 and kfx <= 1e-4):
+        fail(f"{what}: states7 differ by {worst}, kf.x by {kfx} (tolerance 1e-4)")
+    return worst, kfx
+
+
 def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail: bool = False,
-              repeats: int = 3, loop_calls: str | None = None, ignore=None):
+              repeats: int = 3, loop_calls: str | None = None, ignore=None, variant: dict | None = None,
+              reference=None, phase: str = "main"):
     """One configuration of the main path through ``track_clips``:
 
     * a warm-up clip of ``n_warm`` frames (all three branches) on a tracker
-      of its own captures the three CUDA graphs;
+      of its own captures the clip's CUDA graphs (the three branches; with
+      ``variant``, ``make_mc_clip_step(**variant)``'s graphs);
     * the eager clip on the card (``graphs=False``) over all of ``frames``
-      (a multiple of 24), the reference;
+      (a multiple of 24);
     * ``repeats`` runs of the captured clip over the same frames, each on a
       fresh tracker that shares the warm-up's graphs, with PyTorch's
       sync-debug mode on: each must equal the eager run (ids, masks,
       classes equal, states7 and the final kf.x within 1e-4; births and
       crop measurements equal) and read the card exactly once a clip and
       nowhere else. Every launch count is set to 0 just before the first
-      and read just after; they must equal the eager run's.
+      and read just after; they must equal the eager run's. With
+      ``reference`` (the three-branch captured run's rows and state) the
+      eager and the captured runs must equal it as well.
 
     With ``detail``, the eager branches are profiled and the NMS and auction
     calls of one detect and one crop frame are replayed and timed (and saved
     to ``loop_calls`` when it is given). ``ignore`` gives every tracker
     these ignore polygons (the bank's grid is then read inside the graphs).
 
-    Returns the median frames/s, the launch counts and the frame counts."""
+    Returns a dict: the median frames/s and each run's, the eager frames/s,
+    the launch counts, the crop and detect frame counts, the graphs'
+    replay medians, the peak device memory, and the first captured run's
+    rows and final state (``kept``)."""
+    import types
     import warnings
 
     import torch
 
     from playground3d_tpu_torch.ops.topk import DeviceRounds, HostSyncs
 
+    variant = variant or {}
     reg, cfg = bench_registry(), tracker_config()
     counters = kernel_counters()
     warm = make_tracker(reg, det, crop, cfg, device, N_SEED, ignore=ignore)
+    if variant:
+        warm._clip = variant_clip(warm, det, crop, True, variant)
     warm.track_clips(sources(frames[:n_warm]), clip_len=n_warm, yuv_hw=yuv_hw)
     torch.cuda.synchronize()
     clip = warm._clip_fn()
-    captured = sorted(name for runner in clip.runners.values() for name in runner.graphs)
-    if captured != ["crop", "detect", "passthrough"]:
-        fail(f"main ({label}): the warm-up captured {captured}, not the three branches")
+    captured = sorted(name for runner in clip.runners.values() for name in runner.programs.graphs)
+    if captured != captured_names(variant):
+        fail(f"{phase} ({label}): the warm-up captured {captured}, not {captured_names(variant)}")
 
     def timed(trk, watch_syncs: bool = False):
         for fn in counters.values():
@@ -1740,7 +1812,8 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
         wall = time.time() - t0
         syncing = [f"{w.filename}:{w.lineno}" for w in caught if "synchronizing CUDA operation" in str(w.message)]
         if syncing:
-            fail(f"main ({label}): {len(syncing)} synchronizing calls inside track_clips, at {sorted(set(syncing))}")
+            fail(f"{phase} ({label}): {len(syncing)} synchronizing calls inside track_clips, at "
+                 f"{sorted(set(syncing))}")
         loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
         return dict(fps=frames.shape[0] / s.elapsed_time(e) * 1e3, wall=wall, stats=stats,
                     launches={name: fn.launches for name, fn in counters.items()},
@@ -1748,11 +1821,18 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
                     outcome=clip_outcome(trk, conf_cnt0), trk=trk)
 
     torch.cuda.reset_peak_memory_stats()
-    ref = timed(make_tracker(reg, det, crop, cfg, device, N_SEED, graphs=False, ignore=ignore))
+    base_bytes = torch.cuda.memory_allocated()
+    eager_trk = make_tracker(reg, det, crop, cfg, device, N_SEED, graphs=False, ignore=ignore)
+    if variant:
+        eager_trk._clip = variant_clip(eager_trk, det, crop, False, variant)
+    ref = timed(eager_trk)
     n_frames, n_clips = frames.shape[0], -(-frames.shape[0] // T_CLIP)
     eager = ref["trk"]
     if len(eager.rows) != n_frames:
-        fail(f"main ({label}): the eager clip gave {len(eager.rows)} rows for {n_frames} frames")
+        fail(f"{phase} ({label}): the eager clip gave {len(eager.rows)} rows for {n_frames} frames")
+    if reference is not None:
+        ediff = rows_diff(f"{phase} ({label}): the eager clip against the three-branch captured clip", eager,
+                          reference)
 
     runs = []
     for r in range(repeats):
@@ -1760,64 +1840,61 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
         trk._clip = clip
         run = timed(trk, watch_syncs=True)
         if run["syncs"] != n_clips or run["loops"] != {"drain": n_clips}:
-            fail(f"main ({label}): {run['syncs']} host reads ({run['loops']}) for {n_clips} clips; "
+            fail(f"{phase} ({label}): {run['syncs']} host reads ({run['loops']}) for {n_clips} clips; "
                  f"exactly one a clip is the contract")
-        if len(trk.rows) != n_frames:
-            fail(f"main ({label}): {len(trk.rows)} rows for {n_frames} frames")
-        worst = 0.0
-        for rg, re_ in zip(trk.rows, eager.rows):
-            if rg[0] != re_[0] or not (np.array_equal(rg[2], re_[2]) and np.array_equal(rg[4], re_[4])):
-                fail(f"main ({label}): frame {rg[0]}: ids or classes of the graph clip differ from the eager clip")
-            if not np.isfinite(rg[3]).all():
-                fail(f"main ({label}): non-finite states at frame {rg[0]}")
-            if len(rg[3]):
-                worst = max(worst, float(np.abs(rg[3] - re_[3]).max()))
-        live = eager.state.kf.mask
-        if not torch.equal(trk.state.kf.mask, live) or not torch.equal(trk.state.ids, eager.state.ids):
-            fail(f"main ({label}): the final masks or ids of the graph clip differ from the eager clip")
-        kfx = float((trk.state.kf.x - eager.state.kf.x)[live].abs().max()) if live.any() else 0.0
-        if not (worst <= 1e-4 and kfx <= 1e-4):
-            fail(f"main ({label}): states7 differ by {worst}, kf.x by {kfx} between graph and eager clips")
+        run["diff"] = rows_diff(f"{phase} ({label}): graph run {r} against the eager clip", trk, eager)
+        if reference is not None:
+            run["diff"] = rows_diff(f"{phase} ({label}): graph run {r} against the three-branch captured clip",
+                                    trk, reference)
         if run["outcome"] != ref["outcome"] or run["rounds"] != ref["rounds"]:
-            fail(f"main ({label}): births / crop measurements {run['outcome']} or rounds {run['rounds']} differ "
+            fail(f"{phase} ({label}): births / crop measurements {run['outcome']} or rounds {run['rounds']} differ "
                  f"from the eager clip's {ref['outcome']} / {ref['rounds']}")
         if r == 0 and run["launches"] != ref["launches"]:
-            fail(f"main ({label}): the graph run credited {run['launches']} launches, the eager run made "
+            fail(f"{phase} ({label}): the graph run credited {run['launches']} launches, the eager run made "
                  f"{ref['launches']}")
-        run["diff"] = (worst, kfx)
         runs.append(run)
+    if len(clip.runners) != 1:
+        fail(f"{phase} ({label}): the timed runs made {len(clip.runners)} runners; the warm-up's graphs serve all")
 
     crop_frames = [k for k in range(n_frames) if k % cfg.det_step and k % cfg.skip_step == 0]
     n_detect = sum(1 for k in range(n_frames) if k % cfg.det_step == 0)
     live_at_crop = [len(eager.rows[k][2]) for k in crop_frames]
     births, crop_measured = ref["outcome"]
     if births <= 0:
-        fail(f"main ({label}): the detector produced no births")
+        fail(f"{phase} ({label}): the detector produced no births")
     if min(live_at_crop) == 0 or crop_measured <= 0:
-        fail(f"main ({label}): crop frames found no live tracks ({live_at_crop}) or updated none")
+        fail(f"{phase} ({label}): crop frames found no live tracks ({live_at_crop}) or updated none")
     fps = [run["fps"] for run in runs]
     first = runs[0]
-    log(f"main ({label}): {n_frames} frames ({n_detect} detect, {len(crop_frames)} crop) of 1x{H}x{W}, "
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{phase} ({label}): {n_frames} frames ({n_detect} detect, {len(crop_frames)} crop) of 1x{H}x{W}, "
         f"{n_clips} clips: graphs {float(np.median(fps)):.2f} frames/s median of {repeats} "
         f"({', '.join(f'{f:.2f}' for f in fps)}; CUDA events), eager {ref['fps']:.2f} frames/s; host wall "
-        f"{first['wall']:.2f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"main ({label}): graph runs equal the eager run: ids/raw_mask/classes equal, states7 within "
+        f"{first['wall']:.2f} s; peak device memory {peak / 2**30:.2f} GiB ({(peak - base_bytes) / 2**30:.2f} GiB "
+        f"above what was allocated before the eager run)")
+    against = "the eager run and the three-branch captured clip" if reference is not None else "the eager run"
+    log(f"{phase} ({label}): graph runs equal {against}: ids/raw_mask/classes equal, states7 within "
         f"{max(run['diff'][0] for run in runs):.3g}, final kf.x within {max(run['diff'][1] for run in runs):.3g} "
-        f"(tolerance 1e-4); births {births}, crop measurements {crop_measured:.0f}, live tracks at crop "
-        f"frames {live_at_crop}")
+        f"(tolerance 1e-4)" + (f"; the eager run within {ediff[0]:.3g} / {ediff[1]:.3g} of the three-branch clip"
+                               if reference is not None else "")
+        + f"; births {births}, crop measurements {crop_measured:.0f}, live tracks at crop frames {live_at_crop}")
     timers = {k: v for k, v in first["stats"].items() if k not in ("frames", "fps", "crop")}
-    log(f"main ({label}): host time in the first graph run (wall {first['wall'] * 1e3:.1f} ms): "
+    log(f"{phase} ({label}): host time in the first graph run (wall {first['wall'] * 1e3:.1f} ms): "
         + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timers.items())
         + " (stage: the producer thread filling pinned buffers and queueing the copies; detect: enqueueing "
         "the clips; drain: waiting for and unpacking the reads)")
-    log(f"main ({label}): host reads {first['syncs']} ({first['loops']}; the eager run {ref['syncs']}), none "
+    log(f"{phase} ({label}): host reads {first['syncs']} ({first['loops']}; the eager run {ref['syncs']}), none "
         f"inside a clip (sync-debug mode); device rounds {first['rounds']} "
         f"({first['rounds']['nms'] / n_frames:.2f} NMS and {first['rounds']['auction'] / n_frames:.2f} auction "
         f"a frame); kernel launches {first['launches']}")
-    replay = graph_detail(clip, label)
+    replay = graph_detail(clip, label, phase)
     n_pass = n_frames - n_detect - len(crop_frames)
-    branch_ms = n_detect * replay["detect"] + len(crop_frames) * replay["crop"] + n_pass * replay["passthrough"]
-    log(f"main ({label}): the branches' replays alone take {branch_ms:.2f} ms for these {n_frames} frames "
+    if variant.get("unroll"):
+        branch_ms = n_clips * replay["clip"]
+    else:
+        branch_ms = (n_detect * replay["detect"] + len(crop_frames) * replay["crop"]
+                     + n_pass * replay["passthrough"] + n_clips * replay.get("batched", 0.0))
+    log(f"{phase} ({label}): the graphs' replays alone take {branch_ms:.2f} ms for these {n_frames} frames "
         f"({n_frames / branch_ms * 1e3:.1f} frames/s if nothing else ran); the timed runs took "
         + ", ".join(f"{n_frames / run['fps'] * 1e3:.2f}" for run in runs) + " ms")
     if detail:
@@ -1825,16 +1902,18 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
         profile_branches(eager, frames_dev, device, label + ", eager")
         per_clip = {"detect": n_detect // n_clips, "crop": len(crop_frames) // n_clips}
         time_tracker_loops(tracker_loop_calls(eager, frames_dev, device), per_clip, label, save=loop_calls)
-    return float(np.median(fps)), first["launches"], len(crop_frames), n_detect
+    kept = types.SimpleNamespace(rows=first["trk"].rows, state=first["trk"].state)
+    return dict(fps=float(np.median(fps)), runs=fps, eager_fps=ref["fps"], launches=first["launches"],
+                n_crop=len(crop_frames), n_detect=n_detect, n_clips=n_clips, replay=replay, peak=peak, kept=kept)
 
 
 def phase_main(device, loop_calls: str | None = None):
     """The shipped configuration at full width, then the three comparison
     configurations in the same run (the shipped one's NMS and auction calls
     saved to ``loop_calls`` when it is given). Returns the launches of each
-    kernel on the path that runs it."""
-    import torch
-
+    kernel on the path that runs it, and what the variants phase holds its
+    clips against: for the shipped and the conv7 configuration, the models,
+    frames and result of the three-branch captured run."""
     phase_small_reference(device)
 
     _, cfg, (det_f, crop_f), (det_q, crop_q), _ = shipped_models(device)
@@ -1845,8 +1924,8 @@ def phase_main(device, loop_calls: str | None = None):
     per_detect, per_crop = sum(seen["detect"].values()), sum(seen["crop"].values())
 
     # the shipped configuration: uint8 s2d frames, s2d stems, int8 nets
-    fps, launches, n_crop, n_detect = run_clips("s2d + int8", det_q, crop_q, packed, device, T_CLIP, detail=True,
-                                              loop_calls=loop_calls)
+    res = run_clips("s2d + int8", det_q, crop_q, packed, device, T_CLIP, detail=True, loop_calls=loop_calls)
+    launches, n_crop, n_detect = res["launches"], res["n_crop"], res["n_detect"]
     if launches["crop_and_resize_s2d"] != n_crop:
         fail(f"main: crop_and_resize_s2d launched {launches['crop_and_resize_s2d']} times for {n_crop} crop frames")
     if launches["qconv"] != n_detect * per_detect + n_crop * per_crop:
@@ -1855,38 +1934,137 @@ def phase_main(device, loop_calls: str | None = None):
         fail(f"main: the s2d path launched a kernel of another path: {launches}")
     if launches["nms"] < 1 or launches["auction"] < 1:
         fail(f"main: the NMS or auction kernel was launched no time: {launches}")
-    report = {"s2d + int8": fps}
+    report = {"s2d + int8": res["fps"]}
     path_launches = {k: launches[k] for k in ("crop_and_resize_s2d", "qconv", "nms", "auction")}
+    refs = {"s2d + int8": (det_q, crop_q, packed, res)}
 
     # comparisons, one clip each after a short warm-up
-    fps_f, l_f, n_crop_f, _ = run_clips("s2d + float", det_f, crop_f, packed[:T_CLIP], device, 6)
-    if l_f["qconv"] or l_f["crop_and_resize_s2d"] != n_crop_f:
+    res_f = run_clips("s2d + float", det_f, crop_f, packed[:T_CLIP], device, 6)
+    l_f = res_f["launches"]
+    if l_f["qconv"] or l_f["crop_and_resize_s2d"] != res_f["n_crop"]:
         fail(f"main: the float s2d path's launches are off: {l_f}")
-    report["s2d + float"] = fps_f
+    report["s2d + float"] = res_f["fps"]
 
     reg = bench_registry()
     det_c, crop_c = build_models(device, crop_target(reg, cfg, N_SEED), stem="conv7")
-    fps_c, l_c, n_crop_c, _ = run_clips("conv7 + float", det_c, crop_c, raw[:T_CLIP], device, 6)
-    if l_c["crop_and_resize"] != n_crop_c or l_c["qconv"] or l_c["crop_and_resize_s2d"]:
+    res_c = run_clips("conv7 + float", det_c, crop_c, raw[:T_CLIP], device, 6)
+    l_c = res_c["launches"]
+    if l_c["crop_and_resize"] != res_c["n_crop"] or l_c["qconv"] or l_c["crop_and_resize_s2d"]:
         fail(f"main: the conv7 path's launches are off: {l_c}")
-    report["conv7 + float"] = fps_c
+    report["conv7 + float"] = res_c["fps"]
     path_launches["crop_and_resize"] = l_c["crop_and_resize"]
-    del det_c, crop_c
+    refs["conv7 + float"] = (det_c, crop_c, raw[:T_CLIP], res_c)
 
     # with an ignore region over the image's right half: its grid is read
     # inside the captured branches, and one read a clip must still hold
     yuv = rng.integers(0, 256, (T_CLIP, H * W * 3 // 2), dtype=np.uint8)
     right_half = {"p1c1": np.array([[W / 2, 0.0], [W, 0.0], [W, H], [W / 2, H]])}
-    fps_y, l_y, n_crop_y, _ = run_clips("YUV420 bytes -> s2d + int8, ignore region", det_q, crop_q, yuv, device, 6,
-                                        yuv_hw=(H, W), ignore=right_half)
-    if l_y["yuv420_flat_to_s2d"] != 1 or l_y["crop_and_resize_s2d"] != n_crop_y:
+    res_y = run_clips("YUV420 bytes -> s2d + int8, ignore region", det_q, crop_q, yuv, device, 6,
+                      yuv_hw=(H, W), ignore=right_half)
+    l_y = res_y["launches"]
+    if l_y["yuv420_flat_to_s2d"] != 1 or l_y["crop_and_resize_s2d"] != res_y["n_crop"]:
         fail(f"main: the YUV path's launches are off: {l_y}")
-    report["yuv + int8"] = fps_y
+    report["yuv + int8"] = res_y["fps"]
     path_launches["yuv420_flat_to_s2d"] = l_y["yuv420_flat_to_s2d"]
 
     log("main: frames/s of the captured clips side by side, medians, one call, one card: "
         + ", ".join(f"{k} {v:.2f}" for k, v in report.items()))
-    return path_launches
+    return path_launches, refs
+
+
+# ---------------------------------------------------------------------------
+# the JAX clip's two variants
+# ---------------------------------------------------------------------------
+
+
+def batched_detections(device, n: int = 4):
+    """The batched detector pass of ``batch_detects`` (``detect_frames``:
+    one forward over ``n`` 1080p frames, ``qconv`` at N ``n``) against ``n``
+    single-frame ``detect_multiframe`` calls, for the shipped int8 detector
+    with random output convs (so that every logit and box depends on the
+    pixels; the main path's are zero): the forward's outputs and the
+    detections, bit for bit. A difference is reported with where it lies
+    and how large it is; it fails nothing (the clips' own equality does)."""
+    import torch
+
+    from playground3d_tpu_torch.models.quant import quantize_detector
+    from playground3d_tpu_torch.models.retinanet import detect_frames, detect_multiframe, forward_raw
+
+    _, cfg, (det_f, _), _, calib = shipped_models(device)
+    det = copy.deepcopy(det_f)
+    gen = torch.Generator().manual_seed(17)
+    with torch.no_grad():
+        for conv in (det.heads.cls_out, det.heads.reg_out):
+            conv.w.copy_(torch.randn(conv.w.shape, generator=gen) * 0.01)
+    det_q = quantize_detector(det, calib[None])
+    raw = np.random.default_rng(23).integers(0, 256, (n, H, W, 3), dtype=np.uint8)
+    frames = torch.as_tensor(pack_frames(raw)).to(device)[:, None]  # [n, C=1, ...]
+    kw = dict(pre_topk=cfg.pre_topk, max_dets=cfg.max_dets, min_level=cfg.det_min_level)
+    batched = forward_raw(det_q, frames[:, 0], compact=True, min_level=cfg.det_min_level, score_path=True)
+    single = [forward_raw(det_q, frames[j], compact=True, min_level=cfg.det_min_level, score_path=True)
+              for j in range(n)]
+    parts = []
+    for name, b, s in zip(("max logit", "class", "regression"), batched, zip(*single)):
+        s = torch.cat(s)
+        differ = int((b != s).sum())
+        parts.append(f"{name} {differ} of {b.numel()} differ"
+                     + (f" (max abs {float((b.float() - s.float()).abs().max()):.4g})" if differ else ""))
+    got = detect_frames(det_q, frames, **kw)
+    det_differ = []
+    for j in range(n):
+        one = detect_multiframe(det_q, frames[j], **kw)
+        for f in one._fields:
+            if not torch.equal(getattr(got, f)[j], getattr(one, f)):
+                det_differ.append(f"frame {j} {f}")
+    kept = int(got.mask.sum())
+    log(f"variants: the batched detector pass at N {n} (qconv at N {n}; random output convs, int8) against {n} "
+        f"single-frame passes: forward {', '.join(parts)}; detections ({kept} kept) "
+        + ("bit-equal" if not det_differ else f"differ in {det_differ}"))
+    if kept == 0:
+        fail("variants: the batched detector pass kept no detection")
+
+
+def phase_variants(device, refs: dict) -> None:
+    """``make_mc_clip_step(batch_detects=True)`` and ``(unroll=True)`` at
+    full width, called directly as ``bench.py`` calls them: the shipped
+    configuration (s2d + int8, ``bench_config.json``'s knobs) over the main
+    phase's two 24-frame clips, each variant one eager clip and three
+    captured runs that must equal the three-branch captured clip and read
+    the card once a clip; launches a clip checked against the counts the
+    code implies. Then the conv7 + float unrolled clip, held against its
+    three-branch clip, so ``crop_resize.cu`` runs inside the one clip
+    graph."""
+    t_phase = time.time()
+    seen = record_qconv_shapes(device)
+    per_detect, per_crop = sum(seen["detect"].values()), sum(seen["crop"].values())
+    batched_detections(device)
+    det_q, crop_q, packed, res = refs["s2d + int8"]
+    base = res["launches"]
+    report = {"three branches": (res["fps"], res["runs"], res["peak"])}
+    for name, variant in (("batch_detects", dict(batch_detects=True)), ("unroll", dict(unroll=True))):
+        out = run_clips(f"s2d + int8, {name}", det_q, crop_q, packed, device, T_CLIP, variant=variant,
+                        reference=res["kept"], phase="variants")
+        got, n_clips, n_crop = out["launches"], out["n_clips"], out["n_crop"]
+        want = dict(base)
+        if name == "batch_detects":  # one detector forward a clip, over its 4 detect frames
+            want["qconv"] = n_clips * per_detect + n_crop * per_crop
+        if got != want:
+            fail(f"variants ({name}): launches {got}, the code implies {want}")
+        log(f"variants (s2d + int8, {name}): launches a clip "
+            + ", ".join(f"{k} {v // n_clips}" for k, v in got.items() if v)
+            + f" (three branches: qconv {base['qconv'] // n_clips} a clip), as the code implies")
+        report[name] = (out["fps"], out["runs"], out["peak"])
+
+    det_c, crop_c, raw, res_c = refs["conv7 + float"]
+    out = run_clips("conv7 + float, unroll", det_c, crop_c, raw, device, T_CLIP, variant=dict(unroll=True),
+                    reference=res_c["kept"], phase="variants")
+    if out["launches"] != res_c["launches"] or out["launches"]["crop_and_resize"] != out["n_crop"]:
+        fail(f"variants (conv7 unroll): launches {out['launches']}, the three-branch clip's {res_c['launches']}")
+    log("variants: s2d + int8 frames/s, medians (each run; peak device memory), one call, one card: "
+        + "; ".join(f"{k} {v[0]:.2f} ({', '.join(f'{f:.2f}' for f in v[1])}; {v[2] / 2**30:.2f} GiB)"
+                    for k, v in report.items())
+        + f"; conv7 + float unrolled {out['fps']:.2f} against its three branches {res_c['fps']:.2f}")
+    log(f"variants: phase took {time.time() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1957,9 +2135,15 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
     detector of :func:`shipped_models` (same seed, class bias +3), its
     regression bias aimed at a car on the road (the shipped one's boxes
     parse to states that the lifecycle drops at once, so no track would
-    outlive its frame), int8-quantized on the same packed frame. Launch
-    counts set to 0 just before the timed frames and read just after; the
-    CSV written and read back."""
+    outlive its frame), int8-quantized on the same packed frame. A warm-up
+    tracker captures the step's CUDA graph; the timed tracker replays it
+    (one replay and one host read a frame, under PyTorch's sync-debug
+    mode); an eager tracker (``graphs=False``) runs the same frames, and the
+    two must be equal. Launch counts set to 0 just before the timed frames
+    and read just after; the CSV written and read back."""
+    import types
+    import warnings
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1981,36 +2165,55 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
     warm = SingleCameraTracker(reg, "p1c1", cfg=cfg, det_model=det_q, stem="s2d", device=device)
     warm.track(stream[:n_warm])
     torch.cuda.synchronize()
+    graph, tally = warm._graph.programs.graphs["step"]
 
-    trk = SingleCameraTracker(reg, "p1c1", cfg=cfg, det_model=det_q, stem="s2d", device=device)
     counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    syncs0, loops0 = HostSyncs.count, dict(HostSyncs.by_loop)
-    DeviceRounds.reset()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    stats = trk.track(stream[n_warm:])
-    e.record()
-    torch.cuda.synchronize()
-    rounds = DeviceRounds.read()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    syncs = HostSyncs.count - syncs0
-    loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
-    ms = s.elapsed_time(e)
 
+    def timed(graphs: bool):
+        trk = SingleCameraTracker(reg, "p1c1", cfg=cfg, det_model=det_q, stem="s2d", device=device, graphs=graphs)
+        if graphs:
+            trk._graph = warm._graph  # the warm-up's graph: no capture inside the timed frames
+        for fn in counters.values():
+            fn.launches = 0
+        syncs0, loops0 = HostSyncs.count, dict(HostSyncs.by_loop)
+        DeviceRounds.reset()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        torch.cuda.set_sync_debug_mode("warn" if graphs else 0)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                stats = trk.track(stream[n_warm:])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        e.record()
+        torch.cuda.synchronize()
+        syncing = [f"{w.filename}:{w.lineno}" for w in caught if "synchronizing CUDA operation" in str(w.message)]
+        if syncing:
+            fail(f"single: {len(syncing)} synchronizing calls in the graph run, at {sorted(set(syncing))}")
+        loops = {k: v - loops0.get(k, 0) for k, v in HostSyncs.by_loop.items() if v - loops0.get(k, 0)}
+        return types.SimpleNamespace(trk=trk, stats=stats, ms=s.elapsed_time(e), rounds=DeviceRounds.read(),
+                                     launches={name: fn.launches for name, fn in counters.items()},
+                                     syncs=HostSyncs.count - syncs0, loops=loops)
+
+    run = timed(graphs=True)
+    eager = timed(graphs=False)
+    trk, stats, rounds, launches, syncs, loops, ms = (run.trk, run.stats, run.rounds, run.launches, run.syncs,
+                                                       run.loops, run.ms)
     if stats["frames"] != n_frames or len(trk.rows) != n_frames:
         fail(f"single: {stats['frames']} frames tracked, {len(trk.rows)} rows, expected {n_frames}")
-    if launches["qconv"] != n_frames * per_detect:
-        fail(f"single: qconv launched {launches['qconv']} times, expected {n_frames} x {per_detect}")
+    if launches["qconv"] != n_frames * per_detect or eager.launches != launches:
+        fail(f"single: qconv launched {launches['qconv']} times, expected {n_frames} x {per_detect}; the eager "
+             f"run launched {eager.launches}, the graph run credited {launches}")
     if launches["crop_and_resize"] or launches["crop_and_resize_s2d"] or launches["yuv420_flat_to_s2d"]:
         fail(f"single: the single camera launched a crop or YUV kernel: {launches}")
     if syncs != n_frames or loops != {"drain": n_frames}:
         fail(f"single: {syncs} host reads ({loops}) for {n_frames} frames; one a frame (the drain) is the contract")
+    if rounds != eager.rounds:
+        fail(f"single: device rounds {rounds} in the graph run, {eager.rounds} eager")
+    diff = rows_diff("single: the graph run against the eager run", trk, eager.trk)
     live_pairs = sum(len(row[2]) for row in trk.rows)
-    for row in trk.rows:
-        if not np.isfinite(row[3]).all():
-            fail(f"single: non-finite states at frame {row[0]}")
     if live_pairs == 0:
         fail("single: the detector produced no tracks")
     os.makedirs("_outputs", exist_ok=True)
@@ -2023,14 +2226,18 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
 
     timers = {k: v for k, v in stats.items() if k not in ("frames", "fps")}
     fps = n_frames / ms * 1e3
-    log(f"single: {n_frames} frames of 1x{H}x{W} uint8 s2d-packed, s2d + int8 ResNet-50, in {ms:.1f} ms "
-        f"(CUDA events) = {fps:.2f} frames/s; host syncs {syncs} ({syncs / n_frames:.2f} per frame; by loop "
-        f"{loops}); NMS rounds {rounds['nms'] / n_frames:.2f} and auction rounds {rounds['auction'] / n_frames:.2f} "
-        f"a frame on the card (its counters, read once); drain {timers['drain'] / sum(timers.values()) * 100:.1f}% "
-        f"of the stage "
-        f"timers ({', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timers.items())})")
-    log(f"single: kernel launches {launches} ({per_detect} qconv a frame); {live_pairs} live (id, frame) "
-        f"pairs = CSV rows read back")
+    cap_s, inst_s = warm._graph.programs.capture_s["step"]
+    log(f"single: {n_frames} frames of 1x{H}x{W} uint8 s2d-packed, s2d + int8 ResNet-50, one CUDA graph a frame "
+        f"({graph_nodes(graph)} nodes, captured in {cap_s:.3f} s and instantiated in {inst_s:.3f} s, host), in "
+        f"{ms:.1f} ms (CUDA events) = {fps:.2f} frames/s; eager {n_frames / eager.ms * 1e3:.2f} frames/s; host "
+        f"syncs {syncs} ({syncs / n_frames:.2f} per frame; by loop {loops}), no other wait in sync-debug mode; "
+        f"NMS rounds {rounds['nms'] / n_frames:.2f} and auction rounds {rounds['auction'] / n_frames:.2f} a frame "
+        f"on the card (its counters, read once); drain {timers['drain'] / sum(timers.values()) * 100:.1f}% of the "
+        f"stage timers ({', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timers.items())})")
+    log(f"single: the graph run equals the eager run: ids/classes equal, states7 within {diff[0]:.3g}, final kf.x "
+        f"within {diff[1]:.3g} (tolerance 1e-4); kernel launches {launches} ({per_detect} qconv a frame, credited "
+        f"{ {k.__name__: v for k, v in tally.items()} } a replay); {live_pairs} live (id, frame) pairs = CSV rows "
+        f"read back")
 
     frame_dev = stream[0][0]
     trk.process_frame(frame_dev, stream[-1][1] + 1 / 30.0, n_frames)
@@ -2041,7 +2248,7 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
         wall_us = (time.perf_counter() - t0) * 1e6
     busy = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
     if busy > 0:
-        log(f"single: profile of one frame: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+        log(f"single: profile of one frame (a replay): wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
             f"({busy / wall_us * 100:.0f}%)")
     else:
         log("single: profile of one frame: the profiler saw no device time (not measured)")
@@ -3540,7 +3747,9 @@ def main() -> None:
     if kernels_only:
         log(f"total: {time.time() - t0:.1f} s (kernels only: no result line)")
         return
-    launches = phase_main(device, loop_calls)
+    launches, refs = phase_main(device, loop_calls)
+    phase_variants(device, refs)
+    del refs
     phase_single(device)
     phase_session(device)
     launches.update(phase_train(device))

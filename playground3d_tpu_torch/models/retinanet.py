@@ -160,12 +160,51 @@ def detect_multiframe(
     (recall 0.99) only on the TPU and returns ``lax.top_k``'s indices on
     other backends; the port has no TPU path, so both flags give JAX's
     off-TPU result."""
-    n = images.shape[0]
     levels = tuple(range(min_level, 8))
     anchors = _anchors(_image_shape_of(images, model.stem), levels, images.device)
     cls_max, cls_arg, reg = forward_raw(
         model, images, compact=True, min_level=min_level, score_path=True
     )
+    return _detections_of(anchors, cls_max, cls_arg, reg, score_threshold, nms_iou, pre_topk, max_dets)
+
+
+@torch.no_grad()
+def detect_frames(
+    model: RetinaNet,
+    frames: torch.Tensor,
+    score_threshold: float = 1e-7,
+    nms_iou: float = 0.5,
+    pre_topk: int = 4096,
+    max_dets: int = 256,
+    approx_topk: bool = False,
+    min_level: int = 3,
+) -> Detections:
+    """:func:`detect_multiframe` of each of J frames of C cameras, frames
+    [J,C,...] -> Detections stacked on a [J] axis (the JAX clip's ``vmap``
+    of ``detect_multiframe`` over its detect frames). The detector runs
+    once, over all J*C images; the top-k pool and the NMS cap stay per
+    frame: one top-k and one camera-grouped NMS a frame, never across
+    frames."""
+    J, C = frames.shape[:2]
+    images = frames.reshape((J * C,) + tuple(frames.shape[2:]))
+    levels = tuple(range(min_level, 8))
+    anchors = _anchors(_image_shape_of(images, model.stem), levels, images.device)
+    cls_max, cls_arg, reg = forward_raw(
+        model, images, compact=True, min_level=min_level, score_path=True
+    )
+    per_frame = [
+        _detections_of(anchors, cls_max[j * C:(j + 1) * C], cls_arg[j * C:(j + 1) * C],
+                       reg[j * C:(j + 1) * C], score_threshold, nms_iou, pre_topk, max_dets)
+        for j in range(J)
+    ]
+    return Detections(*(torch.stack(xs) for xs in zip(*per_frame)))
+
+
+def _detections_of(anchors, cls_max, cls_arg, reg, score_threshold, nms_iou, pre_topk, max_dets) -> Detections:
+    """The detector's compact outputs for the n images of one frame -> its
+    detections: exact top-k over all n images' anchors, sigmoid, decode,
+    camera-grouped NMS capped at ``max_dets``."""
+    n = cls_max.shape[0]
     a = anchors.shape[0]
     logits = cls_max.reshape(-1).to(torch.float32)
     k = min(pre_topk, n * a)

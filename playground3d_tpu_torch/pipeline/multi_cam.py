@@ -42,10 +42,9 @@ from playground3d_tpu_torch.evaluation.csv_io import TrackRecord, write_results_
 from playground3d_tpu_torch.geometry import transforms as T
 from playground3d_tpu_torch.models.resnet import space_to_depth
 from playground3d_tpu_torch.models.retinanet import (
-    Detections, RetinaNet, detect_multiframe, imagenet_mean_std, localize,
+    Detections, RetinaNet, detect_frames, detect_multiframe, imagenet_mean_std, localize,
 )
 from playground3d_tpu_torch.ops.crop_mxu import crop_and_resize_s2d, max_crop_span_s2d
-from playground3d_tpu_torch.ops.cuda_build import credit, launches_recorded
 from playground3d_tpu_torch.ops.iou import elementwise_iou, pairwise_iou
 from playground3d_tpu_torch.ops.roi_align import crop_and_resize
 from playground3d_tpu_torch.ops.topk import HostSyncs, top_k
@@ -56,6 +55,7 @@ from playground3d_tpu_torch.pipeline.camera_bank import (
     im_to_state_refined,
     state_to_im_banked,
 )
+from playground3d_tpu_torch.pipeline.graphs import StaticGraphs, clone_state, copy_into, state_leaves
 from playground3d_tpu_torch.pipeline.tracker_state import (
     ParsedDetections,
     Snapshot,
@@ -70,7 +70,7 @@ from playground3d_tpu_torch.pipeline.tracker_state import (
     stack_snapshots,
     unpack_snapshot,
 )
-from playground3d_tpu_torch.track.kf import KFParams, KFSlots, default_params, kf_predict, kf_update, kf_view
+from playground3d_tpu_torch.track.kf import KFParams, default_params, kf_predict, kf_update, kf_view
 from playground3d_tpu_torch.utils.config import TrackerConfig, camera_centers, tracking_x_range
 from playground3d_tpu_torch.utils.constants import (
     CLASS_HEIGHTS,
@@ -359,82 +359,100 @@ class _BranchGraphs:
     tracker state, ``ts_bias``, one frame of all cameras and its camera
     times, and the snapshot. Each branch reads the buffers and writes its
     new state, bias and snapshot back into them, so a frame is: copy its
-    inputs in, run the branch, copy the snapshot out.
+    inputs in, run the branch (one CUDA graph replay on the card,
+    :class:`StaticGraphs`), copy the snapshot out.
 
-    With ``capture`` (the card), each branch is captured as one CUDA graph
-    at its first use, after an eager warm-up on a side stream (the lazily
-    made constants, plans, workspaces and counters exist before capture),
-    and a frame is one replay. The graphs share one memory pool: they only
-    ever run one after another on one stream. A capture that fails raises;
-    nothing falls back to eager. The kernels' launch counters are Python
-    integers, so each graph's launches are tallied at capture and credited
-    at every replay. Without ``capture`` (the CPU), each branch runs
-    eagerly over the same buffers."""
+    With ``detect_frames`` (``batch_detects``) the clip's detect frames are
+    first copied into a static ``[J,C,...]`` buffer and detected by one
+    program of their own, whose stacked detections stay in static buffers;
+    before each detect frame its detections are copied into a static slot,
+    which the detect branch reads in place of the frame."""
 
-    def __init__(self, branches: dict, capture: bool):
+    def __init__(self, branches: dict, device: torch.device, detect_frames: Optional[Callable] = None):
         self.branches = branches  # name -> fn(state, ts_bias, frame, cam_times) -> (state, ts_bias, snap)
-        self.capture = capture
-        self.graphs: dict = {}  # name -> (CUDAGraph, launch tally)
-        self.pool = None
+        self.detect_frames = detect_frames  # frames [J,C,...] -> Detections stacked over J
+        self.programs = StaticGraphs(device)
         self.state = self.ts_bias = self.frame = self.cam_times = self.snap = None
-
-    @staticmethod
-    def _leaves(state: TrackState) -> List[torch.Tensor]:
-        return [*state.kf, *state[1:]]
+        self.det_frames = self.dets = self.det = None
 
     def load(self, state: TrackState, ts_bias: torch.Tensor, frame: torch.Tensor, cam_times: torch.Tensor):
         """Copy a clip's starting state and bias in (allocating the buffers
         at the first clip)."""
         if self.state is None:
-            self.state = TrackState(KFSlots(*(x.clone() for x in state.kf)), *(x.clone() for x in state[1:]))
-            self.ts_bias = ts_bias.clone()
+            self.state, self.ts_bias = clone_state(state), ts_bias.clone()
             self.frame = torch.empty_like(frame)
             self.cam_times = torch.empty_like(cam_times)
             like = self.branches["passthrough"](self.state, self.ts_bias, self.frame, cam_times)[2]
             self.snap = Snapshot(*(torch.empty_like(x) for x in like))
             return
-        for dst, src in zip(self._leaves(self.state), self._leaves(state)):
-            dst.copy_(src)
+        copy_into(state_leaves(self.state), state_leaves(state))
         self.ts_bias.copy_(ts_bias)
 
-    def _body(self, name: str, write_back: bool):
-        st, tb, snap = self.branches[name](self.state, self.ts_bias, self.frame, self.cam_times)
+    def detect(self, det_frames: torch.Tensor) -> None:
+        """The clip's detect frames [J,C,...] through the batched detector."""
+        if self.det_frames is None:
+            self.det_frames = torch.empty_like(det_frames)
+        self.det_frames.copy_(det_frames)
+        self.programs.run("batched", self._detect_body)
+
+    def _detect_body(self, write_back: bool):
+        dets = self.detect_frames(self.det_frames)
         if write_back:
-            for dst, src in zip(self._leaves(self.state), self._leaves(st)):
-                dst.copy_(src)
-            self.ts_bias.copy_(tb)
-            for dst, src in zip(self.snap, snap):
-                dst.copy_(src)
+            self.dets = dets  # on the card the capture's outputs: every replay rewrites them in place
 
-    def _capture(self, name: str):
-        dev = self.ts_bias.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._body(name, write_back=False)  # warm-up: outputs dropped, buffers untouched
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # the graph is kept for its node count
-        with launches_recorded() as tally:
-            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-                self._body(name, write_back=True)
-        graph.instantiate()
-        self.graphs[name] = (graph, dict(tally))
-        return self.graphs[name]
-
-    def run(self, name: str, frame: Optional[torch.Tensor], cam_times: torch.Tensor) -> None:
-        """One frame through branch ``name`` (``frame`` is None for the
-        passthrough branch, which reads no pixels)."""
+    def run(self, name: str, frame: Optional[torch.Tensor], cam_times: torch.Tensor, j: int = 0) -> None:
+        """One frame through branch ``name`` (``frame`` is None for a branch
+        that reads no pixels; ``j`` is a detect frame's index among the
+        clip's detect frames when they were detected together)."""
         self.cam_times.copy_(cam_times)
         if frame is not None:
             self.frame.copy_(frame)
-        if not self.capture:
-            self._body(name, write_back=True)
-            return
-        graph, tally = self.graphs.get(name) or self._capture(name)
-        graph.replay()
-        credit(tally)
+        if name == "detect" and self.detect_frames is not None:
+            if self.det is None:
+                self.det = Detections(*(torch.empty_like(x[0]) for x in self.dets))
+            copy_into(self.det, (x[j] for x in self.dets))
+        self.programs.run(name, lambda write_back: self._body(name, write_back))
+
+    def _body(self, name: str, write_back: bool):
+        x = self.det if name == "detect" and self.detect_frames is not None else self.frame
+        st, tb, snap = self.branches[name](self.state, self.ts_bias, x, self.cam_times)
+        if write_back:
+            copy_into(state_leaves(self.state), state_leaves(st))
+            self.ts_bias.copy_(tb)
+            copy_into(self.snap, snap)
+
+
+class _UnrolledClip:
+    """``unroll``: the clip's T frames, each through the branch its
+    clip-local index picks, as ONE program over static ``[T,C,...]`` frame,
+    ``[T,C]`` camera-time and ``[T]`` snapshot buffers and the state and
+    bias: on the card one CUDA graph, so a clip is one replay."""
+
+    def __init__(self, branches: dict, schedule: List[str], device: torch.device):
+        self.branches, self.schedule = branches, schedule  # schedule: the branch of each clip-local frame
+        self.programs = StaticGraphs(device)
+        self.state = self.ts_bias = self.frames = self.cam_times = self.snaps = None
+
+    def run(self, state: TrackState, ts_bias: torch.Tensor, frames: torch.Tensor, cam_times: torch.Tensor):
+        if self.state is None:
+            self.state, self.ts_bias = clone_state(state), ts_bias.clone()
+            self.frames, self.cam_times = frames.clone(), cam_times.clone()
+        else:
+            copy_into(state_leaves(self.state), state_leaves(state))
+            copy_into((self.ts_bias, self.frames, self.cam_times), (ts_bias, frames, cam_times))
+        self.programs.run("clip", self._body)
+
+    def _body(self, write_back: bool):
+        st, tb = self.state, self.ts_bias
+        snaps = []
+        for i, name in enumerate(self.schedule):
+            st, tb, snap = self.branches[name](st, tb, self.frames[i], self.cam_times[i])
+            snaps.append(snap)
+        stacked = stack_snapshots(snaps)  # before the state is written: a snapshot may alias the input state
+        if write_back:
+            copy_into(state_leaves(self.state), state_leaves(st))
+            self.ts_bias.copy_(tb)
+            self.snaps = stacked  # on the card the capture's outputs: every replay rewrites them in place
 
 
 def make_mc_clip_step(
@@ -447,6 +465,8 @@ def make_mc_clip_step(
     stem: str = "s2d",
     crop_stem: str = "s2d",
     graphs: bool = True,
+    batch_detects: bool = False,
+    unroll: bool = False,
 ):
     """(state, ts_bias, frames [T,C,...], cam_times [T,C], frame0 int) ->
     (state', ts_bias', snapshots stacked over T): frame ``i`` (global index
@@ -467,18 +487,61 @@ def make_mc_clip_step(
     happens inside the clip; on the CPU it runs the same buffers and
     write-backs without capture. ``graphs=False`` runs the branch functions
     eagerly instead, on any device (the reference the graphs are held
-    to)."""
+    to).
+
+    The JAX clip's two variants (both need ``frame0 % det_step == 0``, and
+    raise ``ValueError`` otherwise):
+
+    * ``batch_detects``: the detector, top-k, decode and camera-grouped NMS
+      of the clip's detect frames ``frames[::det_step]`` run before the
+      branches, as one detector forward over ``ceil(T/det_step)*C`` images;
+      top-k and NMS stay per frame. The detect branch then parses its
+      frame's detections. On the card the batched pass is a CUDA graph of
+      its own, replayed before the branches' replays.
+    * ``unroll``: a straight-line clip, each frame's branch picked from its
+      clip-local index (so with a crop net ``frame0 % skip_step == 0`` is
+      needed too). On the card the whole clip is ONE CUDA graph per frame
+      shape, dtype and T: a clip is one replay. As in JAX, ``unroll`` runs
+      the full detect branch, so ``batch_detects`` has no effect with it.
+    """
     if det_model.stem != stem:
         raise ValueError(f"make_mc_clip_step: stem={stem!r} but the detector was built with {det_model.stem!r}")
     detect_step = make_mc_detect_step(det_model, bank, kfp, cfg)
+    parsed_step = make_mc_detect_step_from_detections(bank, kfp, cfg)
     crop_step = (
         make_crop_step(crop_model, bank, centers, kfp, cfg, stem=crop_stem, frame_stem=stem)
         if crop_model is not None else None
     )
     d, s = cfg.det_step, cfg.skip_step
+    batched = batch_detects and not unroll
+
+    def check_aligned(frame0: int) -> None:
+        # batch_detects pairs the hoisted detections with clip-local detect
+        # frames and the unrolled clip branches on the clip-local index
+        if frame0 % d != 0:
+            raise ValueError(
+                f"clip frame0={frame0} must be a multiple of det_step={d} for the "
+                "batch_detects/unroll clip variants (clip-local cadence)"
+            )
+        if unroll and crop_step is not None and frame0 % s != 0:
+            raise ValueError(
+                f"clip frame0={frame0} must be a multiple of skip_step={s} for the "
+                "unrolled clip's crop cadence"
+            )
+
+    @torch.no_grad()
+    def batched_detect(frames: torch.Tensor) -> Detections:
+        return detect_frames(
+            det_model, frames, pre_topk=cfg.pre_topk, max_dets=cfg.max_dets,
+            approx_topk=cfg.approx_topk, min_level=cfg.det_min_level,
+        )
 
     def b_detect(st, tb, f, t):
         st2, snap, tb2 = detect_step(st, f, t, tb)
+        return st2, tb2, snap
+
+    def b_parsed(st, tb, det, t):
+        st2, snap, tb2 = parsed_step(st, det, t, tb)
         return st2, tb2, snap
 
     def b_crop(st, tb, f, t):
@@ -488,8 +551,9 @@ def make_mc_clip_step(
     def b_skip(st, tb, f, t):
         return st, tb, snapshot(st, torch.mean(t), kfp, cfg)
 
-    branches = {"detect": b_detect, "crop": b_crop if crop_step is not None else b_skip, "passthrough": b_skip}
-    runners: dict = {}  # (device, frame shape, dtype) -> _BranchGraphs
+    branches = {"detect": b_parsed if batched else b_detect,
+                "crop": b_crop if crop_step is not None else b_skip, "passthrough": b_skip}
+    runners: dict = {}  # (device, frame shape, dtype[, T]) -> _BranchGraphs or _UnrolledClip
 
     def which(i: int) -> str:
         if i % d == 0:
@@ -499,30 +563,49 @@ def make_mc_clip_step(
     @torch.no_grad()
     def clip(state: TrackState, ts_bias: torch.Tensor, frames: torch.Tensor,
              cam_times: torch.Tensor, frame0: int):
+        frame0 = int(frame0)
+        if batch_detects or unroll:
+            check_aligned(frame0)
+        T_len = frames.shape[0]
+        # the unrolled clip's branches follow the clip-local index (equal to
+        # the global cadence once frame0 is aligned)
+        names = [which(li if unroll else frame0 + li) for li in range(T_len)]
         if not graphs:
             st, tb = state, ts_bias
+            dets = batched_detect(frames[::d]) if batched else None
             snaps = []
-            for li in range(frames.shape[0]):
-                st, tb, snap = branches[which(int(frame0) + li)](st, tb, frames[li], cam_times[li])
+            for li, name in enumerate(names):
+                x = Detections(*(f[li // d] for f in dets)) if batched and name == "detect" else frames[li]
+                st, tb, snap = branches[name](st, tb, x, cam_times[li])
                 snaps.append(snap)
             return st, tb, stack_snapshots(snaps)
 
         key = (frames.device, tuple(frames.shape[1:]), frames.dtype)
-        runner = runners.get(key)
-        if runner is None:
-            runner = runners[key] = _BranchGraphs(branches, capture=frames.device.type == "cuda")
-        runner.load(state, ts_bias, frames[0], cam_times[0])
-        T_len = frames.shape[0]
-        out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-                         for x in runner.snap))
-        for li in range(T_len):
-            name = which(int(frame0) + li)
-            runner.run(name, None if name == "passthrough" else frames[li], cam_times[li])
-            for dst, src in zip(out, runner.snap):
-                dst[li].copy_(src)
-        st = runner.state
-        return (TrackState(KFSlots(*(x.clone() for x in st.kf)), *(x.clone() for x in st[1:])),
-                runner.ts_bias.clone(), out)
+        if unroll:
+            key += (T_len,)
+            runner = runners.get(key)
+            if runner is None:
+                runner = runners[key] = _UnrolledClip(branches, names, frames.device)
+            runner.run(state, ts_bias, frames, cam_times)
+            out = Snapshot(*(x.clone() for x in runner.snaps))
+        else:
+            if batched:
+                key += (len(range(0, T_len, d)),)
+            runner = runners.get(key)
+            if runner is None:
+                runner = runners[key] = _BranchGraphs(branches, frames.device,
+                                                      batched_detect if batched else None)
+            runner.load(state, ts_bias, frames[0], cam_times[0])
+            if batched:
+                runner.detect(frames[::d])
+            out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                             for x in runner.snap))
+            for li, name in enumerate(names):
+                reads_frame = name == "crop" or (name == "detect" and not batched)
+                runner.run(name, frames[li] if reads_frame else None, cam_times[li], j=li // d)
+                for dst, src in zip(out, runner.snap):
+                    dst[li].copy_(src)
+        return clone_state(runner.state), runner.ts_bias.clone(), out
 
     clip.runners = runners
     return clip

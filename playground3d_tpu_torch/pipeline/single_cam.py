@@ -4,7 +4,10 @@ reference ``KIOU_Tracker``, minimal_3D_track.py).
 The per-frame pipeline - detect, parse to roadway state, associate
 (roadway-IoU auction), Kalman update, births/deaths/pruning, snapshot - runs
 on the device over fixed-capacity tensors; the host loop only stages frames
-and drains one snapshot a frame, in one device->host read.
+and drains one snapshot a frame, in one device->host read. The JAX package
+compiles the detector's step into one program (``jax.jit``); here it runs
+over static buffers (:class:`_StepGraph`) and, on the card, is one CUDA
+graph, a frame one replay.
 
 Detection is pluggable: the real RetinaNet (float or int8-quantized, conv7
 or s2d stem; the int8 convs run ``csrc/qconv.cu`` on the card), or any
@@ -27,6 +30,7 @@ from playground3d_tpu_torch.evaluation.csv_io import TrackRecord, write_results_
 from playground3d_tpu_torch.models.retinanet import Detections, RetinaNet, detect_multiframe
 from playground3d_tpu_torch.ops.topk import HostSyncs
 from playground3d_tpu_torch.pipeline.camera_bank import CameraBank, bank_from_registry
+from playground3d_tpu_torch.pipeline.graphs import StaticGraphs, clone_state, copy_into, state_leaves
 from playground3d_tpu_torch.pipeline.tracker_state import (
     Snapshot,
     TrackState,
@@ -87,26 +91,85 @@ def make_full_step(
     return step
 
 
+class _StepGraph:
+    """A detector step (:func:`make_full_step`) over static buffers: the
+    tracker state, one frame [C,...], its camera times [C], the snapshot
+    and the snapshot packed for one read (:func:`pack_snapshot`). The step
+    reads the buffers and writes its new state back into them; on the card
+    it is captured once as a CUDA graph (:class:`StaticGraphs`), and a frame
+    is: copy the frame and times in, one replay. On the CPU the same
+    buffers and write-backs run without capture."""
+
+    def __init__(self, step: Callable, device: torch.device):
+        self.step = step
+        self.programs = StaticGraphs(device)
+        self.state = self.frame = self.cam_times = self.snap = self.packed = None
+
+    def run(self, state: TrackState, frame: torch.Tensor, cam_times: torch.Tensor) -> None:
+        """One frame from ``state`` (copied in unless it is this graph's own
+        :attr:`state`); ``frame`` and ``cam_times`` are copied in without
+        blocking (from pinned host memory or the device)."""
+        dev = self.programs.device
+        if self.state is None:
+            self.state = clone_state(state)
+            self.frame = torch.empty(frame.shape, dtype=frame.dtype, device=dev)
+            self.cam_times = torch.empty(cam_times.shape, dtype=cam_times.dtype, device=dev)
+        elif state is not self.state:
+            copy_into(state_leaves(self.state), state_leaves(state))
+        self.frame.copy_(frame, non_blocking=True)
+        self.cam_times.copy_(cam_times, non_blocking=True)
+        self.programs.run("step", self._body)
+
+    def _body(self, write_back: bool):
+        st, snap = self.step(self.state, self.frame, self.cam_times)
+        packed = pack_snapshot(snap)  # before the state is written: the snapshot may alias the input state
+        if write_back:
+            copy_into(state_leaves(self.state), state_leaves(st))
+            # on the card the capture's outputs: every replay rewrites them in place
+            self.snap, self.packed = snap, packed
+
+
 def make_clip_step(
     det_model: RetinaNet,
     bank: CameraBank,
     kfp: KFParams,
     cfg: TrackerConfig,
     stem: str = "conv7",
+    graphs: bool = True,
 ):
     """(state, frames [T,C,H,W,ch], cam_times [T,C]) -> (state', snapshots
     stacked over T): :func:`make_full_step` frame by frame, the port of the
-    JAX clip's ``lax.scan``."""
+    JAX clip's ``lax.scan``. With ``graphs`` (the default) each frame is a
+    run of the step over static buffers (:class:`_StepGraph`: one CUDA graph
+    replay on the card); ``graphs=False`` runs the step eagerly (the
+    reference the graph is held to)."""
     step = make_full_step(det_model, bank, kfp, cfg, stem=stem)
+    runners: dict = {}  # (device, frame shape, dtype) -> _StepGraph
 
     @torch.no_grad()
     def clip(state: TrackState, frames: torch.Tensor, cam_times: torch.Tensor):
-        snaps = []
+        if not graphs:
+            snaps = []
+            for t in range(frames.shape[0]):
+                state, snap = step(state, frames[t], cam_times[t])
+                snaps.append(snap)
+            return state, stack_snapshots(snaps)
+        key = (frames.device, tuple(frames.shape[1:]), frames.dtype)
+        runner = runners.get(key)
+        if runner is None:
+            runner = runners[key] = _StepGraph(step, frames.device)
+        out = None
         for t in range(frames.shape[0]):
-            state, snap = step(state, frames[t], cam_times[t])
-            snaps.append(snap)
-        return state, stack_snapshots(snaps)
+            runner.run(state, frames[t], cam_times[t])
+            state = runner.state
+            if out is None:
+                out = Snapshot(*(torch.empty((frames.shape[0],) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                                 for x in runner.snap))
+            for dst, src in zip(out, runner.snap):
+                dst[t].copy_(src)
+        return clone_state(runner.state), out
 
+    clip.runners = runners
     return clip
 
 
@@ -121,10 +184,13 @@ class SingleCameraTracker:
     kf_params : KFParams (defaults mirror the reference)
     det_model : the detector (already on ``device``), when ``detect_fn`` is None
     detect_fn : None to use ``det_model``; otherwise a callable
-        (frames [1,H,W,3] on ``device``) -> Detections
+        (frames [1,H,W,3] on ``device``) -> Detections, run eagerly
     stem : the detector's stem, checked against ``det_model``
     on_frame : called (frame_num, frames [1,H,W,3], snap, None) after each frame
     device : where the tracker runs (the card unless the caller asks for the CPU)
+    graphs : with ``det_model``, run the step over static buffers
+        (:class:`_StepGraph`: one CUDA graph replay a frame on the card; the
+        tracker's :attr:`state` is then those buffers); False: eagerly
     """
 
     def __init__(
@@ -138,6 +204,7 @@ class SingleCameraTracker:
         stem: str = "conv7",
         on_frame: Optional[Callable] = None,
         device: DeviceLike = None,
+        graphs: bool = True,
     ):
         self.device = resolve_device(device)
         self.registry = registry
@@ -160,6 +227,8 @@ class SingleCameraTracker:
                 )
             self._full = make_full_step(det_model, self.bank, self.kfp, cfg, stem=stem)
             self._fused = True
+        self._graph = _StepGraph(self._full, self.device) if self._fused and graphs else None
+        self._pinned: dict = {}  # (shape, dtype) -> pinned host buffer the card copies from
 
         self.state = init_track_state(cfg.max_tracks, self.device)
         self.epoch: Optional[float] = None
@@ -174,27 +243,50 @@ class SingleCameraTracker:
         if self.epoch is None:
             self.epoch = float(t_abs)
         t_off = np.float32(t_abs - self.epoch)
-        cam_times = torch.tensor([t_off], device=self.device)
 
         with self.timers("stage"):
-            frames = torch.as_tensor(np.asarray(frame)[None]).to(self.device)
+            frames = self._stage(np.asarray(frame)[None])
+            cam_times = self._stage(np.asarray([t_off], np.float32))
 
         with self.timers("detect+track"):
-            if self._fused:
-                self.state, snap = self._full(self.state, frames, cam_times)
+            if self._graph is not None:
+                self._graph.run(self.state, frames, cam_times)
+                self.state, packed = self._graph.state, self._graph.packed
+                snap = Snapshot(*(x.clone() for x in self._graph.snap))  # the buffers change at the next frame
             else:
-                det = self._detect(frames)
-                self.state, snap = self._step(self.state, det, cam_times)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                frames = frames.to(self.device, non_blocking=True)
+                cam_times = cam_times.to(self.device, non_blocking=True)
+                if self._fused:
+                    self.state, snap = self._full(self.state, frames, cam_times)
+                else:
+                    det = self._detect(frames)
+                    self.state, snap = self._step(self.state, det, cam_times)
+                packed = pack_snapshot(snap)
+            if self.device.type == "cuda":  # the step's time, as the JAX tracker blocks on it here
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
 
         with self.timers("drain"):
             # one read (pack_snapshot: every field exact in float64)
-            states, ids, classes, mask, t = unpack_snapshot(HostSyncs.fetch(pack_snapshot(snap)))
+            states, ids, classes, mask, t = unpack_snapshot(HostSyncs.fetch(packed))
             self.rows.append((frame_num, float(self.epoch + float(t)), ids[mask], states[mask], classes[mask]))
         if self.on_frame is not None:
             self.on_frame(frame_num, np.asarray(frame)[None], snap, None)
         return snap
+
+    def _stage(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor the device copies from without blocking:
+        on the card, in a pinned buffer kept a shape (the last frame's copy
+        from it is over: each frame waits for its step before the next)."""
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return host
+        key = (tuple(host.shape), host.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        return buf.copy_(host)
 
     def track(self, frames: Iterable[Tuple[np.ndarray, float]], cutoff: int = 10**9):
         start = time.time()

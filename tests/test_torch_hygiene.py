@@ -298,7 +298,7 @@ def test_no_module_of_the_port_imports_jax():
     assert "BAD []" in out.stdout and "MODULES" in out.stdout
 
 
-@pytest.mark.parametrize("module", ["ops.qconv", "ops.crop_resize", "ops.nms", "models.nn", "models"])
+@pytest.mark.parametrize("module", ["ops.qconv", "ops.crop_resize", "ops.nms", "models.nn", "models", "pipeline.graphs"])
 def test_a_module_imports_first_in_a_fresh_interpreter(module):
     """``chip_smoke.py`` imports the kernel loaders before anything else:
     each imports with nothing of the package loaded before it (the

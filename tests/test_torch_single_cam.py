@@ -285,6 +285,47 @@ def test_tracker_with_detector_matches_jax(nets, path):
     assert sum(len(r[2]) for r in pt.rows) >= 3 * T_STEPS
 
 
+@pytest.mark.parametrize("path", ["conv7", "int8"])
+def test_static_buffer_step_matches_eager_and_jax(nets, path):
+    """The step over static buffers (what the card captures as one CUDA
+    graph; on the CPU the same buffers and write-backs without capture):
+    ``make_clip_step`` replays it frame by frame and equals the eager
+    ``make_full_step`` bit for bit and JAX's within 1e-4; the tracker on it
+    equals the eager tracker bit for bit, returns snapshots that later
+    frames leave alone, keeps its state in the buffers and copies a state
+    it is given into them."""
+    net = nets[path]
+    jsn, js, esn, es = _run_steps(net)
+    preg, _ = register_bench_camera(HW)
+    args = (net["port"], bank_from_registry(preg, device="cpu"), default_params(device="cpu"), TrackerConfig(**KNOBS))
+    clip = make_clip_step(*args, stem=net["stem"])
+    ps, psn = clip(init_track_state(KNOBS["max_tracks"], "cpu"), torch.as_tensor(net["frames"]),
+                   torch.as_tensor(_times()))
+    assert len(clip.runners) == 1
+    _check_steps(jsn, js, psn, ps)
+    for f in psn._fields:
+        np.testing.assert_array_equal(getattr(psn, f).numpy(), getattr(esn, f), err_msg=f)
+    assert all(torch.equal(a, b) for a, b in zip([*ps.kf, *ps[1:]], [*es.kf, *es[1:]]))
+
+    raw = np.random.default_rng(32).integers(0, 256, (T_STEPS,) + HW + (3,)).astype(np.uint8)
+    src = [(pack_s2d(f) if net["stem"] == "s2d" else f, 1.6e9 + k / 30.0) for k, f in enumerate(raw)]
+    trackers = [SingleCameraTracker(preg, "p1c1", cfg=TrackerConfig(**KNOBS), det_model=net["port"],
+                                    stem=net["stem"], device="cpu", graphs=g) for g in (True, False)]
+    snaps = [[t.process_frame(f, ts, k) for k, (f, ts) in enumerate(src)] for t in trackers]
+    for a, b in zip(*snaps):  # each frame's own snapshot, not the buffers' last one
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for ra, rb in zip(trackers[0].rows, trackers[1].rows, strict=True):
+        assert ra[:2] == rb[:2] and all(np.array_equal(x, y) for x, y in zip(ra[2:], rb[2:]))
+    assert sum(len(r[2]) for r in trackers[0].rows) >= 3 * T_STEPS
+    graph = trackers[0]._graph
+    assert trackers[0].state is graph.state
+    fresh = init_track_state(KNOBS["max_tracks"], "cpu")
+    trackers[0].state = fresh
+    trackers[0].process_frame(*src[0], T_STEPS)
+    assert trackers[0].state is graph.state and int(fresh.next_id) == 0
+    assert trackers[0].rows[-1][2].tolist() == trackers[1].rows[0][2].tolist()
+
+
 @pytest.mark.parametrize("heads", ["distinct", "tied"])
 def test_approx_topk_matches_jax(heads):
     """``approx_topk=True`` through ``detect_multiframe``: the port's exact
