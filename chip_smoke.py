@@ -60,7 +60,9 @@ result line):
              through ``SingleCameraTracker.track``, its step one CUDA graph
              a frame, against an eager run of the same frames (``qconv.cu``
              exactly 102 launches a frame, no crop or YUV kernel, one host
-             read a frame and no other wait under the sync-debug mode, the
+             read a frame and no other synchronizing call under the
+             sync-debug mode (besides one event wait a frame, which the
+             mode does not see: the end of the step's timer), the
              NMS and auction rounds read from the card's counters, the CSV
              written and read back); then ``apps/track.py --mode single``
              (real conv7 detector, rendered 1080p frames) and ``--mode multi
@@ -1982,9 +1984,10 @@ def batched_detections(device, n: int = 4):
     one forward over ``n`` 1080p frames, ``qconv`` at N ``n``) against ``n``
     single-frame ``detect_multiframe`` calls, for the shipped int8 detector
     with random output convs (so that every logit and box depends on the
-    pixels; the main path's are zero): the forward's outputs and the
-    detections, bit for bit. A difference is reported with where it lies
-    and how large it is; it fails nothing (the clips' own equality does)."""
+    pixels; the main path's are zero, so the clips' own equality cannot see
+    a frame's detections handed to another): the forward's outputs and the
+    detections must be equal bit for bit (int8 accumulates exactly); a
+    difference fails, reported with where it lies and how large it is."""
     import torch
 
     from playground3d_tpu_torch.models.quant import quantize_detector
@@ -2003,10 +2006,11 @@ def batched_detections(device, n: int = 4):
     batched = forward_raw(det_q, frames[:, 0], compact=True, min_level=cfg.det_min_level, score_path=True)
     single = [forward_raw(det_q, frames[j], compact=True, min_level=cfg.det_min_level, score_path=True)
               for j in range(n)]
-    parts = []
+    parts, forward_differs = [], False
     for name, b, s in zip(("max logit", "class", "regression"), batched, zip(*single)):
         s = torch.cat(s)
         differ = int((b != s).sum())
+        forward_differs |= differ > 0
         parts.append(f"{name} {differ} of {b.numel()} differ"
                      + (f" (max abs {float((b.float() - s.float()).abs().max()):.4g})" if differ else ""))
     got = detect_frames(det_q, frames, **kw)
@@ -2022,6 +2026,8 @@ def batched_detections(device, n: int = 4):
         + ("bit-equal" if not det_differ else f"differ in {det_differ}"))
     if kept == 0:
         fail("variants: the batched detector pass kept no detection")
+    if forward_differs or det_differ:
+        fail("variants: the batched detector pass differs from the single-frame passes")
 
 
 def phase_variants(device, refs: dict) -> None:
@@ -2137,8 +2143,9 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
     parse to states that the lifecycle drops at once, so no track would
     outlive its frame), int8-quantized on the same packed frame. A warm-up
     tracker captures the step's CUDA graph; the timed tracker replays it
-    (one replay and one host read a frame, under PyTorch's sync-debug
-    mode); an eager tracker (``graphs=False``) runs the same frames, and the
+    (one replay, one event wait - the end of the step's timer, which the
+    sync-debug mode does not see - and one host read a frame, no other
+    synchronizing call under PyTorch's sync-debug mode); an eager tracker (``graphs=False``) runs the same frames, and the
     two must be equal. Launch counts set to 0 just before the timed frames
     and read just after; the CSV written and read back."""
     import types
@@ -2230,7 +2237,8 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
     log(f"single: {n_frames} frames of 1x{H}x{W} uint8 s2d-packed, s2d + int8 ResNet-50, one CUDA graph a frame "
         f"({graph_nodes(graph)} nodes, captured in {cap_s:.3f} s and instantiated in {inst_s:.3f} s, host), in "
         f"{ms:.1f} ms (CUDA events) = {fps:.2f} frames/s; eager {n_frames / eager.ms * 1e3:.2f} frames/s; host "
-        f"syncs {syncs} ({syncs / n_frames:.2f} per frame; by loop {loops}), no other wait in sync-debug mode; "
+        f"syncs {syncs} ({syncs / n_frames:.2f} per frame; by loop {loops}) and one event wait a frame (the step's timer; unseen by the sync-debug mode, which "
+        f"flagged no other call); "
         f"NMS rounds {rounds['nms'] / n_frames:.2f} and auction rounds {rounds['auction'] / n_frames:.2f} a frame "
         f"on the card (its counters, read once); drain {timers['drain'] / sum(timers.values()) * 100:.1f}% of the "
         f"stage timers ({', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timers.items())})")

@@ -355,71 +355,72 @@ def make_mc_detect_step_from_detections(bank: CameraBank, kfp: KFParams, cfg: Tr
 
 
 class _BranchGraphs:
-    """The clip's three branches over one set of static buffers: the
-    tracker state, ``ts_bias``, one frame of all cameras and its camera
-    times, and the snapshot. Each branch reads the buffers and writes its
-    new state, bias and snapshot back into them, so a frame is: copy its
-    inputs in, run the branch (one CUDA graph replay on the card,
-    :class:`StaticGraphs`), copy the snapshot out.
+    """The clip's branches over one set of static buffers: the tracker
+    state, ``ts_bias``, each branch's own input (a frame of all cameras, or
+    a frame's detections), the camera times and the snapshot. Each branch
+    reads the buffers and writes its new state, bias and snapshot back into
+    them, so a frame is: copy its inputs in, run the branch (one CUDA graph
+    replay on the card, :class:`StaticGraphs`), copy the snapshot out."""
 
-    With ``detect_frames`` (``batch_detects``) the clip's detect frames are
-    first copied into a static ``[J,C,...]`` buffer and detected by one
-    program of their own, whose stacked detections stay in static buffers;
-    before each detect frame its detections are copied into a static slot,
-    which the detect branch reads in place of the frame."""
-
-    def __init__(self, branches: dict, device: torch.device, detect_frames: Optional[Callable] = None):
-        self.branches = branches  # name -> fn(state, ts_bias, frame, cam_times) -> (state, ts_bias, snap)
-        self.detect_frames = detect_frames  # frames [J,C,...] -> Detections stacked over J
+    def __init__(self, branches: dict, device: torch.device):
+        self.branches = branches  # name -> fn(state, ts_bias, input, cam_times) -> (state, ts_bias, snap)
         self.programs = StaticGraphs(device)
-        self.state = self.ts_bias = self.frame = self.cam_times = self.snap = None
-        self.det_frames = self.dets = self.det = None
+        self.state = self.ts_bias = self.cam_times = self.snap = None
+        self.inputs: dict = {}  # branch name -> its static input: a tensor or a named tuple of them
 
-    def load(self, state: TrackState, ts_bias: torch.Tensor, frame: torch.Tensor, cam_times: torch.Tensor):
+    def load(self, state: TrackState, ts_bias: torch.Tensor, cam_times: torch.Tensor):
         """Copy a clip's starting state and bias in (allocating the buffers
         at the first clip)."""
         if self.state is None:
             self.state, self.ts_bias = clone_state(state), ts_bias.clone()
-            self.frame = torch.empty_like(frame)
             self.cam_times = torch.empty_like(cam_times)
-            like = self.branches["passthrough"](self.state, self.ts_bias, self.frame, cam_times)[2]
+            like = self.branches["passthrough"](self.state, self.ts_bias, None, cam_times)[2]
             self.snap = Snapshot(*(torch.empty_like(x) for x in like))
             return
         copy_into(state_leaves(self.state), state_leaves(state))
         self.ts_bias.copy_(ts_bias)
 
-    def detect(self, det_frames: torch.Tensor) -> None:
-        """The clip's detect frames [J,C,...] through the batched detector."""
-        if self.det_frames is None:
-            self.det_frames = torch.empty_like(det_frames)
-        self.det_frames.copy_(det_frames)
-        self.programs.run("batched", self._detect_body)
-
-    def _detect_body(self, write_back: bool):
-        dets = self.detect_frames(self.det_frames)
-        if write_back:
-            self.dets = dets  # on the card the capture's outputs: every replay rewrites them in place
-
-    def run(self, name: str, frame: Optional[torch.Tensor], cam_times: torch.Tensor, j: int = 0) -> None:
-        """One frame through branch ``name`` (``frame`` is None for a branch
-        that reads no pixels; ``j`` is a detect frame's index among the
-        clip's detect frames when they were detected together)."""
+    def run(self, name: str, x, cam_times: torch.Tensor) -> None:
+        """One frame through branch ``name``: ``x`` is its input, a tensor
+        or a named tuple of them (None for a branch that reads none)."""
         self.cam_times.copy_(cam_times)
-        if frame is not None:
-            self.frame.copy_(frame)
-        if name == "detect" and self.detect_frames is not None:
-            if self.det is None:
-                self.det = Detections(*(torch.empty_like(x[0]) for x in self.dets))
-            copy_into(self.det, (x[j] for x in self.dets))
+        if x is not None and name not in self.inputs:
+            self.inputs[name] = (torch.empty_like(x) if isinstance(x, torch.Tensor)
+                                 else type(x)(*(torch.empty_like(t) for t in x)))
+        if isinstance(x, torch.Tensor):
+            self.inputs[name].copy_(x)
+        elif x is not None:
+            copy_into(self.inputs[name], x)
         self.programs.run(name, lambda write_back: self._body(name, write_back))
 
     def _body(self, name: str, write_back: bool):
-        x = self.det if name == "detect" and self.detect_frames is not None else self.frame
-        st, tb, snap = self.branches[name](self.state, self.ts_bias, x, self.cam_times)
+        st, tb, snap = self.branches[name](self.state, self.ts_bias, self.inputs.get(name), self.cam_times)
         if write_back:
             copy_into(state_leaves(self.state), state_leaves(st))
             self.ts_bias.copy_(tb)
             copy_into(self.snap, snap)
+
+
+class _BatchedDetect:
+    """``batch_detects``' hoisted pass: the clip's detect frames ``[J,C,...]``
+    copied into a static buffer and detected by one program among the clip's
+    (one CUDA graph on the card); its detections, stacked over J, stay in
+    static buffers that every replay rewrites in place."""
+
+    def __init__(self, detect: Callable, programs: StaticGraphs):
+        self.detect, self.programs = detect, programs
+        self.frames = self.dets = None
+
+    def run(self, frames: torch.Tensor) -> None:
+        if self.frames is None:
+            self.frames = torch.empty_like(frames)
+        self.frames.copy_(frames)
+        self.programs.run("batched", self._body)
+
+    def _body(self, write_back: bool):
+        dets = self.detect(self.frames)
+        if write_back:
+            self.dets = dets
 
 
 class _UnrolledClip:
@@ -553,12 +554,22 @@ def make_mc_clip_step(
 
     branches = {"detect": b_parsed if batched else b_detect,
                 "crop": b_crop if crop_step is not None else b_skip, "passthrough": b_skip}
-    runners: dict = {}  # (device, frame shape, dtype[, T]) -> _BranchGraphs or _UnrolledClip
+    runners: dict = {}  # (device, frame shape, dtype[, T or J]) -> _BranchGraphs or _UnrolledClip
+    hoisted: dict = {}  # the same keys, batched -> _BatchedDetect on its runner's programs
 
     def which(i: int) -> str:
         if i % d == 0:
             return "detect"
         return "crop" if crop_step is not None and i % s == 0 else "passthrough"
+
+    def branch_input(name: str, li: int, frames: torch.Tensor, dets: Optional[Detections]):
+        """What frame ``li``'s branch reads: its frame of all cameras, or,
+        batched, its detections (the clip's detect frame ``li // d``)."""
+        if name == "passthrough":
+            return None
+        if name == "detect" and batched:
+            return Detections(*(x[li // d] for x in dets))
+        return frames[li]
 
     @torch.no_grad()
     def clip(state: TrackState, ts_bias: torch.Tensor, frames: torch.Tensor,
@@ -575,8 +586,7 @@ def make_mc_clip_step(
             dets = batched_detect(frames[::d]) if batched else None
             snaps = []
             for li, name in enumerate(names):
-                x = Detections(*(f[li // d] for f in dets)) if batched and name == "detect" else frames[li]
-                st, tb, snap = branches[name](st, tb, x, cam_times[li])
+                st, tb, snap = branches[name](st, tb, branch_input(name, li, frames, dets), cam_times[li])
                 snaps.append(snap)
             return st, tb, stack_snapshots(snaps)
 
@@ -593,16 +603,18 @@ def make_mc_clip_step(
                 key += (len(range(0, T_len, d)),)
             runner = runners.get(key)
             if runner is None:
-                runner = runners[key] = _BranchGraphs(branches, frames.device,
-                                                      batched_detect if batched else None)
-            runner.load(state, ts_bias, frames[0], cam_times[0])
+                runner = runners[key] = _BranchGraphs(branches, frames.device)
+                if batched:
+                    hoisted[key] = _BatchedDetect(batched_detect, runner.programs)
+            runner.load(state, ts_bias, cam_times[0])
+            dets = None
             if batched:
-                runner.detect(frames[::d])
+                hoisted[key].run(frames[::d])
+                dets = hoisted[key].dets
             out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
                              for x in runner.snap))
             for li, name in enumerate(names):
-                reads_frame = name == "crop" or (name == "detect" and not batched)
-                runner.run(name, frames[li] if reads_frame else None, cam_times[li], j=li // d)
+                runner.run(name, branch_input(name, li, frames, dets), cam_times[li])
                 for dst, src in zip(out, runner.snap):
                     dst[li].copy_(src)
         return clone_state(runner.state), runner.ts_bias.clone(), out

@@ -40,7 +40,6 @@ from playground3d_tpu_torch.pipeline.tracker_state import (
     pack_snapshot,
     parse_detections,
     snapshot,
-    stack_snapshots,
     unpack_snapshot,
 )
 from playground3d_tpu_torch.track.kf import KFParams, default_params
@@ -135,25 +134,16 @@ def make_clip_step(
     kfp: KFParams,
     cfg: TrackerConfig,
     stem: str = "conv7",
-    graphs: bool = True,
 ):
     """(state, frames [T,C,H,W,ch], cam_times [T,C]) -> (state', snapshots
     stacked over T): :func:`make_full_step` frame by frame, the port of the
-    JAX clip's ``lax.scan``. With ``graphs`` (the default) each frame is a
-    run of the step over static buffers (:class:`_StepGraph`: one CUDA graph
-    replay on the card); ``graphs=False`` runs the step eagerly (the
-    reference the graph is held to)."""
+    JAX clip's ``lax.scan``. Each frame is a run of the step over static
+    buffers (:class:`_StepGraph`: one CUDA graph replay on the card)."""
     step = make_full_step(det_model, bank, kfp, cfg, stem=stem)
     runners: dict = {}  # (device, frame shape, dtype) -> _StepGraph
 
     @torch.no_grad()
     def clip(state: TrackState, frames: torch.Tensor, cam_times: torch.Tensor):
-        if not graphs:
-            snaps = []
-            for t in range(frames.shape[0]):
-                state, snap = step(state, frames[t], cam_times[t])
-                snaps.append(snap)
-            return state, stack_snapshots(snaps)
         key = (frames.device, tuple(frames.shape[1:]), frames.dtype)
         runner = runners.get(key)
         if runner is None:
@@ -262,7 +252,10 @@ class SingleCameraTracker:
                     det = self._detect(frames)
                     self.state, snap = self._step(self.state, det, cam_times)
                 packed = pack_snapshot(snap)
-            if self.device.type == "cuda":  # the step's time, as the JAX tracker blocks on it here
+            if self.device.type == "cuda":
+                # the step's time, as the JAX tracker blocks on it here: one
+                # event wait a frame, which the sync-debug mode does not flag;
+                # it also ends the frame's copy out of :meth:`_stage`'s buffer
                 done = torch.cuda.Event()
                 done.record()
                 done.synchronize()

@@ -11,7 +11,9 @@ class bias raised by 3 so detections fire, and three live tracks seeded one
 per camera. The tolerances are the JAX tests': ``raw_mask`` (and ids and
 classes) equal, ``states7`` and ``kf.x`` within rtol/atol 1e-5, ``ts_bias``
 within 1e-6. The output convs have zero weights (the focal prior), so every
-logit is its bias and ties decide the detections alike in both packages.
+logit is its bias and ties decide the detections alike in both packages; one
+case gives the detector random output convs, so that detections follow each
+frame's pixels and a variant that reads another frame's would differ.
 
 ``detect_frames`` keeps the top-k pool and the NMS cap per frame: with
 distinct biases per (anchor, class) every frame ranks the same logits, and a
@@ -262,3 +264,49 @@ def test_detect_frames_keeps_top_k_and_nms_per_frame(spread, pre_topk, max_dets)
     kept = int(got.mask[0].sum())
     assert kept > 0 and (int(pooled.mask.sum()) != int(got.mask.sum()) or
                          not torch.equal(pooled.cam_idx[pooled.mask], got.cam_idx[0][got.mask[0]]))
+
+
+@pytest.fixture(scope="module")
+def pixels(nets, toy_cameras3):
+    """The clip's detector with random output convs (weights N(0, 0.01)), so
+    that every logit and box depends on its own image's pixels: the port's
+    default clip, each variant, and the default clip on the frames with
+    detect frames 0 and 3 swapped, each from the seeded state at frame0 0."""
+    p = dict(nets["jax_det"], heads=dict(nets["jax_det"]["heads"]))
+    rng = np.random.default_rng(41)
+    for name in ("cls_out", "reg_out"):
+        w = p["heads"][name]["w"]
+        p["heads"][name] = dict(p["heads"][name], w=jnp.asarray(rng.normal(0.0, 0.01, w.shape).astype(np.float32)))
+    det = params_from_jax_numpy(jax.tree_util.tree_map(np.asarray, p), device="cpu")
+    frames = torch.as_tensor(nets["frames"][:T_CLIP])
+
+    def run(fr, **variant):
+        clip = make_mc_clip_step(
+            det, bank_from_registry(toy_cameras3["registry"], device="cpu"),
+            torch.as_tensor(toy_cameras3["centers"]), default_params(device="cpu"), TrackerConfig(**KNOBS),
+            crop_model=nets["crop"], stem="s2d", crop_stem="s2d", **variant,
+        )
+        st = _seed(init_track_state(KNOBS["max_tracks"], "cpu"), nets["ranges"], KNOBS["max_tracks"],
+                   torch.as_tensor)
+        return clip(st, torch.as_tensor(nets["bias0"]), fr, torch.as_tensor(nets["cam_times"][:T_CLIP]), 0)
+
+    out = {name: run(frames, **kw) for name, kw in VARIANTS.items()}
+    out["default"] = run(frames)
+    out["swapped"] = run(frames[[3, 1, 2, 0, 4, 5]])
+    return out
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variant_detects_each_frame_from_its_own_pixels(pixels, variant):
+    """With detections that depend on the pixels, each variant (static
+    buffers) still equals the port's default clip: the batched forward,
+    its per-frame detections and the slot each detect frame reads, and the
+    unrolled clip's frame index, all follow the frame."""
+    _check(pixels["default"], pixels[variant])
+
+
+def test_the_pixel_case_sees_a_swapped_detect_frame(pixels):
+    """The canary of the case above: a clip that detects frame 3's pixels at
+    frame 0 and frame 0's at frame 3 fails its check."""
+    with pytest.raises(AssertionError):
+        _check(pixels["default"], pixels["swapped"])
