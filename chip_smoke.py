@@ -54,7 +54,21 @@ result line):
              unrolled clip (``crop_resize.cu`` inside the clip graph); and
              the batched detector pass at N 4 against four single-frame
              passes with random output convs (reported bit for bit);
-5. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
+5. mesh    - the device mesh: 4 cameras of 1080p s2d + int8 (the shipped
+             knobs, the detector's output convs random, so detections
+             follow each camera's pixels) through ``track_clips``, unsharded
+             and camera-sharded (``mesh=``) over every visible card and, on
+             one card, that card listed twice, each for the three-branch
+             clip and ``batch_detects``: a run under the sync-debug mode
+             reads the card once and equals the unsharded rows (ids,
+             raw_mask, classes equal; states7 and kf.x within 1e-4);
+             ``unroll`` with a mesh raises; each shard's graphs (nodes,
+             launches a replay, replay time), the crop frame's gather to the
+             lead and camera-frames/s; then ``apps/train_detector.py --dp``
+             over every visible card (NCCL ranks) and two gloo ranks
+             sharing one card, bit-equal to each other after 3 steps and
+             within 6 lr of one process on the same global batches;
+6. single  - the single-camera tracker: ``SingleCameraTracker`` on the card
              against the CPU at 64x96 (conv7 + float, s2d + int8); the shipped
              int8 ResNet-50 s2d detector on 24 uint8 s2d-packed 1080p frames
              through ``SingleCameraTracker.track``, its step one CUDA graph
@@ -67,7 +81,7 @@ result line):
              written and read back); then ``apps/track.py --mode single``
              (real conv7 detector, rendered 1080p frames) and ``--mode multi
              --oracle``, both with ``--eval``;
-6. session - recorded sessions through ``apps/track.py --mode session``: a
+7. session - recorded sessions through ``apps/track.py --mode session``: a
              session directory of two cameras' 3840x2160 y4m segments with
              burned timestamps, an ignore region and checkpoints, tracked at
              1080p on the card with ``--emit s2d_u8`` (the fused 4K host
@@ -78,7 +92,7 @@ result line):
              twins, the card's session CSV equal the CPU's on a small
              session, an H.264 leg where libav exists; session frames/s,
              host ms per frame by stage and the card's busy share;
-7. train   - detector training: one ``Trainer.train_step`` on the card
+8. train   - detector training: one ``Trainer.train_step`` on the card
              against the CPU (depth 18, 64x128); ``apps/train_detector.py``
              in-process at its defaults (ResNet-50, conv7, FPN/heads 256
              wide, 4-conv towers, 512x768, batch 4, uint8 frames) for 20
@@ -90,7 +104,7 @@ result line):
              --mode single``; one Trainer at 1080x1920, batch 2; steps/s,
              images/s, card busy, host ms per batch, peak memory; then
              ``apps/fit_filter.py`` into a tracker;
-8. apps    - the last one-card apps and tools: ``apps/detect_video.py``
+9. apps    - the last one-card apps and tools: ``apps/detect_video.py``
              (card against CPU at 64x96, then its defaults: ResNet-50
              conv7, 1080p, 24 frames; the CSV and its fps trailer),
              ``detect_singleframe`` (card against CPU at 128x192; at 1080p
@@ -108,7 +122,7 @@ result line):
              ``focal_loss`` launches counted on their own, and
              ``TrackOverlayWriter`` as the ``on_frame`` of one clip of the
              multi-camera tracker (a PNG a camera a frame);
-9. report  - the ``kernels`` JSON line, the card's name and power limit, and
+10. report - the ``kernels`` JSON line, the card's name and power limit, and
              the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 2 (for work on a
@@ -1651,6 +1665,22 @@ def graph_nodes(graph) -> int:
     return int(n.value)
 
 
+def graph_replay_ms(graph, device) -> float:
+    """A graph's replay time on its card: median of 5, CUDA events."""
+    import torch
+
+    times = []
+    with torch.cuda.device(device):
+        for _ in range(5):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            graph.replay()  # alone, credits no launch: this replay is measurement
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
 def graph_detail(clip, label: str, phase: str = "main"):
     """Per graph of the captured clip (a branch, the batched detector pass
     or the whole unrolled clip): graph nodes, the launches it credits, its
@@ -1665,15 +1695,7 @@ def graph_detail(clip, label: str, phase: str = "main"):
     medians = {}
     for runner in clip.runners.values():
         for name, (graph, tally) in runner.programs.graphs.items():
-            times = []  # graph.replay() alone credits no launch: these replays are measurement
-            for _ in range(5):
-                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                s.record()
-                graph.replay()
-                e.record()
-                torch.cuda.synchronize()
-                times.append(s.elapsed_time(e))
-            medians[name] = replay_ms = float(np.median(times))
+            medians[name] = replay_ms = graph_replay_ms(graph, runner.programs.device)
             cap_s, inst_s = runner.programs.capture_s[name]
             line = (f"{phase} ({label}): graph {name}: {graph_nodes(graph)} nodes, kernel launches credited "
                     f"{ {k.__name__: v for k, v in tally.items()} }, captured in {cap_s:.3f} s and instantiated "
@@ -1979,6 +2001,25 @@ def phase_main(device, loop_calls: str | None = None):
 # ---------------------------------------------------------------------------
 
 
+def random_head_detector(device):
+    """The shipped int8 detector with random output convs (weights N(0,
+    0.01), seed 17), quantized on the calibration frame: every logit and
+    box depends on its own image's pixels. Built once."""
+    import torch
+
+    from playground3d_tpu_torch.models.quant import quantize_detector
+
+    if "random_head" not in _CACHE:
+        _, _, (det_f, _), _, calib = shipped_models(device)
+        det = copy.deepcopy(det_f)
+        gen = torch.Generator().manual_seed(17)
+        with torch.no_grad():
+            for conv in (det.heads.cls_out, det.heads.reg_out):
+                conv.w.copy_(torch.randn(conv.w.shape, generator=gen) * 0.01)
+        _CACHE["random_head"] = quantize_detector(det, calib[None])
+    return _CACHE["random_head"]
+
+
 def batched_detections(device, n: int = 4):
     """The batched detector pass of ``batch_detects`` (``detect_frames``:
     one forward over ``n`` 1080p frames, ``qconv`` at N ``n``) against ``n``
@@ -1990,16 +2031,10 @@ def batched_detections(device, n: int = 4):
     difference fails, reported with where it lies and how large it is."""
     import torch
 
-    from playground3d_tpu_torch.models.quant import quantize_detector
     from playground3d_tpu_torch.models.retinanet import detect_frames, detect_multiframe, forward_raw
 
-    _, cfg, (det_f, _), _, calib = shipped_models(device)
-    det = copy.deepcopy(det_f)
-    gen = torch.Generator().manual_seed(17)
-    with torch.no_grad():
-        for conv in (det.heads.cls_out, det.heads.reg_out):
-            conv.w.copy_(torch.randn(conv.w.shape, generator=gen) * 0.01)
-    det_q = quantize_detector(det, calib[None])
+    _, cfg, _, _, _ = shipped_models(device)
+    det_q = random_head_detector(device)
     raw = np.random.default_rng(23).integers(0, 256, (n, H, W, 3), dtype=np.uint8)
     frames = torch.as_tensor(pack_frames(raw)).to(device)[:, None]  # [n, C=1, ...]
     kw = dict(pre_topk=cfg.pre_topk, max_dets=cfg.max_dets, min_level=cfg.det_min_level)
@@ -2071,6 +2106,325 @@ def phase_variants(device, refs: dict) -> None:
                     for k, v in report.items())
         + f"; conv7 + float unrolled {out['fps']:.2f} against its three branches {res_c['fps']:.2f}")
     log(f"variants: phase took {time.time() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the device mesh: the camera-sharded clip and data-parallel training
+# ---------------------------------------------------------------------------
+
+MESH_CAMERAS = (("p1c1", 0.0), ("p1c2", 100.0), ("p1c3", 200.0), ("p1c4", 300.0))  # poles 100 ft apart
+
+
+def mesh_tracker(det, crop, device, graphs: bool = True):
+    """The 4-camera tracker at the shipped knobs, live tracks seeded in
+    camera 0's view."""
+    from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
+
+    reg = bench_registry(cameras=MESH_CAMERAS)
+    centers = np.array([[565.0 + dx, 60.0] for _, dx in MESH_CAMERAS], np.float32)
+    trk = MultiCameraTracker(reg, [name for name, _ in MESH_CAMERAS], cfg=tracker_config(), det_model=det,
+                             crop_model=crop, centers=centers, stem="s2d", crop_stem="s2d", device=device,
+                             graphs=graphs)
+    trk.state = seed_tracks(trk.state, N_SEED)
+    return trk
+
+
+def camera_sources(frames: np.ndarray, t0: float = 1.6e9):
+    """Each camera's (frame, time) stream from [T,C,...] frames."""
+    def camera(c):  # a function, so that each generator keeps its own camera
+        return ((frames[k, c], t0 + k / 30.0) for k in range(frames.shape[0]))
+
+    return [camera(c) for c in range(frames.shape[1])]
+
+
+def mesh_track(det, crop, frames, device, mesh=None, variant=None, clip=None, watch: bool = False):
+    """One run of the 4-camera tracker through ``track_clips`` (camera-
+    sharded over ``mesh`` when one is given) on ``clip`` (an earlier run's,
+    with its graphs) or on a new clip step of ``variant``; every count set
+    to 0 just before and read just after. With ``watch``, under PyTorch's
+    sync-debug mode: any synchronizing call inside fails. -> (tracker, its
+    clip, camera-frames/s by the host's clock around the run and a
+    synchronize of every card, host reads, launches)."""
+    import warnings
+
+    import torch
+
+    from playground3d_tpu_torch.ops.topk import HostSyncs
+    from playground3d_tpu_torch.pipeline.multi_cam import make_mc_clip_step
+
+    trk = mesh_tracker(det, crop, device)
+    if clip is None:
+        clip = make_mc_clip_step(det, trk.bank, trk.centers, trk.kfp, trk.cfg, crop_model=crop, stem="s2d",
+                                 crop_stem="s2d", mesh=mesh, **(variant or {}))
+    if mesh is None:
+        trk._clip = clip
+    else:
+        trk._mesh_clips[mesh] = clip
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    syncs0 = HostSyncs.count
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    t0 = time.time()
+    torch.cuda.set_sync_debug_mode("warn" if watch else 0)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trk.track_clips(camera_sources(frames), clip_len=T_CLIP, mesh=mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    wall = time.time() - t0
+    syncing = [f"{w.filename}:{w.lineno}" for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    if syncing:
+        fail(f"mesh: {len(syncing)} synchronizing calls inside track_clips, at {sorted(set(syncing))}")
+    return (trk, clip, frames.shape[0] * frames.shape[1] / wall, HostSyncs.count - syncs0,
+            {k: fn.launches for k, fn in counters.items()})
+
+
+def mesh_graph_lines(clip, label: str, n_frames: int, n_cams: int) -> float:
+    """Each shard's graphs and the lead's: nodes, launches a replay, replay
+    time; -> the camera-frames/s the replays alone allow: the lead's
+    replays after the busiest card's shard replays (shards on one card
+    replay one after another)."""
+    cfg = tracker_config()
+    n_detect = len(range(0, n_frames, cfg.det_step))
+    n_crop = sum(1 for k in range(n_frames) if k % cfg.det_step and k % cfg.skip_step == 0)
+    per_frame = {"frame": n_detect, "batched": -(-n_frames // T_CLIP), "detect": n_detect, "crop": n_crop,
+                 "passthrough": n_frames - n_detect - n_crop}
+    shard_ms, lead_ms = {}, 0.0  # shard device -> its shards' replay ms a run
+    programs = [(f"shard {i} on {sd.programs.device}", sd.programs)
+                for shards in clip.shard_runners.values() for i, sd in enumerate(shards)]
+    programs += [("lead", runner.programs) for runner in clip.runners.values()]
+    for where, prog in programs:
+        for name, (graph, tally) in prog.graphs.items():
+            ms = graph_replay_ms(graph, prog.device)
+            if where == "lead":
+                lead_ms += per_frame[name] * ms
+            else:
+                shard_ms[prog.device] = shard_ms.get(prog.device, 0.0) + per_frame[name] * ms
+            log(f"mesh ({label}): {where} {prog.device}: graph {name}: {graph_nodes(graph)} nodes, launches a "
+                f"replay { {k.__name__: v for k, v in tally.items()} }, replay {ms:.3f} ms median of 5 (CUDA events)")
+    return n_frames * n_cams / (max(shard_ms.values(), default=0.0) + lead_ms) * 1e3
+
+
+def peer_copy_ms(clip, mesh) -> float:
+    """The crop frame's gather to the lead (one copy a shard into the crop
+    branch's static buffer, as the clip makes it): median of 20, CUDA
+    events on the lead."""
+    import torch
+
+    from playground3d_tpu_torch.pipeline.multi_cam import _copy_parts
+
+    runner = next(iter(clip.runners.values()))
+    dst = runner.inputs["crop"]
+    parts = [sd.frames["frame"] for sd in next(iter(clip.shard_runners.values()))]
+    times = []
+    for _ in range(20):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record(torch.cuda.current_stream(mesh.lead))
+        _copy_parts(dst, parts)
+        e.record(torch.cuda.current_stream(mesh.lead))
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def mesh_clips(device, refs: dict) -> None:
+    """4 cameras of 1080p s2d + int8 (the main phase's packed frames, each
+    camera another offset into them), the detector with random output
+    convs: the unsharded captured clip, then the camera-sharded clip over
+    each mesh (every visible card, and on one card that card listed twice),
+    the three-branch clip and ``batch_detects``, each a warm-up that
+    captures and a run under the sync-debug mode that must read the card
+    once and equal the unsharded rows; ``unroll`` with a mesh raises."""
+    import torch
+
+    from playground3d_tpu_torch.parallel.mesh import make_mesh
+    from playground3d_tpu_torch.pipeline.multi_cam import make_mc_clip_step
+
+    _, crop_q, packed, _ = refs["s2d + int8"]
+    det = random_head_detector(device)
+    n_cams, n_frames = len(MESH_CAMERAS), 2 * T_CLIP
+    frames = np.stack([packed[(np.arange(n_frames) + 12 * c) % packed.shape[0]] for c in range(n_cams)], axis=1)
+    n_cards = torch.cuda.device_count()
+    meshes = {f"every visible card ({min(n_cards, 4)})": make_mesh(max(k for k in (1, 2, 4) if k <= n_cards))}
+    if n_cards == 1:
+        meshes["cuda:0 listed twice"] = make_mesh(devices=["cuda:0", "cuda:0"])
+
+    n_clips = n_frames // T_CLIP
+    _, clip, _, _, _ = mesh_track(det, crop_q, frames[:T_CLIP], device)  # captures
+    ref, _, ref_fps, syncs, ref_launches = mesh_track(det, crop_q, frames, device, clip=clip, watch=True)
+    if syncs != n_clips:
+        fail(f"mesh: the unsharded clip read the card {syncs} times for {n_clips} clips")
+    births = int(ref.state.next_id) - N_SEED
+    dets = sum(len(r[2]) for r in ref.rows)
+    ref_replay = mesh_graph_lines(clip, "unsharded", n_frames, n_cams)
+    log(f"mesh: unsharded captured clip, {n_cams} cameras x {n_frames} frames of {H}x{W} s2d + int8, random output "
+        f"convs: {ref_fps:.1f} camera-frames/s (host clock, {n_clips} clips), the replays alone "
+        f"{ref_replay:.1f}; births {births}, track rows {dets}; launches {ref_launches}")
+    if births <= 0:
+        fail("mesh: the random-head detector produced no births")
+
+    fps = {"unsharded": (ref_fps, ref_replay)}
+    for label, mesh in meshes.items():
+        for name, variant in (("three branches", {}), ("batch_detects", dict(batch_detects=True))):
+            tag = f"{label}, {name}"
+            _, clip, _, _, _ = mesh_track(det, crop_q, frames[:T_CLIP], device, mesh, variant)
+            trk, _, f, syncs, launches = mesh_track(det, crop_q, frames, device, mesh, clip=clip, watch=True)
+            if syncs != n_clips:
+                fail(f"mesh ({tag}): {syncs} host reads for {n_clips} clips; one a clip is the contract")
+            worst, kfx = rows_diff(f"mesh ({tag}) against the unsharded clip", trk, ref)
+            shards = next(iter(clip.shard_runners.values()))
+            if len(shards) != mesh.size or any(not sd.programs.graphs for sd in shards):
+                fail(f"mesh ({tag}): not every shard captured its graphs")
+            replay = mesh_graph_lines(clip, tag, n_frames, n_cams)
+            log(f"mesh ({tag}): {mesh.size} shards on {[str(d) for d in mesh.devices]}: {f:.1f} camera-frames/s "
+                f"(unsharded {ref_fps:.1f}, same call), the replays alone {replay:.1f} (unsharded {ref_replay:.1f}); "
+                f"rows equal the unsharded clip's (ids, raw_mask, classes; states7 within {worst:.3g}, kf.x within "
+                f"{kfx:.3g}, tolerance 1e-4); one host read a clip; launches {launches} (unsharded {ref_launches})")
+            if launches["qconv"] < 1 or launches["nms"] < 1 or launches["auction"] < 1 or \
+                    launches["crop_and_resize_s2d"] < 1:
+                fail(f"mesh ({tag}): a kernel of the path was launched no time: {launches}")
+            fps[tag] = (f, replay)
+            if name == "three branches":
+                log(f"mesh ({tag}): the crop frame's gather of {n_cams} cameras to the lead: "
+                    f"{peer_copy_ms(clip, mesh):.3f} ms median of 20 (CUDA events"
+                    + ("; one card: copies within it, not NVLink)" if len(set(mesh.devices)) == 1 else ")"))
+        try:
+            make_mc_clip_step(det, ref.bank, ref.centers, ref.kfp, ref.cfg, crop_model=crop_q, stem="s2d",
+                              crop_stem="s2d", mesh=mesh, unroll=True)
+            fail(f"mesh ({label}): unroll with a mesh did not raise")
+        except ValueError:
+            pass
+    log("mesh: camera-frames/s side by side, one call (host clock; the replays alone): "
+        + ", ".join(f"{k} {v[0]:.1f} ({v[1]:.1f})" for k, v in fps.items()) + "; unroll with a mesh raises ValueError")
+
+
+DP_RANK = """
+import sys, time
+import torch
+import torch.distributed as dist
+from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
+from playground3d_tpu_torch.parallel.mesh import join_data_parallel, make_mesh
+from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer, train_leaves
+
+rank, init, out, devices, batch = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4].split(","), int(sys.argv[5])
+mesh = make_mesh(devices=devices)
+dev = join_data_parallel(mesh, rank, init)
+ds = SyntheticDetectionDataset(image_shape=(64, 128), n_objects=6, seed=2, zoom=8.0, output_dtype="uint8")
+tr = Trainer(TrainConfig(depth=18, image_shape=(64, 128)), generator=torch.Generator().manual_seed(rank), mesh=mesh)
+batches = ds.batches(batch)
+losses, step_ms = [], []
+for _ in range(3):
+    images, labels = next(batches)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    losses.append(float(tr.train_step(images, labels)["loss"]))
+    torch.cuda.synchronize(dev)
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+flat = torch.zeros(sum(t.numel() for t in train_leaves(tr.model).values()) + 4, device=dev)
+reduce_ms = []
+for _ in range(5):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    dist.all_reduce(flat)
+    torch.cuda.synchronize(dev)
+    reduce_ms.append((time.perf_counter() - t0) * 1e3)
+torch.save({"losses": losses, "step_ms": step_ms, "reduce_ms": reduce_ms, "numel": flat.numel(),
+            "backend": dist.get_backend(), "leaves": {k: t.detach().cpu() for k, t in train_leaves(tr.model).items()}},
+           out)
+dist.destroy_process_group()
+"""
+
+
+def dp_ranks(label: str, device, devices, batch: int) -> None:
+    """One process a mesh device of ``devices`` (``DP_RANK``; depth 18,
+    64x128, global batch ``batch``, 3 bf16 steps from rank 0's init)
+    against one process's 3 steps on the same global batches on
+    ``device``: the ranks' parameters bit-equal to each other, within 2 *
+    3 lr of the one process's, losses within 1e-3 (relative; bf16
+    convolutions at another batch size); each rank's steps and an
+    all-reduce of the gradients' flat buffer timed on the host's clock."""
+    import tempfile
+
+    import torch
+
+    from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer, train_leaves
+
+    root = tempfile.mkdtemp(dir="_outputs")
+    init = f"file://{os.path.abspath(root)}/rendezvous"
+    procs = [subprocess.Popen([sys.executable, "-c", DP_RANK, str(r), init, os.path.join(root, f"rank{r}.pt"),
+                               ",".join(devices), str(batch)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(len(devices))]
+    ds = SyntheticDetectionDataset(image_shape=(64, 128), n_objects=6, seed=2, zoom=8.0, output_dtype="uint8")
+    one = Trainer(TrainConfig(depth=18, image_shape=(64, 128)), generator=torch.Generator().manual_seed(0),
+                  device=device)
+    batches = ds.batches(batch)
+    losses = [float(one.train_step(*next(batches))["loss"]) for _ in range(3)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        fail(f"mesh ({label}): a rank failed:\n" + "\n".join(x[-3000:] for x in logs))
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(len(devices))]
+    lr = TrainConfig().lr
+    equal = all(torch.equal(r["leaves"][k], ranks[0]["leaves"][k]) for r in ranks[1:] for k in ranks[0]["leaves"])
+    want = {k: t.detach().cpu() for k, t in train_leaves(one.model).items()}
+    diffs = torch.cat([(ranks[0]["leaves"][k] - want[k]).abs().reshape(-1) for k in want])
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(ranks[0]["losses"], losses))
+    log(f"mesh ({label}): {len(devices)} {ranks[0]['backend']} ranks on {devices} (depth 18, 64x128, global batch "
+        f"{batch}, 3 bf16 steps): ranks' parameters {'bit-equal' if equal else 'DIFFER'}; against one process on the "
+        f"global batches: losses {ranks[0]['losses']} vs {losses} (max rel {rel:.2e}, tolerance 1e-3), parameters "
+        f"max abs diff {float(diffs.max()):.3g} = {float(diffs.max()) / lr:.2f} lr (tolerance 6 lr), "
+        f"{int((diffs > 1e-6).sum())} of {diffs.numel()} elements beyond 1e-6; step ms per rank "
+        f"{[[round(x, 2) for x in r['step_ms']] for r in ranks]} (host clock, each ended by a synchronize), "
+        f"all-reduce of the {ranks[0]['numel']}-float buffer {np.median(ranks[0]['reduce_ms']):.2f} ms median of 5")
+    if not equal or rel > 1e-3 or float(diffs.max()) > 6 * lr:
+        fail(f"mesh ({label}): the ranks differ from each other or from the one-process step beyond the tolerance")
+
+
+def mesh_train(device) -> None:
+    """``apps/train_detector.py --dp`` over every visible card (NCCL ranks;
+    one card trains as without it), then :func:`dp_ranks` for two gloo
+    ranks sharing the card and, with more cards, NCCL ranks over every
+    card."""
+    import torch
+
+    from playground3d_tpu_torch.apps import train_detector
+
+    os.makedirs("_outputs", exist_ok=True)
+    n_cards = torch.cuda.device_count()
+    out = os.path.join("_outputs", "mesh_dp.npz")
+    t0 = time.time()
+    summary = train_detector.main(["--dp", "--depth", "18", "--height", "128", "--width", "192", "--zoom", "4",
+                                   "--steps", "3", "--steps-per-epoch", "3", "--batch", str(2 * n_cards),
+                                   "--out", out])
+    if summary["ranks"] != n_cards or summary["steps"] != 3 or not np.isfinite(summary["epochs"][0]["loss"]):
+        fail(f"mesh: train_detector --dp over {n_cards} cards: {summary}")
+    log(f"mesh: apps.train_detector --dp over {n_cards} card(s) ({'NCCL ranks' if n_cards > 1 else 'one process'}"
+        f"): 3 steps, epoch loss {summary['epochs'][0]['loss']:.5f}, {summary['seconds']:.2f} s of training "
+        f"({time.time() - t0:.1f} s with start-up)")
+    dp_ranks("one card shared", device, ["cuda:0", "cuda:0"], 4)
+    if n_cards > 1:
+        dp_ranks("every card", device, [f"cuda:{i}" for i in range(n_cards)], 2 * n_cards)
+
+
+def phase_mesh(device, refs: dict) -> None:
+    """The device mesh on the card(s): the camera-sharded clip and
+    data-parallel training (see :func:`mesh_clips`, :func:`mesh_train`)."""
+    import torch
+
+    t_phase = time.time()
+    lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    log(f"mesh: {torch.cuda.device_count()} visible card(s): " + "; ".join(
+        f"cuda:{i} {torch.cuda.get_device_name(i)} ({lines[i] if i < len(lines) else 'not in nvidia-smi'})"
+        for i in range(torch.cuda.device_count())))
+    mesh_clips(device, refs)
+    mesh_train(device)
+    log(f"mesh: phase took {time.time() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3757,6 +4111,7 @@ def main() -> None:
         return
     launches, refs = phase_main(device, loop_calls)
     phase_variants(device, refs)
+    phase_mesh(device, refs)
     del refs
     phase_single(device)
     phase_session(device)

@@ -9,6 +9,13 @@ format. Runs on the CUDA card unless ``--device cpu``. A background thread
 renders and stages batches (``data/dataset.py::Prefetcher``); an epoch's
 losses stay on the device and are read once at its end.
 
+``--dp`` trains data-parallel over every visible card (JAX's ``make_mesh()``):
+one process a card (``torch.multiprocessing.spawn``; NCCL, joined through a
+rendezvous file in a temporary directory). Every rank renders the same
+global batches as the one-process app and trains on its slice of each
+(``Trainer(mesh=)``); rank 0 prints, writes the checkpoints and returns the
+summary. With one device ``--dp`` trains as without it.
+
 Usage:
     python -m playground3d_tpu_torch.apps.train_detector --steps 500 --batch 8 \\
         --height 512 --width 768 --out detector.npz
@@ -21,10 +28,7 @@ import argparse
 import time
 
 
-def main(argv=None) -> dict:
-    """Run the training loop; -> a summary: steps, wall seconds, per-epoch
-    mean losses and learning rates, the Prefetcher's host seconds by stage
-    and batches, and the checkpoint path."""
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--steps-per-epoch", type=int, default=100)
@@ -40,7 +44,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="detector.npz")
     ap.add_argument("--resume", default=None)
     ap.add_argument("--dp", action="store_true",
-                    help="data-parallel over all devices (one device trains as without it; more raise)")
+                    help="data-parallel over all devices, one process each (one device trains as without it)")
     ap.add_argument("--stem", default="conv7", choices=["conv7", "s2d"])
     ap.add_argument("--feature-size", type=int, default=256)
     ap.add_argument("--tower-depth", type=int, default=4)
@@ -50,30 +54,90 @@ def main(argv=None) -> dict:
         help="ship normalized f32 frames instead of uint8 (4x the transfer)",
     )
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    import numpy as np
-    import torch
+
+def main(argv=None) -> dict:
+    """Run the training loop; -> a summary: steps, wall seconds, per-epoch
+    mean losses and learning rates, the Prefetcher's host seconds by stage
+    and batches, the checkpoint path and the number of ranks."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
 
     from playground3d_tpu_torch import resolve_device
+    from playground3d_tpu_torch.train.trainer import data_parallel_devices
+
+    device = resolve_device(args.device)
+    n = data_parallel_devices(device) if args.dp else 1
+    if n == 1:  # JAX's mesh of one device trains as no mesh does
+        return train(args, device)
+    return spawn_ranks(argv, device, n)
+
+
+def spawn_ranks(argv, device, n: int) -> dict:
+    """``--dp`` over ``n`` devices: one process a device, on a mesh of every
+    visible card (or of the CPU ``n`` times); -> rank 0's summary."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    devices = [f"cuda:{i}" for i in range(n)] if device.type == "cuda" else [str(device)] * n
+    rendezvous = tempfile.mkdtemp(prefix="train_detector_dp_")
+    summaries = mp.get_context("spawn").SimpleQueue()
+    try:
+        mp.spawn(rank_main, args=(argv, devices, f"file://{rendezvous}/rendezvous", summaries), nprocs=n)
+        return summaries.get()
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def rank_main(rank: int, argv, devices, init_method: str, summaries) -> None:
+    """One rank of ``--dp``: join the group, train, and (rank 0) hand back
+    the summary."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from playground3d_tpu_torch.parallel.mesh import join_data_parallel, make_mesh
+
+    mesh = make_mesh(devices=devices)
+    if mesh.lead.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+    device = join_data_parallel(mesh, rank, init_method)
+    try:
+        summary = train(parse_args(argv), device, mesh)
+        if rank == 0:
+            summaries.put(summary)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args: argparse.Namespace, device, mesh=None) -> dict:
+    """The training loop on ``device`` (one rank of ``mesh``'s group, with
+    a mesh: rank 0 prints and writes)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
     from playground3d_tpu_torch.data.dataset import (
         CachedDetectionDataset,
         Prefetcher,
         SyntheticDetectionDataset,
     )
-    from playground3d_tpu_torch.train.trainer import _NO_MESH, TrainConfig, Trainer, data_parallel_devices
+    from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    device = resolve_device(args.device)
-    # JAX's mesh of one device trains as no mesh does
-    if args.dp and data_parallel_devices(device) > 1:
-        raise NotImplementedError(_NO_MESH)
+    lead = mesh is None or dist.get_rank() == 0
     shape = (args.crop_size, args.crop_size) if args.crop else (args.height, args.width)
     cfg = TrainConfig(
         depth=args.depth, image_shape=shape, lr=args.lr, stem=args.stem,
         feature_size=args.feature_size, tower_depth=args.tower_depth,
         shared_tower=args.shared_tower,
     )
-    trainer = Trainer(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    trainer = Trainer(cfg, generator=torch.Generator().manual_seed(0), mesh=mesh, device=device)
     if args.resume:
         trainer.load(args.resume)
 
@@ -100,7 +164,7 @@ def main(argv=None) -> dict:
             # the loss stays a device scalar: a read every step would make the
             # host wait for the card before it queues the next step
             epoch_losses.append(m["loss"])
-            if step % 10 == 0:
+            if step % 10 == 0 and lead:
                 loss = float(m["loss"])
                 rate = (step + 1) / (time.time() - start)
                 print(
@@ -115,18 +179,21 @@ def main(argv=None) -> dict:
                 trainer.end_epoch(mean)
                 epochs.append({"step": step + 1, "loss": mean, "lr": trainer.lr})
                 epoch_losses = []
-                trainer.save(args.out)
-                print(f"\nepoch checkpoint -> {args.out} (lr={trainer.lr:.2e})")
+                if lead:
+                    trainer.save(args.out)
+                    print(f"\nepoch checkpoint -> {args.out} (lr={trainer.lr:.2e})")
     finally:
         batches.close()
 
-    trainer.save(args.out)
+    if lead:
+        trainer.save(args.out)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.time() - start
-    print(f"\ndone; final checkpoint -> {args.out}")
+    if lead:
+        print(f"\ndone; final checkpoint -> {args.out}")
     return {"steps": steps, "seconds": seconds, "epochs": epochs, "lr": trainer.lr, "out": args.out,
-            "prefetch": dict(batches.seconds, batches=batches.batches)}
+            "prefetch": dict(batches.seconds, batches=batches.batches), "ranks": 1 if mesh is None else mesh.size}
 
 
 if __name__ == "__main__":

@@ -76,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 
 namespace {
@@ -842,12 +843,19 @@ int weight_map(const void* w, int cin, int taps, int cout, int tn, CUtensorMap* 
 template <int TN>
 int launch(const CUtensorMap& map, const Args& a, dim3 grid, cudaStream_t stream) {
   constexpr int smem_bytes = kSmemBytes<TN>;
-  static bool raised = false;  // above the 48 KB a kernel may use without asking
-  if (!raised) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(qconv_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  // Above the 48 KB a kernel may use without asking. The attribute belongs
+  // to the device current at the call (the wrapper makes x's device
+  // current), so it is raised once a device: bit d for device d < 64, and
+  // on every launch on a device beyond.
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(qconv_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    raised = true;
+    raised.fetch_or(bit);
   }
   qconv_kernel<TN><<<grid, kThreads, smem_bytes, stream>>>(map, a);
   return static_cast<int>(cudaGetLastError());

@@ -140,10 +140,109 @@ def _anchors(shape: Tuple[int, int], levels: Tuple[int, ...], device: torch.devi
     return torch.as_tensor(anchors_for_shape(shape, levels), device=device)
 
 
+class Candidates(NamedTuple):
+    """The top-k anchors of some images, ahead of sigmoid, decode and NMS:
+    what a camera shard hands to the lead device (only these cross cards,
+    never the regression map)."""
+
+    logits: torch.Tensor  # [k] float32 max class logit, descending, lower index first among ties
+    index: torch.Tensor  # [k] int64 flat index over the frame's images: image * A + anchor
+    classes: torch.Tensor  # [k] the argmax class of each
+    reg: torch.Tensor  # [k,12] float32 raw regression rows
+
+
+def _as_shards(model, images):
+    """(models, image shards): one model and one tensor, or one replica a
+    mesh device and the matching shards of the images (a sequence each)."""
+    if isinstance(images, torch.Tensor):
+        return [model], [images]
+    if len(model) != len(images):
+        raise ValueError(f"{len(model)} model replicas for {len(images)} image shards")
+    return list(model), list(images)
+
+
 @torch.no_grad()
-def detect_multiframe(
+def image_candidates(
     model: RetinaNet,
     images: torch.Tensor,
+    pre_topk: int = 4096,
+    min_level: int = 3,
+    first_image: int = 0,
+) -> Candidates:
+    """The detector over images [n,...] (one camera shard's, the frame's
+    images ``first_image`` onwards) and their exact top-``pre_topk``
+    anchors by max class logit, on the images' device; the indices count
+    over the whole frame's images, so a merge of the shards in order keeps
+    the lower index first among ties."""
+    cls_max, cls_arg, reg = forward_raw(model, images, compact=True, min_level=min_level, score_path=True)
+    return _top_candidates(cls_max, cls_arg, reg, pre_topk, first_image)
+
+
+def _top_candidates(cls_max, cls_arg, reg, pre_topk: int, first_image: int) -> Candidates:
+    n, a = cls_max.shape[0], cls_max.shape[1]
+    logits = cls_max.reshape(-1).to(torch.float32)
+    top_logits, top_idx = top_k(logits, min(pre_topk, n * a))
+    index = top_idx + first_image * a if first_image else top_idx
+    return Candidates(top_logits, index, cls_arg.reshape(n * a)[top_idx],
+                      reg.reshape(n * a, -1)[top_idx].to(torch.float32))
+
+
+def gather_candidates(parts, device: torch.device) -> Candidates:
+    """The shards' candidates concatenated in mesh order on ``device``."""
+    if len(parts) == 1:
+        return Candidates(*(x.to(device) for x in parts[0]))
+    return Candidates(*(torch.cat([x.to(device) for x in xs]) for xs in zip(*parts)))
+
+
+def merge_candidates(
+    cands: Candidates,
+    anchors: torch.Tensor,
+    n_images: int,
+    shards: int,
+    score_threshold: float = 1e-7,
+    nms_iou: float = 0.5,
+    pre_topk: int = 4096,
+    max_dets: int = 256,
+) -> Detections:
+    """A frame's detections from its shards' candidates, concatenated in
+    mesh order (:func:`gather_candidates`): the top-k over them, then
+    sigmoid, decode and camera-grouped NMS capped at ``max_dets``. Every
+    shard holds a contiguous block of cameras and sorts its own candidates
+    lower index first among ties, so a stable top-k of the concatenation
+    is the exact top-k over all images' anchors; one shard's candidates are
+    that already."""
+    a = anchors.shape[0]
+    if shards > 1:
+        logits, pos = top_k(cands.logits, min(pre_topk, n_images * a))
+        cands = Candidates(logits, cands.index[pos], cands.classes[pos], cands.reg[pos])
+    top_scores = torch.sigmoid(cands.logits)
+    top_cam = (cands.index // a).to(torch.int32)
+    top_boxes = decode_regression(cands.reg, anchors[cands.index % a])
+    valid = top_scores > score_threshold
+
+    keep_idx, keep_mask = batched_nms(
+        top_boxes[:, 16:20], top_scores, top_cam, valid, nms_iou, max_keep=max_dets
+    )
+    keep = keep_idx.long()
+    return Detections(
+        scores=top_scores[keep],
+        classes=cands.classes[keep],
+        boxes=top_boxes[keep],
+        cam_idx=top_cam[keep],
+        mask=keep_mask,
+    )
+
+
+def frame_anchors(images: torch.Tensor, stem: str, min_level: int = 3) -> torch.Tensor:
+    """The anchors of one image of ``images`` [n,...] (s2d-packed or raw)
+    for pyramid levels ``min_level``-7, on the images' device."""
+    return _anchors(_image_shape_of(images, stem), tuple(range(min_level, 8)), images.device)
+
+
+@torch.no_grad()
+def detect_multiframe(
+    model,
+    images,
     score_threshold: float = 1e-7,
     nms_iou: float = 0.5,
     pre_topk: int = 4096,
@@ -155,23 +254,50 @@ def detect_multiframe(
     N frames, exact top-k (lower index first on ties), sigmoid and decode
     of the survivors, camera-grouped NMS on the 2D boxes (cols 16:20).
 
+    Camera-sharded (JAX's ``detect_multiframe`` of an array sharded over a
+    mesh): ``images`` is one tensor a mesh device, each of its cameras
+    (:func:`~playground3d_tpu_torch.parallel.mesh.shard_batch`), and
+    ``model`` one replica a device (:func:`~playground3d_tpu_torch.parallel.
+    mesh.replicate`). Each device takes the top-k of its own cameras; the
+    candidates alone move to the first device, which merges them and
+    returns the detections there. One tensor is the one-shard case.
+
     ``approx_topk`` is accepted and runs the same exact top-k. The JAX
     function then calls ``jax.lax.approx_max_k``, which is approximate
     (recall 0.99) only on the TPU and returns ``lax.top_k``'s indices on
     other backends; the port has no TPU path, so both flags give JAX's
     off-TPU result."""
-    levels = tuple(range(min_level, 8))
-    anchors = _anchors(_image_shape_of(images, model.stem), levels, images.device)
-    cls_max, cls_arg, reg = forward_raw(
-        model, images, compact=True, min_level=min_level, score_path=True
-    )
-    return _detections_of(anchors, cls_max, cls_arg, reg, score_threshold, nms_iou, pre_topk, max_dets)
+    models, shards = _as_shards(model, images)
+    firsts = np.cumsum([0] + [x.shape[0] for x in shards]).tolist()
+    parts = [image_candidates(m, x, pre_topk, min_level, first) for m, x, first in zip(models, shards, firsts)]
+    lead = shards[0].device
+    return merge_candidates(gather_candidates(parts, lead), frame_anchors(shards[0], models[0].stem, min_level),
+                            firsts[-1], len(shards), score_threshold, nms_iou, pre_topk, max_dets)
+
+
+@torch.no_grad()
+def frames_candidates(
+    model: RetinaNet,
+    frames: torch.Tensor,
+    pre_topk: int = 4096,
+    min_level: int = 3,
+    first_image: int = 0,
+) -> Candidates:
+    """:func:`image_candidates` of each of J frames [J,n,...] of one
+    shard's n cameras, from one detector forward over all J*n images;
+    -> Candidates stacked on a [J] axis (a top-k a frame)."""
+    J, n = frames.shape[:2]
+    images = frames.reshape((J * n,) + tuple(frames.shape[2:]))
+    cls_max, cls_arg, reg = forward_raw(model, images, compact=True, min_level=min_level, score_path=True)
+    per_frame = [_top_candidates(cls_max[j * n:(j + 1) * n], cls_arg[j * n:(j + 1) * n],
+                                 reg[j * n:(j + 1) * n], pre_topk, first_image) for j in range(J)]
+    return Candidates(*(torch.stack(xs) for xs in zip(*per_frame)))
 
 
 @torch.no_grad()
 def detect_frames(
-    model: RetinaNet,
-    frames: torch.Tensor,
+    model,
+    frames,
     score_threshold: float = 1e-7,
     nms_iou: float = 0.5,
     pre_topk: int = 4096,
@@ -182,52 +308,22 @@ def detect_frames(
     """:func:`detect_multiframe` of each of J frames of C cameras, frames
     [J,C,...] -> Detections stacked on a [J] axis (the JAX clip's ``vmap``
     of ``detect_multiframe`` over its detect frames). The detector runs
-    once, over all J*C images; the top-k pool and the NMS cap stay per
+    once, over all J*C images (once a shard, over its J*C/n, when
+    ``frames`` are camera shards [J,C/n,...] and ``model`` replicas, as
+    for :func:`detect_multiframe`); the top-k pool and the NMS cap stay per
     frame: one top-k and one camera-grouped NMS a frame, never across
     frames."""
-    J, C = frames.shape[:2]
-    images = frames.reshape((J * C,) + tuple(frames.shape[2:]))
-    levels = tuple(range(min_level, 8))
-    anchors = _anchors(_image_shape_of(images, model.stem), levels, images.device)
-    cls_max, cls_arg, reg = forward_raw(
-        model, images, compact=True, min_level=min_level, score_path=True
-    )
+    models, shards = _as_shards(model, frames)
+    firsts = np.cumsum([0] + [x.shape[1] for x in shards]).tolist()
+    parts = [frames_candidates(m, x, pre_topk, min_level, first) for m, x, first in zip(models, shards, firsts)]
+    lead = shards[0].device
+    anchors = frame_anchors(shards[0][0], models[0].stem, min_level)
     per_frame = [
-        _detections_of(anchors, cls_max[j * C:(j + 1) * C], cls_arg[j * C:(j + 1) * C],
-                       reg[j * C:(j + 1) * C], score_threshold, nms_iou, pre_topk, max_dets)
-        for j in range(J)
+        merge_candidates(gather_candidates([Candidates(*(x[j] for x in p)) for p in parts], lead), anchors,
+                         firsts[-1], len(shards), score_threshold, nms_iou, pre_topk, max_dets)
+        for j in range(shards[0].shape[0])
     ]
     return Detections(*(torch.stack(xs) for xs in zip(*per_frame)))
-
-
-def _detections_of(anchors, cls_max, cls_arg, reg, score_threshold, nms_iou, pre_topk, max_dets) -> Detections:
-    """The detector's compact outputs for the n images of one frame -> its
-    detections: exact top-k over all n images' anchors, sigmoid, decode,
-    camera-grouped NMS capped at ``max_dets``."""
-    n = cls_max.shape[0]
-    a = anchors.shape[0]
-    logits = cls_max.reshape(-1).to(torch.float32)
-    k = min(pre_topk, n * a)
-    top_logits, top_idx = top_k(logits, k)
-    top_scores = torch.sigmoid(top_logits)
-    anchor_idx = top_idx % a
-    top_cam = (top_idx // a).to(torch.int32)
-    top_reg = reg.reshape(n * a, -1)[top_idx].to(torch.float32)
-    top_boxes = decode_regression(top_reg, anchors[anchor_idx])
-    top_classes = cls_arg.reshape(n * a)[top_idx]
-    valid = top_scores > score_threshold
-
-    keep_idx, keep_mask = batched_nms(
-        top_boxes[:, 16:20], top_scores, top_cam, valid, nms_iou, max_keep=max_dets
-    )
-    keep = keep_idx.long()
-    return Detections(
-        scores=top_scores[keep],
-        classes=top_classes[keep],
-        boxes=top_boxes[keep],
-        cam_idx=top_cam[keep],
-        mask=keep_mask,
-    )
 
 
 @torch.no_grad()

@@ -50,7 +50,9 @@ class StaticGraphs:
     On the card each name is captured as one CUDA graph at
     its first run, after an eager warm-up on a side stream that writes
     nothing back, and every later run is one replay. The graphs share one
-    memory pool: they only ever run one after another on one stream. A
+    memory pool: they only ever run one after another on one stream (the
+    current stream of their device, which is made the current device for
+    the capture and each replay). A
     capture that fails raises; nothing falls back to eager. The kernels'
     launch counters are Python integers, so each graph's launches are
     tallied at capture and credited once at every replay. On the CPU the
@@ -62,13 +64,15 @@ class StaticGraphs:
         self.graphs: Dict[str, Tuple[torch.cuda.CUDAGraph, dict]] = {}  # name -> (graph, launch tally)
         self.capture_s: Dict[str, Tuple[float, float]] = {}  # name -> host seconds (capture, instantiate)
         self.pool = None
+        self.capture_stream = None  # torch.cuda.graph's default capture stream lies on the first card it met
 
     def run(self, name: str, body: Callable[[bool], None]) -> None:
         if not self.capture:
             body(True)
             return
-        graph, tally = self.graphs.get(name) or self._capture(name, body)
-        graph.replay()
+        with torch.cuda.device(self.device):  # a graph is captured and replayed on its own card's streams
+            graph, tally = self.graphs.get(name) or self._capture(name, body)
+            graph.replay()
         credit(tally)
 
     def _capture(self, name: str, body: Callable[[bool], None]):
@@ -81,10 +85,12 @@ class StaticGraphs:
         torch.cuda.synchronize(dev)  # the capture's time below holds none of the warm-up's
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
+            self.capture_stream = torch.cuda.Stream(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for its node count
         t0 = time.perf_counter()
         with launches_recorded() as tally:
-            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.capture_stream,
+                                  capture_error_mode="thread_local"):
                 body(True)
         t1 = time.perf_counter()
         graph.instantiate()

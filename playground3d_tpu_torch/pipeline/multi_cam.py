@@ -42,13 +42,32 @@ from playground3d_tpu_torch.evaluation.csv_io import TrackRecord, write_results_
 from playground3d_tpu_torch.geometry import transforms as T
 from playground3d_tpu_torch.models.resnet import space_to_depth
 from playground3d_tpu_torch.models.retinanet import (
-    Detections, RetinaNet, detect_frames, detect_multiframe, imagenet_mean_std, localize,
+    Candidates,
+    Detections,
+    RetinaNet,
+    detect_frames,
+    detect_multiframe,
+    frame_anchors,
+    frames_candidates,
+    gather_candidates,
+    image_candidates,
+    imagenet_mean_std,
+    localize,
+    merge_candidates,
 )
 from playground3d_tpu_torch.ops.crop_mxu import crop_and_resize_s2d, max_crop_span_s2d
 from playground3d_tpu_torch.ops.iou import elementwise_iou, pairwise_iou
 from playground3d_tpu_torch.ops.roi_align import crop_and_resize
 from playground3d_tpu_torch.ops.topk import HostSyncs, top_k
 from playground3d_tpu_torch.ops.yuv420 import yuv420_flat_to_s2d
+from playground3d_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    canonical_device,
+    replicate,
+    shard_batch,
+    shard_devices,
+)
 from playground3d_tpu_torch.pipeline.camera_bank import (
     CameraBank,
     bank_from_registry,
@@ -354,13 +373,48 @@ def make_mc_detect_step_from_detections(bank: CameraBank, kfp: KFParams, cfg: Tr
     return step
 
 
+def _leaves(x) -> tuple:
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+
+def _parts_like(parts: list, device: torch.device):
+    """An empty buffer on ``device`` for ``parts`` (tensors, or named
+    tuples of them) concatenated on their leading dimension."""
+    first = parts[0]
+    leaves = [torch.empty((sum(_leaves(p)[i].shape[0] for p in parts),) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=device) for i, t in enumerate(_leaves(first))]
+    return leaves[0] if isinstance(first, torch.Tensor) else type(first)(*leaves)
+
+
+def _copy_parts(dst, parts: list) -> None:
+    """Copy ``parts`` one after another into ``dst``'s leading dimension
+    (from any device: a copy between cards waits for both cards' streams)."""
+    off = 0
+    for p in parts:
+        n = _leaves(p)[0].shape[0]
+        for d, x in zip(_leaves(dst), _leaves(p)):
+            d[off:off + n].copy_(x)
+        off += n
+
+
+def _concat(parts: list, device: torch.device):
+    """``parts`` concatenated on ``device`` (the eager counterpart of a
+    static buffer filled by :func:`_copy_parts`)."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat([p.to(device) for p in parts])
+    return gather_candidates(parts, device)
+
+
 class _BranchGraphs:
     """The clip's branches over one set of static buffers: the tracker
     state, ``ts_bias``, each branch's own input (a frame of all cameras, or
-    a frame's detections), the camera times and the snapshot. Each branch
-    reads the buffers and writes its new state, bias and snapshot back into
-    them, so a frame is: copy its inputs in, run the branch (one CUDA graph
-    replay on the card, :class:`StaticGraphs`), copy the snapshot out."""
+    a frame's detections or candidates), the camera times and the snapshot.
+    Each branch reads the buffers and writes its new state, bias and
+    snapshot back into them, so a frame is: copy its inputs in, run the
+    branch (one CUDA graph replay on the card, :class:`StaticGraphs`), copy
+    the snapshot out. An input given as a list of parts (the camera
+    shards' frames or candidates, on their own devices) is gathered into
+    one buffer on this device, the parts one after another."""
 
     def __init__(self, branches: dict, device: torch.device):
         self.branches = branches  # name -> fn(state, ts_bias, input, cam_times) -> (state, ts_bias, snap)
@@ -382,15 +436,14 @@ class _BranchGraphs:
 
     def run(self, name: str, x, cam_times: torch.Tensor) -> None:
         """One frame through branch ``name``: ``x`` is its input, a tensor
-        or a named tuple of them (None for a branch that reads none)."""
+        or a named tuple of them, or a list of such parts to concatenate
+        (None for a branch that reads none)."""
         self.cam_times.copy_(cam_times)
-        if x is not None and name not in self.inputs:
-            self.inputs[name] = (torch.empty_like(x) if isinstance(x, torch.Tensor)
-                                 else type(x)(*(torch.empty_like(t) for t in x)))
-        if isinstance(x, torch.Tensor):
-            self.inputs[name].copy_(x)
-        elif x is not None:
-            copy_into(self.inputs[name], x)
+        if x is not None:
+            parts = x if isinstance(x, list) else [x]
+            if name not in self.inputs:
+                self.inputs[name] = _parts_like(parts, self.programs.device)
+            _copy_parts(self.inputs[name], parts)
         self.programs.run(name, lambda write_back: self._body(name, write_back))
 
     def _body(self, name: str, write_back: bool):
@@ -421,6 +474,35 @@ class _BatchedDetect:
         dets = self.detect(self.frames)
         if write_back:
             self.dets = dets
+
+
+class _ShardDetect:
+    """One camera shard's half of the mesh clip's detect branch, on the
+    shard's device: its cameras' frame (``"frame"``) or the clip's detect
+    frames (``"batched"``) copied into a static buffer, then the shard's
+    detector replica and its top-k candidates (one CUDA graph a program on
+    the card), left in buffers that every run rewrites, for the lead
+    device to gather."""
+
+    def __init__(self, model: RetinaNet, device: torch.device, first_image: int, cfg: TrackerConfig):
+        self.model, self.first = model, first_image
+        self.kw = dict(pre_topk=cfg.pre_topk, min_level=cfg.det_min_level)
+        self.programs = StaticGraphs(device)
+        self.frames: dict = {}
+        self.out: dict = {}  # program -> its Candidates ([k] or, batched, [J,k] each)
+
+    def run(self, name: str, frames: torch.Tensor) -> Candidates:
+        if name not in self.frames:
+            self.frames[name] = torch.empty_like(frames)
+        self.frames[name].copy_(frames)
+        self.programs.run(name, lambda write_back: self._body(name, write_back))
+        return self.out[name]
+
+    def _body(self, name: str, write_back: bool):
+        fn = frames_candidates if name == "batched" else image_candidates
+        out = fn(self.model, self.frames[name], first_image=self.first, **self.kw)
+        if write_back:
+            self.out[name] = out
 
 
 class _UnrolledClip:
@@ -468,6 +550,7 @@ def make_mc_clip_step(
     graphs: bool = True,
     batch_detects: bool = False,
     unroll: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """(state, ts_bias, frames [T,C,...], cam_times [T,C], frame0 int) ->
     (state', ts_bias', snapshots stacked over T): frame ``i`` (global index
@@ -504,9 +587,28 @@ def make_mc_clip_step(
       needed too). On the card the whole clip is ONE CUDA graph per frame
       shape, dtype and T: a clip is one replay. As in JAX, ``unroll`` runs
       the full detect branch, so ``batch_detects`` has no effect with it.
+
+    With a ``mesh`` (JAX's camera-sharded clip), the camera axis of the
+    frames is split over the mesh's devices: ``frames`` is one tensor
+    ``[T,C,...]`` (split and copied) or one ``[T,C/n,...]`` tensor a mesh
+    device, on it (as :meth:`MultiCameraTracker.track_clips` stages them).
+    Each device runs a replica of the detector over its cameras and takes
+    their top-k (:func:`image_candidates`; batched, one forward over the
+    clip's detect frames); only those candidates move to the lead device
+    ``mesh.devices[0]``, which holds the state, the bias, the crop net and
+    every other branch, merges them (:func:`merge_candidates`) and parses.
+    The crop branch gathers the crop frame's cameras to the lead. On the
+    card each device's programs are CUDA graphs of its own, and the copies
+    between devices run between replays. The cameras must divide over the
+    mesh; ``unroll`` raises ``ValueError`` with a mesh, as in JAX.
     """
     if det_model.stem != stem:
         raise ValueError(f"make_mc_clip_step: stem={stem!r} but the detector was built with {det_model.stem!r}")
+    if unroll and mesh is not None:
+        raise ValueError(
+            "make_mc_clip_step: unroll=True is not supported together with a mesh (the sharded clip is the "
+            "three-branch clip); pass unroll=False"
+        )
     detect_step = make_mc_detect_step(det_model, bank, kfp, cfg)
     parsed_step = make_mc_detect_step_from_detections(bank, kfp, cfg)
     crop_step = (
@@ -556,6 +658,8 @@ def make_mc_clip_step(
                 "crop": b_crop if crop_step is not None else b_skip, "passthrough": b_skip}
     runners: dict = {}  # (device, frame shape, dtype[, T or J]) -> _BranchGraphs or _UnrolledClip
     hoisted: dict = {}  # the same keys, batched -> _BatchedDetect on its runner's programs
+    shard_runners: dict = {}  # mesh: the same keys -> a _ShardDetect a mesh device
+    replicas = replicate(mesh, det_model) if mesh is not None else None
 
     def which(i: int) -> str:
         if i % d == 0:
@@ -571,12 +675,83 @@ def make_mc_clip_step(
             return Detections(*(x[li // d] for x in dets))
         return frames[li]
 
+    def camera_shards(frames) -> List[torch.Tensor]:
+        if isinstance(frames, torch.Tensor):
+            return list(shard_batch(mesh, frames, dim=1))
+        shards = list(frames)
+        shard_devices(mesh, shards, "make_mc_clip_step")
+        if len({tuple(x.shape) for x in shards}) != 1:
+            raise ValueError(f"make_mc_clip_step: camera shards of shapes {[tuple(x.shape) for x in shards]}")
+        return shards
+
+    def mesh_inputs(name: str, li: int, shards, frame_cands: Callable[[int], Candidates], batched_cands):
+        """What frame ``li``'s branch gathers on the lead: each shard's
+        cameras of the frame (crop), or each shard's candidates (detect)."""
+        if name == "passthrough":
+            return None
+        if name == "crop":
+            return [x[li] for x in shards]
+        if batched:
+            return [Candidates(*(x[li // d] for x in c)) for c in batched_cands]
+        return [frame_cands(s) for s in range(mesh.size)]
+
+    def mesh_clip(state: TrackState, ts_bias: torch.Tensor, frames, cam_times: torch.Tensor, frame0: int):
+        shards = camera_shards(frames)
+        T_len, lead = shards[0].shape[0], mesh.lead
+        firsts = np.cumsum([0] + [x.shape[1] for x in shards]).tolist()
+        names = [which(frame0 + li) for li in range(T_len)]
+        key = (lead, tuple(shards[0].shape[1:]), shards[0].dtype) + ((len(range(0, T_len, d)),) if batched else ())
+
+        def branches_of():
+            """The lead's branches: the detect branch merges the candidates."""
+            anchors = frame_anchors(shards[0][0], stem, cfg.det_min_level)  # shard 0 lies on the lead
+
+            def b_merged(st, tb, cands, t):
+                det = merge_candidates(cands, anchors, firsts[-1], mesh.size, pre_topk=cfg.pre_topk,
+                                       max_dets=cfg.max_dets)
+                return b_parsed(st, tb, det, t)
+
+            return dict(branches, detect=b_merged)
+
+        if not graphs:
+            mesh_branches = branches_of()
+            kw = dict(pre_topk=cfg.pre_topk, min_level=cfg.det_min_level)
+            hoist = ([frames_candidates(m, x[::d], first_image=f, **kw) for m, x, f in zip(replicas, shards, firsts)]
+                     if batched else None)
+            st, tb = state, ts_bias
+            snaps = []
+            for li, name in enumerate(names):
+                parts = mesh_inputs(name, li, shards, lambda s: image_candidates(
+                    replicas[s], shards[s][li], first_image=firsts[s], **kw), hoist)
+                st, tb, snap = mesh_branches[name](st, tb, None if parts is None else _concat(parts, lead),
+                                                   cam_times[li])
+                snaps.append(snap)
+            return st, tb, stack_snapshots(snaps)
+
+        runner = runners.get(key)
+        if runner is None:
+            runner = runners[key] = _BranchGraphs(branches_of(), lead)
+            shard_runners[key] = [_ShardDetect(m, x.device, f, cfg) for m, x, f in zip(replicas, shards, firsts)]
+        sds = shard_runners[key]
+        runner.load(state, ts_bias, cam_times[0])
+        hoist = [sd.run("batched", x[::d]) for sd, x in zip(sds, shards)] if batched else None
+        out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                         for x in runner.snap))
+        for li, name in enumerate(names):
+            runner.run(name, mesh_inputs(name, li, shards, lambda s: sds[s].run("frame", shards[s][li]), hoist),
+                       cam_times[li])
+            for dst, src in zip(out, runner.snap):
+                dst[li].copy_(src)
+        return clone_state(runner.state), runner.ts_bias.clone(), out
+
     @torch.no_grad()
-    def clip(state: TrackState, ts_bias: torch.Tensor, frames: torch.Tensor,
+    def clip(state: TrackState, ts_bias: torch.Tensor, frames,
              cam_times: torch.Tensor, frame0: int):
         frame0 = int(frame0)
         if batch_detects or unroll:
             check_aligned(frame0)
+        if mesh is not None:
+            return mesh_clip(state, ts_bias, frames, cam_times, frame0)
         T_len = frames.shape[0]
         # the unrolled clip's branches follow the clip-local index (equal to
         # the global cadence once frame0 is aligned)
@@ -620,6 +795,7 @@ def make_mc_clip_step(
         return clone_state(runner.state), runner.ts_bias.clone(), out
 
     clip.runners = runners
+    clip.shard_runners = shard_runners
     return clip
 
 
@@ -693,6 +869,7 @@ class MultiCameraTracker:
         self._det_model = det_model
         self._crop_model = crop_model
         self._clip = None
+        self._mesh_clips: dict = {}  # mesh -> its camera-sharded clip
         self._crop_step = (
             make_crop_step(crop_model, self.bank, self.centers, self.kfp, cfg,
                            stem=crop_stem, frame_stem=stem)
@@ -785,12 +962,15 @@ class MultiCameraTracker:
                 return
 
     def track(self, sources: List[Iterable], cutoff: int = 10**9, sync_ms: float = 20.0,
-              per_frame: bool = False, clip_len: int = 24):
+              per_frame: bool = False, clip_len: int = 24, mesh: Optional[Mesh] = None,
+              yuv_hw: Optional[Tuple[int, int]] = None):
         """Track all sources to exhaustion: the clip loop
-        (:meth:`track_clips`) when the detector is available, else (or with
-        ``per_frame=True``) one :meth:`process` per frame."""
+        (:meth:`track_clips`, camera-sharded over ``mesh`` when one is given)
+        when the detector is available, else (or with ``per_frame=True``)
+        one :meth:`process` per frame."""
         if not per_frame and self.detect_fn is None:
-            return self.track_clips(sources, clip_len=clip_len, cutoff=cutoff, sync_ms=sync_ms)
+            return self.track_clips(sources, clip_len=clip_len, cutoff=cutoff, sync_ms=sync_ms, mesh=mesh,
+                                    yuv_hw=yuv_hw)
         start = time.time()
         n = 0
         for frame_num, (frames, times) in enumerate(self._synced_frames(sources, cutoff, sync_ms)):
@@ -799,7 +979,18 @@ class MultiCameraTracker:
         wall = time.time() - start
         return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}
 
-    def _clip_fn(self):
+    def _clip_fn(self, mesh: Optional[Mesh] = None):
+        """The clip step (one a mesh, camera-sharded over it); a mesh's lead
+        device must be the tracker's."""
+        if mesh is not None:
+            if mesh.lead != canonical_device(self.device):
+                raise ValueError(f"the mesh's lead device {mesh.lead} is not the tracker's {self.device}")
+            if mesh not in self._mesh_clips:
+                self._mesh_clips[mesh] = make_mc_clip_step(
+                    self._det_model, self.bank, self.centers, self.kfp, self.cfg, crop_model=self._crop_model,
+                    stem=self.stem, crop_stem=self.crop_stem, graphs=self.graphs, mesh=mesh,
+                )
+            return self._mesh_clips[mesh]
         if self._clip is None:
             self._clip = make_mc_clip_step(
                 self._det_model, self.bank, self.centers, self.kfp, self.cfg,
@@ -809,7 +1000,8 @@ class MultiCameraTracker:
 
     @torch.no_grad()
     def track_clips(self, sources: List[Iterable], clip_len: int = 24, cutoff: int = 10**9,
-                    sync_ms: float = 20.0, yuv_hw: Optional[Tuple[int, int]] = None):
+                    sync_ms: float = 20.0, mesh: Optional[Mesh] = None,
+                    yuv_hw: Optional[Tuple[int, int]] = None):
         """Clip host loop (JAX ``track_clips``): one clip step per
         ``clip_len`` frames; a background thread reads the next clip into
         pinned host memory and stages it on a side stream (the copy to the
@@ -817,6 +1009,11 @@ class MultiCameraTracker:
         runs, and the clip's stream waits for it by an event. The host never
         waits inside a clip: each clip's results are packed into one tensor
         and fetched with one read, drained with a lag of 3 clips.
+
+        With a ``mesh`` (its lead device the tracker's) the clip is
+        camera-sharded (:func:`make_mc_clip_step`): each mesh device's
+        cameras are staged on it, through pinned memory of their own and a
+        side stream of that device, where the YUV conversion runs too.
 
         ``yuv_hw``: the frames' (H, W) when the sources emit flat planar
         YUV420 bytes; colour conversion and s2d packing then run on the
@@ -829,54 +1026,63 @@ class MultiCameraTracker:
                 "track_clips(yuv_hw=...) requires stem='s2d' (the on-device YUV conversion "
                 f"emits s2d-packed frames); this tracker has stem={self.stem!r}"
             )
-        clip = self._clip_fn()
+        clip = self._clip_fn(mesh)
         on_card = self.device.type == "cuda"
-        stage_stream = torch.cuda.Stream(self.device) if on_card else None
+        # (device, its cameras) of each shard; without a mesh, one shard of every camera
+        shards = ([(self.device, slice(None))] if mesh is None
+                  else list(zip(mesh.devices, batch_sharding(mesh, len(self.cameras)))))
+        stage_streams = [torch.cuda.Stream(dev) if on_card else None for dev, _ in shards]
         q: queue.Queue = queue.Queue(maxsize=2)
         done = object()
         producer_err: list = []
 
-        def stage(batch: torch.Tensor, times: List[List[float]]):
-            """A clip's frames [T,C,...] in (pinned) host memory -> the
-            device tensors the clip takes and the event they are ready at."""
+        def stage(bufs: List[torch.Tensor], times: List[List[float]]):
+            """A clip's frames, [T,C,...] a shard in (pinned) host memory ->
+            the device tensors the clip takes and the events they are ready
+            at (the camera times go to the tracker's device)."""
             tt = torch.as_tensor(np.asarray(times, np.float32))
-            ready = None
-            with torch.cuda.stream(stage_stream) if on_card else contextlib.nullcontext():
-                ft = batch.to(self.device, non_blocking=True)
-                tt = tt.pin_memory().to(self.device, non_blocking=True) if on_card else tt
-                if yuv_hw is not None and ft.ndim == 3:
-                    ft = yuv420_flat_to_s2d(ft, (int(yuv_hw[0]), int(yuv_hw[1])))
-                elif self.stem == "s2d" and ft.shape[-1] == 3:
-                    t, c = ft.shape[:2]
-                    ft = space_to_depth(ft.reshape((t * c,) + tuple(ft.shape[2:])), 4)
-                    ft = ft.reshape((t, c) + tuple(ft.shape[1:]))
-                if on_card:
-                    ready = torch.cuda.Event()
-                    ready.record(stage_stream)
-            return ft, tt, ready
+            fts, readies = [], []
+            for (dev, _), stream, buf in zip(shards, stage_streams, bufs):
+                with torch.cuda.stream(stream) if on_card else contextlib.nullcontext():
+                    ft = buf.to(dev, non_blocking=True)
+                    if not fts:
+                        tt = tt.pin_memory().to(self.device, non_blocking=True) if on_card else tt
+                    if yuv_hw is not None and ft.ndim == 3:
+                        ft = yuv420_flat_to_s2d(ft, (int(yuv_hw[0]), int(yuv_hw[1])))
+                    elif self.stem == "s2d" and ft.shape[-1] == 3:
+                        t, c = ft.shape[:2]
+                        ft = space_to_depth(ft.reshape((t * c,) + tuple(ft.shape[2:])), 4)
+                        ft = ft.reshape((t, c) + tuple(ft.shape[1:]))
+                    if on_card:
+                        readies.append(torch.cuda.Event())
+                        readies[-1].record(stream)
+                fts.append(ft)
+            return fts, tt, readies
 
         def producer():
-            buf, times = None, []
+            bufs, times = None, []
             frame0 = 0
             try:
                 for frames, ts in self._synced_frames(sources, cutoff, sync_ms):
                     if self.epoch is None:
                         self.epoch = float(min(ts))
                     t0 = time.time()
-                    if buf is None:
-                        host = torch.from_numpy(frames)
-                        buf = torch.empty((clip_len,) + tuple(host.shape), dtype=host.dtype, pin_memory=on_card)
-                    buf[len(times)].copy_(torch.from_numpy(frames))
+                    host = torch.from_numpy(frames)
+                    if bufs is None:
+                        bufs = [torch.empty((clip_len,) + tuple(host[cams].shape), dtype=host.dtype,
+                                            pin_memory=on_card) for _, cams in shards]
+                    for buf, (_, cams) in zip(bufs, shards):
+                        buf[len(times)].copy_(host[cams])
                     times.append([t - self.epoch for t in ts])
-                    staged = stage(buf, times) if len(times) == clip_len else None
+                    staged = stage(bufs, times) if len(times) == clip_len else None
                     self._timed("stage", t0)
                     if staged is not None:
                         q.put((staged, frame0))
                         frame0 += clip_len
-                        buf, times = None, []
+                        bufs, times = None, []
                 if times:
                     t0 = time.time()
-                    staged = stage(buf[:len(times)], times)
+                    staged = stage([buf[:len(times)] for buf in bufs], times)
                     self._timed("stage", t0)
                     q.put((staged, frame0))
             except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
@@ -908,15 +1114,16 @@ class MultiCameraTracker:
             item = q.get()
             if item is done:
                 break
-            (ft, tt, ready), frame0 = item
+            (fts, tt, readies), frame0 = item
             t0 = time.time()
-            if ready is not None:
-                torch.cuda.current_stream(self.device).wait_event(ready)
-            self.state, self.ts_bias, snaps = clip(self.state, self.ts_bias, ft, tt, frame0)
+            for (dev, _), ready in zip(shards, readies):
+                torch.cuda.current_stream(dev).wait_event(ready)
+            self.state, self.ts_bias, snaps = clip(self.state, self.ts_bias, fts if mesh is not None else fts[0],
+                                                   tt, frame0)
             # one read a clip: its snapshots [T, N, 11] and the bias it returned
             rows = pack_snapshot(snaps)
             read = HostSyncs.fetch_later(torch.cat([rows.reshape(-1), self.ts_bias.to(torch.float64)]))
-            pending.append((read, frame0, tuple(rows.shape), (ft, tt)))
+            pending.append((read, frame0, tuple(rows.shape), (fts, tt)))
             self._timed("detect", t0)
             while len(pending) > drain_lag:
                 drain_one()

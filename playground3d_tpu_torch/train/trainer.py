@@ -1,4 +1,4 @@
-"""Detector training on one device (port of
+"""Detector training on one device, or data-parallel over a mesh (port of
 ``playground3d_tpu/train/trainer.py``).
 
 Reference parity (train_detector_3D_angle.py:254-419): Adam 1e-4, gradient
@@ -18,9 +18,19 @@ The step runs ``forward_raw`` (bf16 convs, float32 sigmoid heads), the loss
 (``losses/focal.py``: the CUDA kernels on the card), the backward, optax's
 ``clip_by_global_norm`` and Adam (``torch.optim.Adam``, optax's ``adam`` up
 to rounding), and reads nothing back to the host: the metrics stay on the
-device. Data parallelism over more than one device (``mesh=``) is ROADMAP
-queue 1 item 4 and raises; ``apps/train_detector.py --dp`` with one visible
-device trains as without it, as JAX's one-device mesh does.
+device.
+
+Data parallelism (``mesh=``): JAX shards the batch on the mesh's ``data``
+axis inside one program and lets XLA insert the gradient all-reduce. Here
+each mesh device is a process of its own (``torch.distributed``, joined by
+``parallel.mesh.join_data_parallel``; NCCL between cards, gloo on the CPU or
+for a card listed twice): the eager step is launch-bound, and one host
+thread would issue every replica's launches one after another. Each rank is
+given the global batch, as JAX's step is, and takes its slice; the
+gradients and the metrics are averaged over the ranks with one all-reduce
+of a flat buffer, and every rank applies the same clip and Adam update, so
+the replicas stay equal bit for bit. The loss is a mean over images, so the
+mean of the ranks' equal shards' losses is the global batch's.
 """
 
 from __future__ import annotations
@@ -34,9 +44,10 @@ import torch
 from playground3d_tpu_torch import DeviceLike, resolve_device
 from playground3d_tpu_torch.losses.focal import detection_loss
 from playground3d_tpu_torch.models.retinanet import RetinaNet, _anchors, forward_raw, retinanet_init
+from playground3d_tpu_torch.parallel.mesh import Mesh, batch_sharding, canonical_device, mesh_rank
 
-_NO_MESH = "data-parallel training over more than one device (mesh= / --dp) is not ported yet: ROADMAP queue 1 item 4"
 _QUANT = ("wq", "ws", "xs")
+_METRICS = ("loss", "cls", "reg", "vp")
 
 
 @dataclass
@@ -61,6 +72,33 @@ def data_parallel_devices(device: torch.device) -> int:
     device of the backend (``parallel/mesh.py:31-42``), so every visible
     card, or the one CPU."""
     return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def average_over_ranks(leaves: List[torch.Tensor], metrics: torch.Tensor, world: int) -> torch.Tensor:
+    """The mean over the ranks of every leaf's gradient (written back in
+    place) and of ``metrics``, by one all-reduce of one flat buffer."""
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    grads = [t.grad for t in leaves]
+    flat = _flatten_dense_tensors(grads + [metrics.to(grads[0].dtype)])
+    dist.all_reduce(flat)
+    flat /= world
+    n = flat.numel() - metrics.numel()
+    torch._foreach_copy_(grads, _unflatten_dense_tensors(flat[:n], grads))
+    return flat[n:]
+
+
+def broadcast_leaves(leaves: List[torch.Tensor]) -> None:
+    """Rank 0's leaves to every rank (JAX replicates one state over the
+    mesh), by one broadcast of one flat buffer."""
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    with torch.no_grad():
+        flat = _flatten_dense_tensors([t.detach() for t in leaves])
+        dist.broadcast(flat, 0)
+        torch._foreach_copy_([t.detach() for t in leaves], _unflatten_dense_tensors(flat, leaves))
 
 
 def train_leaves(model: RetinaNet) -> Dict[str, torch.Tensor]:
@@ -159,21 +197,28 @@ def loss_fn(model: RetinaNet, images: torch.Tensor, annotations: torch.Tensor, a
     return l_cls + l_reg + l_vp, (l_cls, l_reg, l_vp)
 
 
-def make_train_step(cfg: TrainConfig, opt: Optimizer, mesh=None):
+def make_train_step(cfg: TrainConfig, opt: Optimizer, mesh: Optional[Mesh] = None):
     """-> step(state, images [B,H,W,3], annotations [B,M,21]) -> (state,
     metrics): one forward, backward and optimizer update; the metrics are
-    device scalars."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    device scalars. With a ``mesh``, in a rank of its data-parallel group:
+    the step takes the rank's slice of the global batch (B must divide over
+    the mesh) and averages the gradients and the metrics over the ranks
+    before the update."""
+    rank = mesh_rank(mesh) if mesh is not None else 0
 
     def step_fn(state: TrainState, images: torch.Tensor, annotations: torch.Tensor):
+        if mesh is not None:
+            rows = batch_sharding(mesh, images.shape[0])[rank]
+            images, annotations = images[rows], annotations[rows]
         anchors = _anchors(tuple(cfg.image_shape), (3, 4, 5, 6, 7), images.device)
         opt.zero_grad()
         total, (l_cls, l_reg, l_vp) = loss_fn(state.model, images, annotations, anchors)
         total.backward()
+        values = [total.detach(), l_cls.detach(), l_reg.detach(), l_vp.detach()]
+        if mesh is not None:
+            values = list(average_over_ranks(opt.leaves, torch.stack(values), mesh.size))
         opt.step()
-        metrics = {"loss": total.detach(), "cls": l_cls.detach(), "reg": l_reg.detach(), "vp": l_vp.detach()}
-        return state._replace(step=state.step + 1), metrics
+        return state._replace(step=state.step + 1), dict(zip(_METRICS, values))
 
     return step_fn
 
@@ -181,21 +226,31 @@ def make_train_step(cfg: TrainConfig, opt: Optimizer, mesh=None):
 class Trainer:
     """Host loop: feeds batches, keeps the plateau learning-rate schedule,
     checkpoints. Runs on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU); with a ``mesh``, in one rank of its data-parallel group, on the
+    rank's mesh device, starting from rank 0's parameters."""
 
-    def __init__(self, cfg: TrainConfig, generator: Optional[torch.Generator] = None, mesh=None,
-                 model: Optional[RetinaNet] = None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+    def __init__(self, cfg: TrainConfig, generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None, model: Optional[RetinaNet] = None, device: DeviceLike = None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            rank_device = mesh.devices[mesh_rank(mesh)]
+            if device is not None and canonical_device(device) != rank_device:
+                raise ValueError(f"Trainer: device {device}, but this rank's mesh device is {rank_device}")
+            device = rank_device
         self.device = resolve_device(device)
         generator = generator if generator is not None else torch.Generator().manual_seed(0)
-        self.state, self.opt = init_train_state(generator, cfg, model, self.device)
-        self._step = make_train_step(cfg, self.opt)
+        self._init(generator, model)
         self.lr = cfg.lr
         self._best = float("inf")
         self._bad_epochs = 0
         self.history: List[float] = []
+
+    def _init(self, generator: Optional[torch.Generator], model: Optional[RetinaNet]) -> None:
+        self.state, self.opt = init_train_state(generator, self.cfg, model, self.device)
+        if self.mesh is not None:
+            broadcast_leaves(self.opt.leaves)
+        self._step = make_train_step(self.cfg, self.opt, self.mesh)
 
     @property
     def model(self) -> RetinaNet:
@@ -203,7 +258,7 @@ class Trainer:
 
     def train_step(self, images, annotations) -> Dict[str, torch.Tensor]:
         """One step on a batch (numpy arrays or tensors; moved to the
-        trainer's device)."""
+        trainer's device): the global batch, with a mesh."""
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         annotations = torch.as_tensor(annotations).to(self.device, non_blocking=True)
         self.state, metrics = self._step(self.state, images, annotations)
@@ -234,7 +289,5 @@ class Trainer:
         anew (as ``opt.init(params)`` does)."""
         from playground3d_tpu_torch.models.nn import load_params
 
-        model = load_params(path, self.model)
-        self.state, self.opt = init_train_state(None, self.cfg, model, self.device)
+        self._init(None, load_params(path, self.model))
         self.opt.lr = float(np.float32(self.lr))
-        self._step = make_train_step(self.cfg, self.opt)

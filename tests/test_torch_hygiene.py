@@ -36,6 +36,14 @@ _STEP = textwrap.dedent(
     src = [((np.zeros((64, 96, 3), np.uint8), 1.6e9 + f / 30.0) for f in range(3))]
     assert trk.track(src, clip_len=3)["frames"] == 3
 
+    # the camera-sharded clip, on a mesh of the CPU listed twice
+    from playground3d_tpu_torch.parallel.mesh import make_mesh
+
+    trk = MultiCameraTracker(reg, ["p1c1", "p1c1"], cfg=cfg, det_model=det, crop_model=crop,
+                             centers=np.array([[500.0, 60.0]] * 2), device="cpu")
+    src = [((np.zeros((64, 96, 3), np.uint8), 1.6e9 + f / 30.0) for f in range(3)) for _ in range(2)]
+    assert trk.track(src, clip_len=3, mesh=make_mesh(devices=["cpu"] * 2))["frames"] == 3
+
     # the shipped transport: s2d stems, int8-quantized nets, YUV420 bytes in
     from playground3d_tpu_torch.models.quant import is_quantized, quantize_detector
     from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, nms, qconv, yuv420
@@ -232,6 +240,7 @@ def _entry_points():
     from playground3d_tpu_torch.models.retinanet import detect_singleframe
     from playground3d_tpu_torch.models.retinanet2d import retinanet2d_init
     from playground3d_tpu_torch.tools import benchmark_speed
+    from playground3d_tpu_torch.parallel.mesh import make_mesh
 
     return {
         "retinanet_init": lambda: retinanet_init(depth=18),
@@ -252,6 +261,7 @@ def _entry_points():
         "auto_label_e2e": lambda: auto_label_e2e.main(["--steps", "1"]),
         "retinanet2d_init": lambda: retinanet2d_init(num_classes=4, depth=18),
         "detect_singleframe": lambda: detect_singleframe(retinanet_init(depth=18), torch.zeros((64, 96, 3))),
+        "make_mesh": lambda: make_mesh(),
     }
 
 
@@ -259,7 +269,7 @@ def _entry_points():
     "name", ["retinanet_init", "default_params", "init_track_state", "MultiCameraTracker",
              "SingleCameraTracker", "oracle_detections", "track_app", "track_app_session", "Trainer",
              "train_app", "BatchedKF", "detect_video", "benchmark_speed", "demo_e2e", "demo_e2e_mc",
-             "auto_label_e2e", "retinanet2d_init", "detect_singleframe"]
+             "auto_label_e2e", "retinanet2d_init", "detect_singleframe", "make_mesh"]
 )
 def test_default_device_raises_without_cuda(monkeypatch, name):
     """Entry points default to the card; without CUDA they raise instead
@@ -298,7 +308,8 @@ def test_no_module_of_the_port_imports_jax():
     assert "BAD []" in out.stdout and "MODULES" in out.stdout
 
 
-@pytest.mark.parametrize("module", ["ops.qconv", "ops.crop_resize", "ops.nms", "models.nn", "models", "pipeline.graphs"])
+@pytest.mark.parametrize("module", ["ops.qconv", "ops.crop_resize", "ops.nms", "models.nn", "models", "pipeline.graphs",
+                                    "parallel.mesh"])
 def test_a_module_imports_first_in_a_fresh_interpreter(module):
     """``chip_smoke.py`` imports the kernel loaders before anything else:
     each imports with nothing of the package loaded before it (the
