@@ -1681,9 +1681,18 @@ def graph_replay_ms(graph, device) -> float:
     return float(np.median(times))
 
 
+def clip_programs(clip):
+    """(where, StaticGraphs) of every program of a captured clip: each
+    camera shard's (its forward and top-k, ``frame`` or ``batched``; one
+    shard, every camera, without a mesh), then the lead's (the branches,
+    or the whole unrolled clip)."""
+    out = [(f"shard {i}", sd.programs) for shards in clip.shard_runners.values() for i, sd in enumerate(shards)]
+    return out + [("lead", runner.programs) for runner in clip.runners.values()]
+
+
 def graph_detail(clip, label: str, phase: str = "main"):
-    """Per graph of the captured clip (a branch, the batched detector pass
-    or the whole unrolled clip): graph nodes, the launches it credits, its
+    """Per graph of the captured clip (a shard's forward and top-k, a
+    branch, or the whole unrolled clip): graph nodes, the launches it credits, its
     capture and instantiate time (host), a replay's time (CUDA events,
     median of 5), and the card's busy time and kernels in one replay under
     the profiler. Replays run on the clip's static buffers (the timed runs
@@ -1693,11 +1702,11 @@ def graph_detail(clip, label: str, phase: str = "main"):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     medians = {}
-    for runner in clip.runners.values():
-        for name, (graph, tally) in runner.programs.graphs.items():
-            medians[name] = replay_ms = graph_replay_ms(graph, runner.programs.device)
-            cap_s, inst_s = runner.programs.capture_s[name]
-            line = (f"{phase} ({label}): graph {name}: {graph_nodes(graph)} nodes, kernel launches credited "
+    for where, programs in clip_programs(clip):
+        for name, (graph, tally) in programs.graphs.items():
+            medians[name] = replay_ms = graph_replay_ms(graph, programs.device)
+            cap_s, inst_s = programs.capture_s[name]
+            line = (f"{phase} ({label}): {where}'s graph {name}: {graph_nodes(graph)} nodes, kernel launches credited "
                     f"{ {k.__name__: v for k, v in tally.items()} }, captured in {cap_s:.3f} s and instantiated "
                     f"in {inst_s:.3f} s (host), replay {replay_ms:.3f} ms median of 5 (CUDA events)")
             with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1731,10 +1740,12 @@ def variant_clip(trk, det, crop, graphs: bool, variant: dict):
 
 
 def captured_names(variant: dict):
-    """The graphs a clip of ``make_mc_clip_step(**variant)`` captures."""
+    """The graphs a clip of ``make_mc_clip_step(**variant)`` captures: the
+    shard's forward and top-k (of each detect frame, or batched) and the
+    lead's branches, or the one unrolled clip."""
     if variant.get("unroll"):
         return ["clip"]
-    return (["batched"] if variant.get("batch_detects") else []) + ["crop", "detect", "passthrough"]
+    return sorted(["batched" if variant.get("batch_detects") else "frame", "crop", "detect", "passthrough"])
 
 
 def rows_diff(what: str, trk, other):
@@ -1808,7 +1819,7 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
     warm.track_clips(sources(frames[:n_warm]), clip_len=n_warm, yuv_hw=yuv_hw)
     torch.cuda.synchronize()
     clip = warm._clip_fn()
-    captured = sorted(name for runner in clip.runners.values() for name in runner.programs.graphs)
+    captured = sorted(name for _, programs in clip_programs(clip) for name in programs.graphs)
     if captured != captured_names(variant):
         fail(f"{phase} ({label}): the warm-up captured {captured}, not {captured_names(variant)}")
 
@@ -1916,7 +1927,7 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
     if variant.get("unroll"):
         branch_ms = n_clips * replay["clip"]
     else:
-        branch_ms = (n_detect * replay["detect"] + len(crop_frames) * replay["crop"]
+        branch_ms = (n_detect * (replay.get("frame", 0.0) + replay["detect"]) + len(crop_frames) * replay["crop"]
                      + n_pass * replay["passthrough"] + n_clips * replay.get("batched", 0.0))
     log(f"{phase} ({label}): the graphs' replays alone take {branch_ms:.2f} ms for these {n_frames} frames "
         f"({n_frames / branch_ms * 1e3:.1f} frames/s if nothing else ran); the timed runs took "
@@ -2195,10 +2206,7 @@ def mesh_graph_lines(clip, label: str, n_frames: int, n_cams: int) -> float:
     per_frame = {"frame": n_detect, "batched": -(-n_frames // T_CLIP), "detect": n_detect, "crop": n_crop,
                  "passthrough": n_frames - n_detect - n_crop}
     shard_ms, lead_ms = {}, 0.0  # shard device -> its shards' replay ms a run
-    programs = [(f"shard {i} on {sd.programs.device}", sd.programs)
-                for shards in clip.shard_runners.values() for i, sd in enumerate(shards)]
-    programs += [("lead", runner.programs) for runner in clip.runners.values()]
-    for where, prog in programs:
+    for where, prog in clip_programs(clip):
         for name, (graph, tally) in prog.graphs.items():
             ms = graph_replay_ms(graph, prog.device)
             if where == "lead":
@@ -2250,7 +2258,8 @@ def mesh_clips(device, refs: dict) -> None:
     n_cams, n_frames = len(MESH_CAMERAS), 2 * T_CLIP
     frames = np.stack([packed[(np.arange(n_frames) + 12 * c) % packed.shape[0]] for c in range(n_cams)], axis=1)
     n_cards = torch.cuda.device_count()
-    meshes = {f"every visible card ({min(n_cards, 4)})": make_mesh(max(k for k in (1, 2, 4) if k <= n_cards))}
+    n_mesh = max(k for k in (1, 2, 4) if k <= n_cards)  # the 4 cameras divide over 1, 2 or 4 cards
+    meshes = {f"{n_mesh} of the {n_cards} visible card(s)": make_mesh(n_mesh)}
     if n_cards == 1:
         meshes["cuda:0 listed twice"] = make_mesh(devices=["cuda:0", "cuda:0"])
 
@@ -2309,13 +2318,18 @@ import torch
 import torch.distributed as dist
 from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
 from playground3d_tpu_torch.parallel.mesh import join_data_parallel, make_mesh
-from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer, train_leaves
+from playground3d_tpu_torch.train import trainer as PT
 
 rank, init, out, devices, batch = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4].split(","), int(sys.argv[5])
+grads = []  # the flat gradient Adam is given at the first step (before the clip)
+adam_step = PT.Optimizer.step
+PT.Optimizer.step = lambda self: (grads or grads.append(torch.cat([t.grad.reshape(-1) for t in self.leaves])),
+                                  adam_step(self))
 mesh = make_mesh(devices=devices)
 dev = join_data_parallel(mesh, rank, init)
 ds = SyntheticDetectionDataset(image_shape=(64, 128), n_objects=6, seed=2, zoom=8.0, output_dtype="uint8")
-tr = Trainer(TrainConfig(depth=18, image_shape=(64, 128)), generator=torch.Generator().manual_seed(rank), mesh=mesh)
+tr = PT.Trainer(PT.TrainConfig(depth=18, image_shape=(64, 128)), generator=torch.Generator().manual_seed(rank),
+                mesh=mesh)
 batches = ds.batches(batch)
 losses, step_ms = [], []
 for _ in range(3):
@@ -2325,7 +2339,7 @@ for _ in range(3):
     losses.append(float(tr.train_step(images, labels)["loss"]))
     torch.cuda.synchronize(dev)
     step_ms.append((time.perf_counter() - t0) * 1e3)
-flat = torch.zeros(sum(t.numel() for t in train_leaves(tr.model).values()) + 4, device=dev)
+flat = torch.zeros(sum(t.numel() for t in PT.train_leaves(tr.model).values()) + 4, device=dev)
 reduce_ms = []
 for _ in range(5):
     torch.cuda.synchronize(dev)
@@ -2334,25 +2348,74 @@ for _ in range(5):
     torch.cuda.synchronize(dev)
     reduce_ms.append((time.perf_counter() - t0) * 1e3)
 torch.save({"losses": losses, "step_ms": step_ms, "reduce_ms": reduce_ms, "numel": flat.numel(),
-            "backend": dist.get_backend(), "leaves": {k: t.detach().cpu() for k, t in train_leaves(tr.model).items()}},
-           out)
+            "backend": dist.get_backend(), "grad1": grads[0].cpu() if rank == 0 else None,
+            "leaves": {k: t.detach().cpu() for k, t in PT.train_leaves(tr.model).items()}}, out)
 dist.destroy_process_group()
 """
+
+DP_GRAD_TOL = 1e-3  # the all-reduced gradient against the mean of the ranks' slices' gradients, relative
+
+
+def slice_grads(trainer, images, labels, row_sets):
+    """The flat gradient ``trainer`` hands Adam at a step on each set of
+    rows of one batch; no update is made."""
+    import torch
+
+    from playground3d_tpu_torch.train import trainer as PT
+
+    out = []
+    adam_step = PT.Optimizer.step
+    PT.Optimizer.step = lambda self: out.append(torch.cat([t.grad.reshape(-1) for t in self.leaves]))
+    try:
+        for rows in row_sets:
+            trainer.train_step(images[rows], labels[rows])
+    finally:
+        PT.Optimizer.step = adam_step
+    return out
+
+
+def accumulated_step(trainer, images, labels, row_sets) -> None:
+    """The data-parallel step in one process: the mean of the slices'
+    gradients, then the clip and Adam."""
+    import torch
+    from torch._utils import _unflatten_dense_tensors
+
+    mean = torch.stack(slice_grads(trainer, images, labels, row_sets)).mean(0)
+    leaves = trainer.opt.leaves
+    torch._foreach_copy_([t.grad for t in leaves], _unflatten_dense_tensors(mean, [t.grad for t in leaves]))
+    trainer.opt.step()
+
+
+def rel_diff(a, b) -> float:
+    """||a - b|| / ||b|| of two flat tensors, in float64."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
 
 
 def dp_ranks(label: str, device, devices, batch: int) -> None:
     """One process a mesh device of ``devices`` (``DP_RANK``; depth 18,
     64x128, global batch ``batch``, 3 bf16 steps from rank 0's init)
-    against one process's 3 steps on the same global batches on
-    ``device``: the ranks' parameters bit-equal to each other, within 2 *
-    3 lr of the one process's, losses within 1e-3 (relative; bf16
-    convolutions at another batch size); each rank's steps and an
-    all-reduce of the gradients' flat buffer timed on the host's clock."""
+    against one process on ``device`` from the same init:
+
+    * the gradient the ranks hand Adam at step 1 against the mean of the
+      gradients that one process computes for each rank's slice of the
+      batch: within ``DP_GRAD_TOL`` of its norm (this holds the all-reduce,
+      its divide and the slicing; a rank's slice alone, what a missing
+      all-reduce leaves, must read more than 10x the tolerance), and,
+      reported, both against the one process's gradient of the whole
+      batch (bf16 convolutions at another batch size round otherwise);
+    * after 3 steps the ranks' parameters bit-equal to each other, within
+      0.01 lr of one process that averages the slices' gradients at each
+      step, and within 6 lr of one process on the whole batches, losses
+      within 1e-3 (relative) of its; the elements beyond 0.01 lr of the
+      whole-batch process are counted for both;
+    * each rank's steps and an all-reduce of the gradients' flat buffer
+      timed on the host's clock."""
     import tempfile
 
     import torch
 
     from playground3d_tpu_torch.data.dataset import SyntheticDetectionDataset
+    from playground3d_tpu_torch.parallel.mesh import batch_sharding, make_mesh
     from playground3d_tpu_torch.train.trainer import TrainConfig, Trainer, train_leaves
 
     root = tempfile.mkdtemp(dir="_outputs")
@@ -2361,26 +2424,50 @@ def dp_ranks(label: str, device, devices, batch: int) -> None:
                                ",".join(devices), str(batch)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(len(devices))]
     ds = SyntheticDetectionDataset(image_shape=(64, 128), n_objects=6, seed=2, zoom=8.0, output_dtype="uint8")
-    one = Trainer(TrainConfig(depth=18, image_shape=(64, 128)), generator=torch.Generator().manual_seed(0),
-                  device=device)
     batches = ds.batches(batch)
-    losses = [float(one.train_step(*next(batches))["loss"]) for _ in range(3)]
+    steps = [next(batches) for _ in range(3)]
+    rows = batch_sharding(make_mesh(devices=devices), batch)
+    one, acc = (Trainer(TrainConfig(depth=18, image_shape=(64, 128)), generator=torch.Generator().manual_seed(0),
+                        device=device) for _ in range(2))
+    whole, *slices = slice_grads(one, *steps[0], [slice(None)] + rows)
+    mean = torch.stack(slices).mean(0)
+    losses = [float(one.train_step(*b)["loss"]) for b in steps]
+    for b in steps:
+        accumulated_step(acc, *b, rows)
     logs = [p.communicate(timeout=300)[0] for p in procs]
     if any(p.returncode for p in procs):
         fail(f"mesh ({label}): a rank failed:\n" + "\n".join(x[-3000:] for x in logs))
     ranks = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(len(devices))]
+    dp = ranks[0]["grad1"].to(mean.device)
+    g_reduce, g_alone, g_dp, g_mean = (rel_diff(dp, mean), rel_diff(slices[0], mean), rel_diff(dp, whole),
+                                       rel_diff(mean, whole))
     lr = TrainConfig().lr
     equal = all(torch.equal(r["leaves"][k], ranks[0]["leaves"][k]) for r in ranks[1:] for k in ranks[0]["leaves"])
-    want = {k: t.detach().cpu() for k, t in train_leaves(one.model).items()}
-    diffs = torch.cat([(ranks[0]["leaves"][k] - want[k]).abs().reshape(-1) for k in want])
+
+    def param_diffs(trainer):
+        want = {k: t.detach().cpu() for k, t in train_leaves(trainer.model).items()}
+        return torch.cat([(ranks[0]["leaves"][k] - want[k]).abs().reshape(-1) for k in want])
+
+    diffs, acc_diffs = param_diffs(one), param_diffs(acc)
+    acc_vs_one = torch.cat([(a.detach() - b.detach()).abs().reshape(-1).cpu() for a, b in
+                            zip(train_leaves(acc.model).values(), train_leaves(one.model).values())])
     rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(ranks[0]["losses"], losses))
     log(f"mesh ({label}): {len(devices)} {ranks[0]['backend']} ranks on {devices} (depth 18, 64x128, global batch "
-        f"{batch}, 3 bf16 steps): ranks' parameters {'bit-equal' if equal else 'DIFFER'}; against one process on the "
-        f"global batches: losses {ranks[0]['losses']} vs {losses} (max rel {rel:.2e}, tolerance 1e-3), parameters "
-        f"max abs diff {float(diffs.max()):.3g} = {float(diffs.max()) / lr:.2f} lr (tolerance 6 lr), "
-        f"{int((diffs > 1e-6).sum())} of {diffs.numel()} elements beyond 1e-6; step ms per rank "
-        f"{[[round(x, 2) for x in r['step_ms']] for r in ranks]} (host clock, each ended by a synchronize), "
-        f"all-reduce of the {ranks[0]['numel']}-float buffer {np.median(ranks[0]['reduce_ms']):.2f} ms median of 5")
+        f"{batch}, 3 bf16 steps): step 1's gradient within {g_reduce:.3g} of the mean of one process's gradients of "
+        f"the ranks' slices (tolerance {DP_GRAD_TOL:g}; rank 0's slice alone {g_alone:.3g}), within {g_dp:.3g} of "
+        f"one process's gradient of the whole batch (that mean {g_mean:.3g}); ranks' parameters "
+        f"{'bit-equal' if equal else 'DIFFER'}, within {float(acc_diffs.max()) / lr:.3g} lr of one process averaging "
+        f"the slices' gradients (tolerance 0.01 lr); against one process on the whole batches: losses "
+        f"{ranks[0]['losses']} vs {losses} (max rel {rel:.2e}, tolerance 1e-3), parameters max abs diff "
+        f"{float(diffs.max()):.3g} = {float(diffs.max()) / lr:.2f} lr (tolerance 6 lr), {int((diffs > 1e-6).sum())} "
+        f"of {diffs.numel()} elements beyond 0.01 lr (the averaging process: {int((acc_vs_one > 1e-6).sum())}); "
+        f"step ms per rank {[[round(x, 2) for x in r['step_ms']] for r in ranks]} (host clock, each ended by a "
+        f"synchronize), all-reduce of the {ranks[0]['numel']}-float buffer "
+        f"{np.median(ranks[0]['reduce_ms']):.2f} ms median of 5")
+    if g_reduce > DP_GRAD_TOL or g_alone <= 10 * DP_GRAD_TOL or float(acc_diffs.max()) > 0.01 * lr:
+        fail(f"mesh ({label}): step 1's gradient is {g_reduce:.3g} from the mean of the slices' gradients (a slice "
+             f"alone {g_alone:.3g}; tolerance {DP_GRAD_TOL:g}), the parameters {float(acc_diffs.max()) / lr:.3g} lr "
+             f"from the averaging process's (tolerance 0.01 lr)")
     if not equal or rel > 1e-3 or float(diffs.max()) > 6 * lr:
         fail(f"mesh ({label}): the ranks differ from each other or from the one-process step beyond the tolerance")
 

@@ -78,7 +78,12 @@ def main(argv=None) -> dict:
 
 def spawn_ranks(argv, device, n: int) -> dict:
     """``--dp`` over ``n`` devices: one process a device, on a mesh of every
-    visible card (or of the CPU ``n`` times); -> rank 0's summary."""
+    visible card (or of the CPU ``n`` times); -> rank 0's summary, which it
+    leaves in a file beside the rendezvous (a queue's pipe would block rank 0
+    on a summary larger than its buffer while the parent waits for the
+    ranks to end)."""
+    import os
+    import pickle
     import shutil
     import tempfile
 
@@ -86,18 +91,19 @@ def spawn_ranks(argv, device, n: int) -> dict:
 
     devices = [f"cuda:{i}" for i in range(n)] if device.type == "cuda" else [str(device)] * n
     rendezvous = tempfile.mkdtemp(prefix="train_detector_dp_")
-    summaries = mp.get_context("spawn").SimpleQueue()
     try:
-        mp.spawn(rank_main, args=(argv, devices, f"file://{rendezvous}/rendezvous", summaries), nprocs=n)
-        return summaries.get()
+        mp.spawn(rank_main, args=(argv, devices, f"file://{rendezvous}/rendezvous", rendezvous), nprocs=n)
+        with open(os.path.join(rendezvous, "summary.pkl"), "rb") as f:
+            return pickle.load(f)
     finally:
         shutil.rmtree(rendezvous, ignore_errors=True)
 
 
-def rank_main(rank: int, argv, devices, init_method: str, summaries) -> None:
-    """One rank of ``--dp``: join the group, train, and (rank 0) hand back
-    the summary."""
+def rank_main(rank: int, argv, devices, init_method: str, out_dir: str) -> None:
+    """One rank of ``--dp``: join the group, train, and (rank 0) write the
+    summary to ``out_dir``."""
     import os
+    import pickle
 
     import torch
     import torch.distributed as dist
@@ -111,7 +117,8 @@ def rank_main(rank: int, argv, devices, init_method: str, summaries) -> None:
     try:
         summary = train(parse_args(argv), device, mesh)
         if rank == 0:
-            summaries.put(summary)
+            with open(os.path.join(out_dir, "summary.pkl"), "wb") as f:
+                pickle.dump(summary, f)
     finally:
         dist.destroy_process_group()
 

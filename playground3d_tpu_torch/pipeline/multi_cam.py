@@ -45,7 +45,6 @@ from playground3d_tpu_torch.models.retinanet import (
     Candidates,
     Detections,
     RetinaNet,
-    detect_frames,
     detect_multiframe,
     frame_anchors,
     frames_candidates,
@@ -400,20 +399,34 @@ def _copy_parts(dst, parts: list) -> None:
 def _concat(parts: list, device: torch.device):
     """``parts`` concatenated on ``device`` (the eager counterpart of a
     static buffer filled by :func:`_copy_parts`)."""
-    if isinstance(parts[0], torch.Tensor):
-        return torch.cat([p.to(device) for p in parts])
-    return gather_candidates(parts, device)
+    if not isinstance(parts[0], torch.Tensor):
+        return gather_candidates(parts, device)
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts])
+
+
+def _run_branches(branches: dict, names: List[str], state: TrackState, ts_bias: torch.Tensor,
+                  inputs: Callable[[int, str], object], cam_times: torch.Tensor):
+    """Frame ``li`` of ``names`` through branch ``names[li]``, which reads
+    ``inputs(li, name)``; -> (state', ts_bias', snapshots stacked over the
+    frames)."""
+    st, tb, snaps = state, ts_bias, []
+    for li, name in enumerate(names):
+        st, tb, snap = branches[name](st, tb, inputs(li, name), cam_times[li])
+        snaps.append(snap)
+    return st, tb, stack_snapshots(snaps)
 
 
 class _BranchGraphs:
     """The clip's branches over one set of static buffers: the tracker
     state, ``ts_bias``, each branch's own input (a frame of all cameras, or
-    a frame's detections or candidates), the camera times and the snapshot.
+    a frame's candidates), the camera times and the snapshot.
     Each branch reads the buffers and writes its new state, bias and
     snapshot back into them, so a frame is: copy its inputs in, run the
     branch (one CUDA graph replay on the card, :class:`StaticGraphs`), copy
-    the snapshot out. An input given as a list of parts (the camera
-    shards' frames or candidates, on their own devices) is gathered into
+    the snapshot out. An input is given as a list of parts (the camera
+    shards' frames or candidates, on their own devices), gathered into
     one buffer on this device, the parts one after another."""
 
     def __init__(self, branches: dict, device: torch.device):
@@ -434,13 +447,12 @@ class _BranchGraphs:
         copy_into(state_leaves(self.state), state_leaves(state))
         self.ts_bias.copy_(ts_bias)
 
-    def run(self, name: str, x, cam_times: torch.Tensor) -> None:
-        """One frame through branch ``name``: ``x`` is its input, a tensor
-        or a named tuple of them, or a list of such parts to concatenate
-        (None for a branch that reads none)."""
+    def run(self, name: str, parts: Optional[list], cam_times: torch.Tensor) -> None:
+        """One frame through branch ``name``: ``parts`` is its input, a list
+        of tensors or of named tuples of them to concatenate (None for a
+        branch that reads none)."""
         self.cam_times.copy_(cam_times)
-        if x is not None:
-            parts = x if isinstance(x, list) else [x]
+        if parts is not None:
             if name not in self.inputs:
                 self.inputs[name] = _parts_like(parts, self.programs.device)
             _copy_parts(self.inputs[name], parts)
@@ -454,35 +466,12 @@ class _BranchGraphs:
             copy_into(self.snap, snap)
 
 
-class _BatchedDetect:
-    """``batch_detects``' hoisted pass: the clip's detect frames ``[J,C,...]``
-    copied into a static buffer and detected by one program among the clip's
-    (one CUDA graph on the card); its detections, stacked over J, stay in
-    static buffers that every replay rewrites in place."""
-
-    def __init__(self, detect: Callable, programs: StaticGraphs):
-        self.detect, self.programs = detect, programs
-        self.frames = self.dets = None
-
-    def run(self, frames: torch.Tensor) -> None:
-        if self.frames is None:
-            self.frames = torch.empty_like(frames)
-        self.frames.copy_(frames)
-        self.programs.run("batched", self._body)
-
-    def _body(self, write_back: bool):
-        dets = self.detect(self.frames)
-        if write_back:
-            self.dets = dets
-
-
 class _ShardDetect:
-    """One camera shard's half of the mesh clip's detect branch, on the
-    shard's device: its cameras' frame (``"frame"``) or the clip's detect
-    frames (``"batched"``) copied into a static buffer, then the shard's
-    detector replica and its top-k candidates (one CUDA graph a program on
-    the card), left in buffers that every run rewrites, for the lead
-    device to gather."""
+    """One camera shard's half of the clip's detect branch, on the shard's
+    device: its cameras' frame (``"frame"``) or the clip's detect frames
+    (``"batched"``) copied into a static buffer, then the shard's detector
+    and its top-k candidates (one CUDA graph a program on the card), left
+    in buffers that every run rewrites, for the lead device to gather."""
 
     def __init__(self, model: RetinaNet, device: torch.device, first_image: int, cfg: TrackerConfig):
         self.model, self.first = model, first_image
@@ -526,12 +515,9 @@ class _UnrolledClip:
         self.programs.run("clip", self._body)
 
     def _body(self, write_back: bool):
-        st, tb = self.state, self.ts_bias
-        snaps = []
-        for i, name in enumerate(self.schedule):
-            st, tb, snap = self.branches[name](st, tb, self.frames[i], self.cam_times[i])
-            snaps.append(snap)
-        stacked = stack_snapshots(snaps)  # before the state is written: a snapshot may alias the input state
+        # the snapshots are stacked before the state is written: a snapshot may alias the input state
+        st, tb, stacked = _run_branches(self.branches, self.schedule, self.state, self.ts_bias,
+                                        lambda li, name: self.frames[li], self.cam_times)
         if write_back:
             copy_into(state_leaves(self.state), state_leaves(st))
             self.ts_bias.copy_(tb)
@@ -573,34 +559,35 @@ def make_mc_clip_step(
     eagerly instead, on any device (the reference the graphs are held
     to).
 
+    The frames' camera axis is split over the camera shards of ``mesh``
+    (JAX's camera-sharded clip); without one, the frames' device is the one
+    shard. ``frames`` is one tensor ``[T,C,...]`` (split and copied) or,
+    with a mesh, one ``[T,C/n,...]`` tensor a mesh device, on it (as
+    :meth:`MultiCameraTracker.track_clips` stages them). Each shard runs
+    the detector (a replica a mesh device) over its cameras and takes their
+    top-k (:func:`image_candidates`; one program :class:`_ShardDetect` of
+    its own); only those candidates move to the lead device
+    ``mesh.devices[0]``, which holds the state, the bias, the crop net and
+    every branch, merges them (:func:`merge_candidates`) and parses. The
+    crop branch gathers the crop frame's cameras to the lead. On the card
+    each device's programs are CUDA graphs of its own, and the copies
+    between devices run between replays. The cameras must divide over the
+    mesh.
+
     The JAX clip's two variants (both need ``frame0 % det_step == 0``, and
     raise ``ValueError`` otherwise):
 
-    * ``batch_detects``: the detector, top-k, decode and camera-grouped NMS
-      of the clip's detect frames ``frames[::det_step]`` run before the
-      branches, as one detector forward over ``ceil(T/det_step)*C`` images;
-      top-k and NMS stay per frame. The detect branch then parses its
-      frame's detections. On the card the batched pass is a CUDA graph of
-      its own, replayed before the branches' replays.
+    * ``batch_detects``: the detector and top-k of the clip's detect frames
+      ``frames[::det_step]`` run before the branches, as one detector
+      forward over ``ceil(T/det_step)`` frames of a shard's cameras
+      (:func:`frames_candidates`, a program of its own); the top-k pool, the
+      merge and the NMS stay per frame.
     * ``unroll``: a straight-line clip, each frame's branch picked from its
       clip-local index (so with a crop net ``frame0 % skip_step == 0`` is
-      needed too). On the card the whole clip is ONE CUDA graph per frame
-      shape, dtype and T: a clip is one replay. As in JAX, ``unroll`` runs
-      the full detect branch, so ``batch_detects`` has no effect with it.
-
-    With a ``mesh`` (JAX's camera-sharded clip), the camera axis of the
-    frames is split over the mesh's devices: ``frames`` is one tensor
-    ``[T,C,...]`` (split and copied) or one ``[T,C/n,...]`` tensor a mesh
-    device, on it (as :meth:`MultiCameraTracker.track_clips` stages them).
-    Each device runs a replica of the detector over its cameras and takes
-    their top-k (:func:`image_candidates`; batched, one forward over the
-    clip's detect frames); only those candidates move to the lead device
-    ``mesh.devices[0]``, which holds the state, the bias, the crop net and
-    every other branch, merges them (:func:`merge_candidates`) and parses.
-    The crop branch gathers the crop frame's cameras to the lead. On the
-    card each device's programs are CUDA graphs of its own, and the copies
-    between devices run between replays. The cameras must divide over the
-    mesh; ``unroll`` raises ``ValueError`` with a mesh, as in JAX.
+      needed too), the detect branch whole (:func:`make_mc_detect_step`).
+      On the card the whole clip is ONE CUDA graph per frame shape, dtype
+      and T: a clip is one replay. As in JAX, ``batch_detects`` has no
+      effect with it, and a ``mesh`` raises ``ValueError``.
     """
     if det_model.stem != stem:
         raise ValueError(f"make_mc_clip_step: stem={stem!r} but the detector was built with {det_model.stem!r}")
@@ -616,7 +603,6 @@ def make_mc_clip_step(
         if crop_model is not None else None
     )
     d, s = cfg.det_step, cfg.skip_step
-    batched = batch_detects and not unroll
 
     def check_aligned(frame0: int) -> None:
         # batch_detects pairs the hoisted detections with clip-local detect
@@ -631,13 +617,6 @@ def make_mc_clip_step(
                 f"clip frame0={frame0} must be a multiple of skip_step={s} for the "
                 "unrolled clip's crop cadence"
             )
-
-    @torch.no_grad()
-    def batched_detect(frames: torch.Tensor) -> Detections:
-        return detect_frames(
-            det_model, frames, pre_topk=cfg.pre_topk, max_dets=cfg.max_dets,
-            approx_topk=cfg.approx_topk, min_level=cfg.det_min_level,
-        )
 
     def b_detect(st, tb, f, t):
         st2, snap, tb2 = detect_step(st, f, t, tb)
@@ -654,11 +633,9 @@ def make_mc_clip_step(
     def b_skip(st, tb, f, t):
         return st, tb, snapshot(st, torch.mean(t), kfp, cfg)
 
-    branches = {"detect": b_parsed if batched else b_detect,
-                "crop": b_crop if crop_step is not None else b_skip, "passthrough": b_skip}
-    runners: dict = {}  # (device, frame shape, dtype[, T or J]) -> _BranchGraphs or _UnrolledClip
-    hoisted: dict = {}  # the same keys, batched -> _BatchedDetect on its runner's programs
-    shard_runners: dict = {}  # mesh: the same keys -> a _ShardDetect a mesh device
+    branches = {"detect": b_detect, "crop": b_crop if crop_step is not None else b_skip, "passthrough": b_skip}
+    runners: dict = {}  # (lead device, frame shape, dtype[, T or J]) -> _BranchGraphs or _UnrolledClip
+    shard_runners: dict = {}  # the same keys -> a _ShardDetect a camera shard
     replicas = replicate(mesh, det_model) if mesh is not None else None
 
     def which(i: int) -> str:
@@ -666,132 +643,90 @@ def make_mc_clip_step(
             return "detect"
         return "crop" if crop_step is not None and i % s == 0 else "passthrough"
 
-    def branch_input(name: str, li: int, frames: torch.Tensor, dets: Optional[Detections]):
-        """What frame ``li``'s branch reads: its frame of all cameras, or,
-        batched, its detections (the clip's detect frame ``li // d``)."""
-        if name == "passthrough":
-            return None
-        if name == "detect" and batched:
-            return Detections(*(x[li // d] for x in dets))
-        return frames[li]
-
-    def camera_shards(frames) -> List[torch.Tensor]:
+    def camera_shards(frames):
+        """(the mesh, its camera shards of ``frames``, a detector a shard);
+        without a mesh, the frames' device alone."""
+        if mesh is None:
+            if not isinstance(frames, torch.Tensor):
+                raise ValueError("make_mc_clip_step: frames given as camera shards need a mesh")
+            return Mesh((frames.device,)), [frames], (det_model,)
         if isinstance(frames, torch.Tensor):
-            return list(shard_batch(mesh, frames, dim=1))
+            return mesh, list(shard_batch(mesh, frames, dim=1)), replicas
         shards = list(frames)
         shard_devices(mesh, shards, "make_mc_clip_step")
         if len({tuple(x.shape) for x in shards}) != 1:
             raise ValueError(f"make_mc_clip_step: camera shards of shapes {[tuple(x.shape) for x in shards]}")
-        return shards
+        return mesh, shards, replicas
 
-    def mesh_inputs(name: str, li: int, shards, frame_cands: Callable[[int], Candidates], batched_cands):
-        """What frame ``li``'s branch gathers on the lead: each shard's
-        cameras of the frame (crop), or each shard's candidates (detect)."""
-        if name == "passthrough":
-            return None
-        if name == "crop":
-            return [x[li] for x in shards]
-        if batched:
-            return [Candidates(*(x[li // d] for x in c)) for c in batched_cands]
-        return [frame_cands(s) for s in range(mesh.size)]
-
-    def mesh_clip(state: TrackState, ts_bias: torch.Tensor, frames, cam_times: torch.Tensor, frame0: int):
-        shards = camera_shards(frames)
-        T_len, lead = shards[0].shape[0], mesh.lead
-        firsts = np.cumsum([0] + [x.shape[1] for x in shards]).tolist()
-        names = [which(frame0 + li) for li in range(T_len)]
-        key = (lead, tuple(shards[0].shape[1:]), shards[0].dtype) + ((len(range(0, T_len, d)),) if batched else ())
-
-        def branches_of():
-            """The lead's branches: the detect branch merges the candidates."""
-            anchors = frame_anchors(shards[0][0], stem, cfg.det_min_level)  # shard 0 lies on the lead
-
-            def b_merged(st, tb, cands, t):
-                det = merge_candidates(cands, anchors, firsts[-1], mesh.size, pre_topk=cfg.pre_topk,
-                                       max_dets=cfg.max_dets)
-                return b_parsed(st, tb, det, t)
-
-            return dict(branches, detect=b_merged)
-
+    def unrolled(state, ts_bias, frames: torch.Tensor, cam_times: torch.Tensor):
+        # the unrolled clip's branches follow the clip-local index (equal to
+        # the global cadence once frame0 is aligned)
+        names = [which(li) for li in range(frames.shape[0])]
         if not graphs:
-            mesh_branches = branches_of()
-            kw = dict(pre_topk=cfg.pre_topk, min_level=cfg.det_min_level)
-            hoist = ([frames_candidates(m, x[::d], first_image=f, **kw) for m, x, f in zip(replicas, shards, firsts)]
-                     if batched else None)
-            st, tb = state, ts_bias
-            snaps = []
-            for li, name in enumerate(names):
-                parts = mesh_inputs(name, li, shards, lambda s: image_candidates(
-                    replicas[s], shards[s][li], first_image=firsts[s], **kw), hoist)
-                st, tb, snap = mesh_branches[name](st, tb, None if parts is None else _concat(parts, lead),
-                                                   cam_times[li])
-                snaps.append(snap)
-            return st, tb, stack_snapshots(snaps)
-
+            return _run_branches(branches, names, state, ts_bias, lambda li, name: frames[li], cam_times)
+        key = (frames.device, tuple(frames.shape[1:]), frames.dtype, frames.shape[0])
         runner = runners.get(key)
         if runner is None:
-            runner = runners[key] = _BranchGraphs(branches_of(), lead)
-            shard_runners[key] = [_ShardDetect(m, x.device, f, cfg) for m, x, f in zip(replicas, shards, firsts)]
-        sds = shard_runners[key]
-        runner.load(state, ts_bias, cam_times[0])
-        hoist = [sd.run("batched", x[::d]) for sd, x in zip(sds, shards)] if batched else None
-        out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-                         for x in runner.snap))
-        for li, name in enumerate(names):
-            runner.run(name, mesh_inputs(name, li, shards, lambda s: sds[s].run("frame", shards[s][li]), hoist),
-                       cam_times[li])
-            for dst, src in zip(out, runner.snap):
-                dst[li].copy_(src)
-        return clone_state(runner.state), runner.ts_bias.clone(), out
+            runner = runners[key] = _UnrolledClip(branches, names, frames.device)
+        runner.run(state, ts_bias, frames, cam_times)
+        return clone_state(runner.state), runner.ts_bias.clone(), Snapshot(*(x.clone() for x in runner.snaps))
 
     @torch.no_grad()
-    def clip(state: TrackState, ts_bias: torch.Tensor, frames,
-             cam_times: torch.Tensor, frame0: int):
+    def clip(state: TrackState, ts_bias: torch.Tensor, frames, cam_times: torch.Tensor, frame0: int):
         frame0 = int(frame0)
         if batch_detects or unroll:
             check_aligned(frame0)
-        if mesh is not None:
-            return mesh_clip(state, ts_bias, frames, cam_times, frame0)
-        T_len = frames.shape[0]
-        # the unrolled clip's branches follow the clip-local index (equal to
-        # the global cadence once frame0 is aligned)
-        names = [which(li if unroll else frame0 + li) for li in range(T_len)]
-        if not graphs:
-            st, tb = state, ts_bias
-            dets = batched_detect(frames[::d]) if batched else None
-            snaps = []
-            for li, name in enumerate(names):
-                st, tb, snap = branches[name](st, tb, branch_input(name, li, frames, dets), cam_times[li])
-                snaps.append(snap)
-            return st, tb, stack_snapshots(snaps)
-
-        key = (frames.device, tuple(frames.shape[1:]), frames.dtype)
         if unroll:
-            key += (T_len,)
-            runner = runners.get(key)
-            if runner is None:
-                runner = runners[key] = _UnrolledClip(branches, names, frames.device)
-            runner.run(state, ts_bias, frames, cam_times)
-            out = Snapshot(*(x.clone() for x in runner.snaps))
-        else:
-            if batched:
-                key += (len(range(0, T_len, d)),)
-            runner = runners.get(key)
-            if runner is None:
-                runner = runners[key] = _BranchGraphs(branches, frames.device)
-                if batched:
-                    hoisted[key] = _BatchedDetect(batched_detect, runner.programs)
-            runner.load(state, ts_bias, cam_times[0])
-            dets = None
-            if batched:
-                hoisted[key].run(frames[::d])
-                dets = hoisted[key].dets
-            out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-                             for x in runner.snap))
-            for li, name in enumerate(names):
-                runner.run(name, branch_input(name, li, frames, dets), cam_times[li])
-                for dst, src in zip(out, runner.snap):
-                    dst[li].copy_(src)
+            return unrolled(state, ts_bias, frames, cam_times)
+        m, shards, models = camera_shards(frames)
+        T_len, lead = shards[0].shape[0], m.lead
+        firsts = np.cumsum([0] + [x.shape[1] for x in shards]).tolist()
+        names = [which(frame0 + li) for li in range(T_len)]
+        anchors = frame_anchors(shards[0][0], stem, cfg.det_min_level)  # shard 0 lies on the lead
+
+        def b_merged(st, tb, cands, t):
+            det = merge_candidates(cands, anchors, firsts[-1], m.size, pre_topk=cfg.pre_topk, max_dets=cfg.max_dets)
+            return b_parsed(st, tb, det, t)
+
+        def gathered(li: int, name: str, frame_cands: Callable[[int], Candidates], hoisted):
+            """What frame ``li``'s branch gathers on the lead: each shard's
+            cameras of the frame (crop), or each shard's candidates
+            (detect; batched, the clip's detect frame ``li // d``)."""
+            if name == "passthrough":
+                return None
+            if name == "crop":
+                return [x[li] for x in shards]
+            if hoisted is not None:
+                return [Candidates(*(x[li // d] for x in c)) for c in hoisted]
+            return [frame_cands(i) for i in range(m.size)]
+
+        if not graphs:
+            kw = dict(pre_topk=cfg.pre_topk, min_level=cfg.det_min_level)
+            hoisted = ([frames_candidates(md, x[::d], first_image=f, **kw) for md, x, f in zip(models, shards, firsts)]
+                       if batch_detects else None)
+
+            def inputs(li, name):
+                parts = gathered(li, name, lambda i: image_candidates(models[i], shards[i][li], first_image=firsts[i],
+                                                                      **kw), hoisted)
+                return None if parts is None else _concat(parts, lead)
+
+            return _run_branches(dict(branches, detect=b_merged), names, state, ts_bias, inputs, cam_times)
+
+        key = (lead, tuple(shards[0].shape[1:]), shards[0].dtype) + ((len(range(0, T_len, d)),) if batch_detects else ())
+        runner = runners.get(key)
+        if runner is None:
+            # b_merged's anchors and camera offsets follow from the key alone
+            runner = runners[key] = _BranchGraphs(dict(branches, detect=b_merged), lead)
+            shard_runners[key] = [_ShardDetect(md, x.device, f, cfg) for md, x, f in zip(models, shards, firsts)]
+        sds = shard_runners[key]
+        runner.load(state, ts_bias, cam_times[0])
+        hoisted = [sd.run("batched", x[::d]) for sd, x in zip(sds, shards)] if batch_detects else None
+        out = Snapshot(*(torch.empty((T_len,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                         for x in runner.snap))
+        for li, name in enumerate(names):
+            runner.run(name, gathered(li, name, lambda i: sds[i].run("frame", shards[i][li]), hoisted), cam_times[li])
+            for dst, src in zip(out, runner.snap):
+                dst[li].copy_(src)
         return clone_state(runner.state), runner.ts_bias.clone(), out
 
     clip.runners = runners

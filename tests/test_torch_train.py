@@ -400,10 +400,12 @@ def test_one_device_dp_trains_as_without_it(tmp_path, monkeypatch):
     one device): the same checkpoint, parameter for parameter. Over two
     devices (the CPU twice) it trains on two gloo ranks, each on its half of
     the same global batches: the epoch loss within 1e-3 (relative, bf16),
-    and every parameter within
-    2 * steps * lr of the one-process checkpoint (bf16: an element whose
-    near-zero gradient rounds to the other sign moves the other way, as the
-    three-step test against the JAX trainer allows)."""
+    every parameter within 2 * steps * lr of the one-process checkpoint
+    (bf16: an element whose near-zero gradient rounds to the other sign
+    moves the other way, as the three-step test against the JAX trainer
+    allows), and at most 0.5% of them beyond 0.1 lr: 0.024% measured, and
+    16% when each rank steps on rank 0's gradient alone (the check
+    ``tests/test_torch_parallel.py`` holds at float32)."""
     from playground3d_tpu_torch.apps import train_detector
 
     argv = ["--depth", "18", "--height", "64", "--width", "96", "--steps", "2", "--steps-per-epoch", "2",
@@ -425,6 +427,8 @@ def test_one_device_dp_trains_as_without_it(tmp_path, monkeypatch):
         assert a.files == b.files
         for k in a.files:
             np.testing.assert_allclose(b[k], a[k], rtol=0, atol=2 * 2 * 1e-4, err_msg=k)
+        diff = np.concatenate([np.abs(b[k].astype(np.float64) - a[k]).ravel() for k in a.files])
+    assert (diff > 0.1 * 1e-4).mean() <= 0.005
 
 
 @pytest.mark.parametrize("mode", ["full", "crop"])
