@@ -959,11 +959,11 @@ def record_qconv_shapes(device):
     real = quant.qconv  # the one entry models/quant.py calls the int8 conv through
     branch = ["detect"]
 
-    def recording(x, wq, scale, offset=None, stride=1, relu=False, emit_xs=None, res=None, res_xs=None):
+    def recording(x, wq, scale, offset=None, stride=1, relu=False, emit_xs=None, res=None, res_xs=None, pads=None):
         kind = "none" if res is None else ("int8" if res.dtype == torch.int8 else "bf16")
         key = (*x.shape, wq.shape[0], wq.shape[1], stride, bool(relu), offset is not None, emit_xs is not None, kind)
         seen[branch[0]][key] += 1
-        return real(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs)
+        return real(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs, pads)
 
     quant.qconv = recording
     try:
@@ -2012,10 +2012,11 @@ def phase_main(device, loop_calls: str | None = None):
 # ---------------------------------------------------------------------------
 
 
-def random_head_detector(device):
+def random_head_detector(device, quantized: bool = True):
     """The shipped int8 detector with random output convs (weights N(0,
     0.01), seed 17), quantized on the calibration frame: every logit and
-    box depends on its own image's pixels. Built once."""
+    box depends on its own image's pixels (``quantized=False``: the float
+    detector it was quantized from). Built once."""
     import torch
 
     from playground3d_tpu_torch.models.quant import quantize_detector
@@ -2027,8 +2028,9 @@ def random_head_detector(device):
         with torch.no_grad():
             for conv in (det.heads.cls_out, det.heads.reg_out):
                 conv.w.copy_(torch.randn(conv.w.shape, generator=gen) * 0.01)
+        _CACHE["random_head_float"] = det
         _CACHE["random_head"] = quantize_detector(det, calib[None])
-    return _CACHE["random_head"]
+    return _CACHE["random_head" if quantized else "random_head_float"]
 
 
 def batched_detections(device, n: int = 4):
@@ -2148,9 +2150,18 @@ def camera_sources(frames: np.ndarray, t0: float = 1.6e9):
     return [camera(c) for c in range(frames.shape[1])]
 
 
-def mesh_track(det, crop, frames, device, mesh=None, variant=None, clip=None, watch: bool = False):
+def sync_all() -> None:
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def mesh_track(det, crop, frames, device, mesh=None, variant=None, clip=None, watch: bool = False,
+               yuv_hw=None):
     """One run of the 4-camera tracker through ``track_clips`` (camera-
-    sharded over ``mesh`` when one is given) on ``clip`` (an earlier run's,
+    sharded over ``mesh`` when one is given; ``frames`` YUV420 bytes of
+    ``yuv_hw`` when it is given) on ``clip`` (an earlier run's,
     with its graphs) or on a new clip step of ``variant``; every count set
     to 0 just before and read just after. With ``watch``, under PyTorch's
     sync-debug mode: any synchronizing call inside fails. -> (tracker, its
@@ -2175,18 +2186,16 @@ def mesh_track(det, crop, frames, device, mesh=None, variant=None, clip=None, wa
     for fn in counters.values():
         fn.launches = 0
     syncs0 = HostSyncs.count
-    for d in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(d)
+    sync_all()
     t0 = time.time()
     torch.cuda.set_sync_debug_mode("warn" if watch else 0)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            trk.track_clips(camera_sources(frames), clip_len=T_CLIP, mesh=mesh)
+            trk.track_clips(camera_sources(frames), clip_len=T_CLIP, mesh=mesh, yuv_hw=yuv_hw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    for d in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(d)
+    sync_all()
     wall = time.time() - t0
     syncing = [f"{w.filename}:{w.lineno}" for w in caught if "synchronizing CUDA operation" in str(w.message)]
     if syncing:
@@ -2310,6 +2319,45 @@ def mesh_clips(device, refs: dict) -> None:
             pass
     log("mesh: camera-frames/s side by side, one call (host clock; the replays alone): "
         + ", ".join(f"{k} {v[0]:.1f} ({v[1]:.1f})" for k, v in fps.items()) + "; unroll with a mesh raises ValueError")
+    mesh_yuv(det, crop_q, device, meshes)
+
+
+def mesh_yuv(det, crop, device, meshes: dict) -> None:
+    """YUV420 bytes in (one 24-frame clip of the 4 cameras): the unsharded
+    clip, then the camera-sharded clip over each mesh, where each shard
+    converts its own cameras on its card (``yuv420_s2d.cu``); rows equal
+    the unsharded clip's, one host read a clip."""
+    from playground3d_tpu_torch.pipeline import multi_cam as PMC
+
+    n_cams = len(MESH_CAMERAS)
+    yuv = np.random.default_rng(7).integers(0, 256, (T_CLIP, n_cams, H * W * 3 // 2), dtype=np.uint8)
+    convert, converted = PMC.yuv420_flat_to_s2d, []  # (device, cameras) of each conversion
+    PMC.yuv420_flat_to_s2d = lambda ft, hw: converted.append((str(ft.device), ft.shape[1])) or convert(ft, hw)
+    try:
+        _, clip, _, _, _ = mesh_track(det, crop, yuv, device, yuv_hw=(H, W))  # captures
+        converted.clear()
+        ref, _, ref_fps, syncs, ref_launches = mesh_track(det, crop, yuv, device, clip=clip, watch=True,
+                                                          yuv_hw=(H, W))
+        if syncs != 1 or ref_launches["yuv420_flat_to_s2d"] != 1 or converted != [(str(device), n_cams)]:
+            fail(f"mesh (YUV420): the unsharded clip read the card {syncs} times, converted {converted}, "
+                 f"launches {ref_launches}")
+        log(f"mesh (unsharded, YUV420 bytes): {ref_fps:.1f} camera-frames/s (host clock, one clip); track rows "
+            f"{sum(len(r[2]) for r in ref.rows)}; conversions {converted}; launches {ref_launches}")
+        for label, mesh in meshes.items():
+            tag = f"{label}, YUV420 bytes"
+            _, clip, _, _, _ = mesh_track(det, crop, yuv, device, mesh, yuv_hw=(H, W))
+            converted.clear()
+            trk, _, f, syncs, launches = mesh_track(det, crop, yuv, device, mesh, clip=clip, watch=True,
+                                                    yuv_hw=(H, W))
+            worst, kfx = rows_diff(f"mesh ({tag}) against the unsharded YUV clip", trk, ref)
+            want = [(str(d), n_cams // mesh.size) for d in mesh.devices]
+            if syncs != 1 or launches["yuv420_flat_to_s2d"] != mesh.size or converted != want:
+                fail(f"mesh ({tag}): {syncs} host reads, conversions {converted} (want {want}), launches {launches}")
+            log(f"mesh ({tag}): {f:.1f} camera-frames/s (unsharded {ref_fps:.1f}, same call); each shard converts "
+                f"its cameras on its card: {converted}; rows equal the unsharded clip's (states7 within {worst:.3g}, "
+                f"kf.x within {kfx:.3g}); one host read; launches {launches}")
+    finally:
+        PMC.yuv420_flat_to_s2d = convert
 
 
 DP_RANK = """
@@ -2512,6 +2560,244 @@ def phase_mesh(device, refs: dict) -> None:
     mesh_clips(device, refs)
     mesh_train(device)
     log(f"mesh: phase took {time.time() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# spatial partitioning: one frame's width over the mesh
+# ---------------------------------------------------------------------------
+
+SPATIAL_F32_TOL = 1e-4  # tests/test_torch_spatial.py's bound: the largest error over the largest output
+
+
+def rel_errors(got, want) -> "tuple[float, float]":
+    """The worst output of a forward against its reference: (largest
+    |error| over the largest |output|, ||error|| over ||output||)."""
+    mx = nm = 0.0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        mx = max(mx, float((g - w).abs().max() / w.abs().max()))
+        nm = max(nm, float((g - w).norm() / w.norm()))
+    return mx, nm
+
+
+def forward_ms(fn, device, iters: int = 5) -> float:
+    """Median ms of ``fn()`` between CUDA events on ``device``'s current
+    stream, every card synchronized before each call, after a warm-up (the
+    outputs are joined on ``device``, which waits for every card's work)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        sync_all()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record(torch.cuda.current_stream(device))
+        fn()
+        e.record(torch.cuda.current_stream(device))
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def float32_exact(fn):
+    """``fn()`` with TF32 off in cuDNN and matmuls."""
+    import torch
+
+    was = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def swapped_halos(fn):
+    """``fn()`` with the left and right halo columns of every window that
+    has both, of equal width, swapped (the canary)."""
+    from playground3d_tpu_torch.parallel import spatial as PS
+
+    window = PS._window
+
+    def broken(src, d, line, i, lo, hi, fill=None):
+        w = window(src, d, line, i, lo, hi, fill)
+        if isinstance(src, PS.Slabs):
+            left, right = i * src.width - lo, hi - (i + 1) * src.width
+            if left == right > 0:
+                a, b = w.narrow(d, 0, left).clone(), w.narrow(d, w.shape[d] - right, right).clone()
+                w.narrow(d, 0, left).copy_(b)
+                w.narrow(d, w.shape[d] - right, right).copy_(a)
+        return w
+
+    PS._window = broken
+    try:
+        return fn()
+    finally:
+        PS._window = window
+
+
+def halo_windows(fn) -> "tuple[int, int, float]":
+    """One ``fn()`` with its windows recorded: (bytes and pieces the
+    windows took from other slabs, ms of the windows alone, replayed one
+    after another by the host's clock with every card synchronized)."""
+    from playground3d_tpu_torch.parallel import spatial as PS
+
+    window, calls = PS._window, []
+    PS._window = lambda *a: calls.append(a) or window(*a)
+    PS.HALO.update(bytes=0, copies=0)
+    try:
+        fn()
+    finally:
+        PS._window = window
+    took = dict(PS.HALO)
+    sync_all()
+    t0 = time.perf_counter()
+    for a in calls:
+        window(*a)
+    sync_all()
+    return took["bytes"], took["copies"], (time.perf_counter() - t0) * 1e3
+
+
+def spatial_meshes():
+    """(label, mesh, camera x space) of the spatial phase: every visible
+    card as 1, 2 or 4 shards, cuda:0 listed 2 and 4 times, and a 2 x 2
+    camera x space mesh (on four cards where there are four)."""
+    import torch
+
+    from playground3d_tpu_torch.parallel import mesh as PM
+
+    n_cards = torch.cuda.device_count()
+    n_vis = max(k for k in (1, 2, 4) if k <= n_cards)
+    four = [f"cuda:{i}" for i in range(4)] if n_cards >= 4 else ["cuda:0"] * 4
+    return [(f"{n_vis} of the {n_cards} visible card(s)", PM.make_mesh(n_vis), False),
+            ("cuda:0 listed twice", PM.make_mesh(devices=["cuda:0"] * 2), False),
+            ("cuda:0 listed 4 times", PM.make_mesh(devices=["cuda:0"] * 4), False),
+            (f"2 cameras x 2 on {four}", PM.make_mesh2(2, 2, devices=four), True)]
+
+
+def spatial_small_reference(device) -> None:
+    """The CPU test's case on the card (``tests/test_torch_spatial.py``):
+    a depth-18 s2d detector with random output convs, a [1, 34, 64, 48]
+    uint8 frame (seed 2) over cuda:0 listed 8 times and over every visible
+    card, float32 with TF32 off, within that test's bound."""
+    import torch
+
+    from playground3d_tpu_torch.models.retinanet import forward_raw, retinanet_init
+    from playground3d_tpu_torch.parallel import mesh as PM
+
+    gen = torch.Generator().manual_seed(0)
+    det = retinanet_init(gen, depth=18, stem="s2d", device=device)
+    with torch.no_grad():
+        for conv in (det.heads.cls_out, det.heads.reg_out):
+            conv.w.copy_(torch.randn(conv.w.shape, generator=gen) * 0.01)
+    x = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (1, 34, 64, 48), dtype=np.uint8)).to(device)
+    ref = float32_exact(lambda: forward_raw(det, x, dtype=torch.float32))
+    for label, mesh in (("cuda:0 listed 8 times", PM.make_mesh(devices=["cuda:0"] * 8)),
+                        (f"the {torch.cuda.device_count()} visible card(s)", PM.make_mesh())):
+        err = rel_errors(float32_exact(lambda: PM.spatial_forward(mesh, dtype=torch.float32)(det, x)), ref)[0]
+        if err > SPATIAL_F32_TOL:
+            fail(f"spatial (the CPU test's case, {label}): {err} of the largest output, bound {SPATIAL_F32_TOL}")
+        log(f"spatial (the CPU test's case, {label}): depth 18, [1, 34, 64, 48], float32: {err:.3g} of the "
+            f"largest output from the unsharded forward (bound {SPATIAL_F32_TOL})")
+
+
+def phase_spatial(device) -> None:
+    """Spatial partitioning (``parallel/mesh.py::spatial_forward``,
+    ``camera_spatial_forward``): the CPU test's case on the card, then one
+    1080p s2d uint8 frame [1, 270, 480, 48] through the shipped ResNet-50
+    detector (FPN and heads 256 wide) with random output convs (seed 17),
+    float and int8, over each of :func:`spatial_meshes`. Each run is held
+    against the unsharded forward on the lead: float32 (TF32 off) within
+    twice the unsharded float32 forward's own distance from float64
+    (largest error over the largest output, as the CPU test measures);
+    bf16 and int8 within twice the unsharded bf16 forward's distance from
+    float32 (relative norm); both measured here. Swapped halos must miss
+    both. Prints ms a frame (CUDA events on the lead around the whole
+    forward) beside the unsharded forward's, the halo bytes and the
+    windows' ms, and ``qconv`` launches per card."""
+    import collections
+
+    import torch
+
+    from playground3d_tpu_torch.models import quant
+    from playground3d_tpu_torch.models.retinanet import forward_raw
+    from playground3d_tpu_torch.parallel import mesh as PM
+
+    t_phase = time.time()
+    spatial_small_reference(device)
+    det_q, det_f = random_head_detector(device), random_head_detector(device, quantized=False)
+    raw = np.random.default_rng(11).integers(0, 256, (2, H, W, 3), dtype=np.uint8)
+    frames = torch.as_tensor(pack_frames(raw)).to(device)  # [2, 270, 480, 48]
+    kinds = {"float32": (det_f, dict(dtype=torch.float32)), "bf16": (det_f, {}), "int8": (det_q, dict(compact=True))}
+
+    def run(kind, fn):
+        return float32_exact(fn) if kind == "float32" else fn()
+
+    refs, unsharded_ms = {}, {}
+    for n in (1, 2):
+        x = frames[:n]
+        refs[n] = {k: run(k, lambda: forward_raw(m, x, **kw)) for k, (m, kw) in kinds.items()}
+        for k in ("bf16", "int8"):
+            m, kw = kinds[k]
+            unsharded_ms[n, k] = forward_ms(lambda: forward_raw(m, x, **kw), device)
+    bf_own = max(rel_errors(refs[n]["bf16"], refs[n]["float32"])[1] for n in refs)
+    f32_own = max(rel_errors(refs[n]["float32"], forward_raw(det_f, frames[:n], dtype=torch.float64))[0]
+                  for n in refs)
+    tol, f32_tol = 2 * bf_own, 2 * f32_own
+    log(f"spatial: unsharded on {device}: bf16 {unsharded_ms[1, 'bf16']:.3f} ms, int8 {unsharded_ms[1, 'int8']:.3f} ms "
+        f"a 1080p s2d frame (eager, CUDA events, median of 5); the float32 forward's distance from float64 "
+        f"{f32_own:.4g} of the largest output: the float32 bound is {f32_tol:.4g}; the bf16 forward's from "
+        f"float32 {bf_own:.4g} (relative norm): the bf16 and int8 bound is {tol:.4g}")
+
+    counter = kernel_counters()["qconv"]
+    qconv, per_card = quant.qconv, collections.Counter()
+    for label, mesh, cams in spatial_meshes():
+        n = 2 if cams else 1
+        x = frames[:n]
+        build = PM.camera_spatial_forward if cams else PM.spatial_forward
+        errs, ms = {}, {}
+        for k, (m, kw) in kinds.items():
+            fwd = build(mesh, **kw)
+            got = run(k, lambda: fwd(m, x))
+            if tuple(g.shape for g in got) != tuple(r.shape for r in refs[n][k]) or \
+                    not all(torch.isfinite(g.float()).all() for g in got):
+                fail(f"spatial ({label}, {k}): outputs {[tuple(g.shape) for g in got]} not finite or not the "
+                     f"unsharded forward's shapes")
+            errs[k] = rel_errors(got, refs[n][k])
+            bad = errs[k][0] > f32_tol if k == "float32" else errs[k][1] > tol
+            if bad:
+                fail(f"spatial ({label}, {k}): {errs[k]} from the unsharded forward (float32 bound "
+                     f"{f32_tol:.4g} of the largest output, else {tol:.4g} relative norm)")
+            if k != "float32":
+                ms[k] = forward_ms(lambda: fwd(m, x), device)
+        fwd = build(mesh, compact=True)
+        counter.launches = 0
+        per_card.clear()
+        quant.qconv = lambda xq, *a, **kw: per_card.update([str(xq.device)]) or qconv(xq, *a, **kw)
+        try:
+            fwd(det_q, x)
+        finally:
+            quant.qconv = qconv
+        launches = counter.launches
+        if launches < 1 or launches != sum(per_card.values()):
+            fail(f"spatial ({label}): qconv launched {launches} times ({dict(per_card)} by card)")
+        halo = {k: halo_windows(lambda: build(mesh, **kinds[k][1])(kinds[k][0], x)) for k in ("bf16", "int8")}
+        log(f"spatial ({label}): {mesh.size} shards on {[str(d) for d in mesh.devices]}, {n} frame(s): "
+            f"ms a frame bf16 {ms['bf16'] / n:.3f} (unsharded {unsharded_ms[n, 'bf16'] / n:.3f}), int8 "
+            f"{ms['int8'] / n:.3f} (unsharded {unsharded_ms[n, 'int8'] / n:.3f}), same call; against the unsharded "
+            f"forward: float32 {errs['float32'][0]:.3g} of the largest output (bound {f32_tol:.3g}), bf16 "
+            f"{errs['bf16'][1]:.4g} and int8 {errs['int8'][1]:.4g} relative norm (bound {tol:.4g}); halos bf16 "
+            f"{halo['bf16'][0]:,} bytes in {halo['bf16'][1]} pieces, the windows alone {halo['bf16'][2]:.3f} ms; "
+            f"int8 {halo['int8'][0]:,} bytes in {halo['int8'][1]} pieces, {halo['int8'][2]:.3f} ms (host clock); "
+            f"qconv {launches} launches a forward, by card {dict(per_card)}")
+        if mesh.size == 4 and not cams:
+            f32 = rel_errors(float32_exact(lambda: swapped_halos(lambda: PM.spatial_forward(
+                mesh, dtype=torch.float32)(det_f, x))), refs[1]["float32"])
+            bf = rel_errors(swapped_halos(lambda: PM.spatial_forward(mesh)(det_f, x)), refs[1]["bf16"])
+            if f32[0] <= f32_tol or bf[1] <= tol:
+                fail(f"spatial ({label}): swapped halos pass the bounds: float32 {f32}, bf16 {bf}")
+            log(f"spatial ({label}): the canary, halos swapped: float32 {f32[0]:.3g} of the largest output, bf16 "
+                f"{bf[1]:.4g} relative norm: both miss their bounds")
+    log(f"spatial: phase took {time.time() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4200,6 +4486,7 @@ def main() -> None:
     phase_variants(device, refs)
     phase_mesh(device, refs)
     del refs
+    phase_spatial(device)
     phase_single(device)
     phase_session(device)
     launches.update(phase_train(device))

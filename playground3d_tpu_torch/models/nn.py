@@ -20,6 +20,12 @@ Two details keep the numerics of ``jax.lax.conv_general_dilated``:
 :func:`save_params` and :func:`load_params` read and write the JAX package's
 checkpoint format: a flat ``.npz`` keyed by the ``/``-joined paths of the
 parameter tree, list indices as path components, ``None`` leaves skipped.
+
+``Conv.forward``, ``FrozenBN.forward``, :func:`max_pool`,
+:func:`upsample2x_nearest` and :func:`crop_add` take part in PyTorch's
+``__torch_function__`` protocol: an activation split over devices
+(``parallel/spatial.py::Slabs``) runs them slab by slab, with the halo
+exchange, through the same network code.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function, has_torch_function_unary
 
 
 def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
@@ -64,9 +71,14 @@ class Conv(nn.Module):
         for name in ("wq", "ws", "xs"):
             self.register_buffer(name, None)
 
-    def forward(self, x: torch.Tensor, stride: int = 1, dtype=torch.bfloat16) -> torch.Tensor:
-        ph = same_pads(x.shape[2], self.k, stride)
-        pw = same_pads(x.shape[3], self.k, stride)
+    def forward(self, x: torch.Tensor, stride: int = 1, dtype=torch.bfloat16, pads=None) -> torch.Tensor:
+        """``pads`` ((top, bottom), (left, right)) replaces the ``"SAME"``
+        pads of ``x``'s own extent: a slab of a wider frame that carries its
+        halo takes those of the frame (``parallel/spatial.py``)."""
+        if has_torch_function_unary(x):
+            return handle_torch_function(Conv.forward, (x,), self, x, stride, dtype, pads)
+        ph, pw = pads if pads is not None else (same_pads(x.shape[2], self.k, stride),
+                                                 same_pads(x.shape[3], self.k, stride))
         x = x.to(dtype)
         w = self.w.to(dtype)
         # PyTorch's CPU bf16 convolution leaves the weight gradient's padding
@@ -102,28 +114,36 @@ class FrozenBN(nn.Module):
         self.register_buffer("var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if has_torch_function_unary(x):
+            return handle_torch_function(FrozenBN.forward, (x,), self, x)
         inv = torch.rsqrt(self.var + self.eps) * self.scale
         a = inv.to(x.dtype)[None, :, None, None]
         b = (self.offset - self.mean * inv).to(x.dtype)[None, :, None, None]
         return x * a + b
 
 
-def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
-    """``"SAME"`` max pooling: -inf padding, XLA's split of the pad."""
-    ph = same_pads(x.shape[2], k, stride)
-    pw = same_pads(x.shape[3], k, stride)
+def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2, pads=None) -> torch.Tensor:
+    """``"SAME"`` max pooling: -inf padding, XLA's split of the pad;
+    ``pads`` as in :meth:`Conv.forward`."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(max_pool, (x,), x, k, stride, pads)
+    ph, pw = pads if pads is not None else (same_pads(x.shape[2], k, stride), same_pads(x.shape[3], k, stride))
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
     return F.max_pool2d(x, k, stride)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample (reference FPN, model.py:65)."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(upsample2x_nearest, (x,), x)
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
 def crop_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Add after cropping both to the common spatial size (the reference's
     shape-mismatch fix, model.py:92-97)."""
+    if has_torch_function((a, b)):
+        return handle_torch_function(crop_add, (a, b), a, b)
     h = min(a.shape[2], b.shape[2])
     w = min(a.shape[3], b.shape[3])
     return a[:, :, :h, :w] + b[:, :, :h, :w]

@@ -46,6 +46,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function
 
 from playground3d_tpu_torch.models.fpn import FPN
 from playground3d_tpu_torch.models.heads import N_REG_OUTPUTS, Heads
@@ -160,13 +161,19 @@ def _folded(conv: Conv, bn: Optional[FrozenBN], s_in: torch.Tensor):
     return scale, offset
 
 
-def _qconv_nchw(conv, bn, xq, s_in, stride, relu, emit_xs, res=None, res_xs=None) -> torch.Tensor:
+def _qconv_nchw(conv, bn, xq, s_in, stride, relu, emit_xs, res=None, res_xs=None, pads=None) -> torch.Tensor:
     """The int8 conv on an NCHW view (channels-last memory, as every
-    activation of the networks) -> NCHW view; ``res`` is an NCHW view too."""
+    activation of the networks) -> NCHW view; ``res`` is an NCHW view too.
+    ``pads`` as in ``Conv.forward``; an int8 activation split over devices
+    (``parallel/spatial.py::Slabs``) runs it slab by slab, its halo
+    exchanged as int8."""
+    if has_torch_function((xq, res)):
+        return handle_torch_function(_qconv_nchw, (xq, res), conv, bn, xq, s_in, stride, relu, emit_xs, res,
+                                     res_xs, pads)
     scale, offset = _folded(conv, bn, s_in)
     if res is not None:
         res = res.permute(0, 2, 3, 1)
-    y = qconv(xq.permute(0, 2, 3, 1), conv.wq, scale, offset, stride, relu, emit_xs, res, res_xs)
+    y = qconv(xq.permute(0, 2, 3, 1), conv.wq, scale, offset, stride, relu, emit_xs, res, res_xs, pads)
     return y.permute(0, 3, 1, 2)
 
 

@@ -104,11 +104,16 @@ def forward_raw(
     compact: bool = False,
     min_level: int = 3,
     score_path: bool = False,
+    constrain=None,
 ):
     """NHWC images -> head outputs (see :meth:`Heads.forward`); uint8
     inputs are normalized first; heads run on pyramid levels >= min_level.
     A model that ``models/quant.py`` has quantized takes its int8 paths: the
-    chained backbone, int8 FPN convs, and the chained heads when ``compact``."""
+    chained backbone, int8 FPN convs, and the chained heads when ``compact``.
+    ``constrain`` is applied to each pyramid level before the heads
+    (``parallel/mesh.py::spatial_constrainer``: a level split over devices
+    stays split while its extent divides the axis and is gathered onto the
+    lead device otherwise)."""
     images = normalize_on_device(images)
     if quant.is_quantized(model.backbone):
         c3, c4, c5 = quant.resnet_apply_int8_chained(model.backbone, images)
@@ -121,6 +126,8 @@ def forward_raw(
     feats = model.fpn(c3, c4, c5, dtype, conv=conv)
     if min_level > 3:
         feats = feats[min_level - 3:]
+    if constrain is not None:
+        feats = [constrain(f) for f in feats]
     if compact and heads_q:
         return quant.head_apply_int8_chained(model.heads, feats, score_path=score_path)
     return model.heads(feats, dtype=dtype, apply_sigmoid=apply_sigmoid, compact=compact,

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from playground3d_tpu_torch.models.nn import same_pads
 from playground3d_tpu_torch.ops.cuda_build import KernelLibrary, count_launch
 
-__all__ = ["LIB", "LaunchPlan", "check_args", "conv_int32_plain", "epilogue_plain", "launch_plan",
+__all__ = ["LIB", "LaunchPlan", "check_args", "conv_int32_plain", "epilogue_plain", "explicit_pads", "launch_plan",
            "modelled_us", "qconv", "qconv_cuda", "qconv_plain", "split_range"]
 
 # The kernel's layout constants (csrc/qconv.cu holds the same values).
@@ -78,16 +78,18 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIB = KernelLibrary("qconv", _bind)
 
 
-def out_extent(n: int, stride: int) -> int:
-    return -(-n // stride)
+def explicit_pads(H: int, W: int, k: int, stride: int, pads=None):
+    """((top, bottom), (left, right)): ``pads`` as given, or the ``"SAME"``
+    pads of H and W. A slab of a wider frame that already carries its halo
+    is given the frame's (``parallel/spatial.py``)."""
+    return pads if pads is not None else (same_pads(H, k, stride), same_pads(W, k, stride))
 
 
-def conv_int32_plain(x: torch.Tensor, wq: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv_int32_plain(x: torch.Tensor, wq: torch.Tensor, stride: int = 1, pads=None) -> torch.Tensor:
     """The exact accumulator: x int8 [N,H,W,Cin], wq int8 [Cout,k,k,Cin] ->
-    int32 [N,Ho,Wo,Cout]."""
+    int32 [N,Ho,Wo,Cout]; ``pads`` see :func:`explicit_pads`."""
     k = wq.shape[1]
-    ph = same_pads(x.shape[1], k, stride)
-    pw = same_pads(x.shape[2], k, stride)
+    ph, pw = explicit_pads(x.shape[1], x.shape[2], k, stride, pads)
     kind = torch.int32 if x.device.type == "cpu" else torch.float64
     xi = F.pad(x.permute(0, 3, 1, 2).to(kind), (pw[0], pw[1], ph[0], ph[1]))
     acc = F.conv2d(xi, wq.permute(0, 3, 1, 2).to(kind), stride=stride)
@@ -114,9 +116,9 @@ def epilogue_plain(acc: torch.Tensor, scale: torch.Tensor, offset: Optional[torc
 
 
 def qconv_plain(x, wq, scale, offset=None, stride: int = 1, relu: bool = False, emit_xs=None,
-                res=None, res_xs=None):
+                res=None, res_xs=None, pads=None):
     """The plain version of :func:`qconv` (see the module docstring)."""
-    return epilogue_plain(conv_int32_plain(x, wq, stride), scale, offset, relu, emit_xs, res, res_xs)
+    return epilogue_plain(conv_int32_plain(x, wq, stride, pads), scale, offset, relu, emit_xs, res, res_xs)
 
 
 class LaunchPlan(NamedTuple):
@@ -153,8 +155,10 @@ def modelled_us(steps: int, tiles: int, splits: int, m: int, tiles_n: int, tile_
 
 
 @functools.lru_cache(maxsize=4096)
-def launch_plan(N: int, H: int, W: int, Cin: int, Cout: int, k: int, stride: int) -> LaunchPlan:
-    """What the host decides for one call, from shapes alone. Raises
+def launch_plan(N: int, H: int, W: int, Cin: int, Cout: int, k: int, stride: int, pads=None) -> LaunchPlan:
+    """What the host decides for one call, from shapes alone (``pads`` see
+    :func:`explicit_pads`; the kernel reads zeros past the bottom and right
+    edges, so only the top and left pads are passed). Raises
     ValueError for what the kernel does not take. Cached: a network
     launches the same few dozen shapes every frame.
 
@@ -170,7 +174,10 @@ def launch_plan(N: int, H: int, W: int, Cin: int, Cout: int, k: int, stride: int
         raise ValueError(f"qconv: input channels must be a positive multiple of 16, got {Cin}")
     if min(N, H, W, Cout) < 1:
         raise ValueError(f"qconv: empty problem N={N} H={H} W={W} Cout={Cout}")
-    ho, wo = out_extent(H, stride), out_extent(W, stride)
+    (pt, pb), (pl, pr) = explicit_pads(H, W, k, stride, pads)
+    ho, wo = (H + pt + pb - k) // stride + 1, (W + pl + pr - k) // stride + 1
+    if min(ho, wo) < 1:
+        raise ValueError(f"qconv: pads {pads} leave no output of {H}x{W}")
     m = N * ho * wo
     if N * H * W * Cin >= 2**31 or m * Cout >= 2**31:
         raise ValueError("qconv: input or output exceed 2^31 elements")
@@ -188,11 +195,10 @@ def launch_plan(N: int, H: int, W: int, Cin: int, Cout: int, k: int, stride: int
     workspace = -(-tiles // 64) * 64 + tiles * TILE_M * tile_n if splits > 1 else 0
     # the operand stages, or the epilogue's int32 tile and residual tile where larger; + 1,024 to align
     smem = max(STAGES * (TILE_M + tile_n) * TILE_K, TILE_M * (tile_n + PITCH_PAD) * 4 + TILE_M * tile_n * 2) + 1024
-    return LaunchPlan(ho, wo, same_pads(H, k, stride)[0], same_pads(W, k, stride)[0], tiles_m, tiles_n, tile_n,
-                      steps, splits, smem, workspace)
+    return LaunchPlan(ho, wo, pt, pl, tiles_m, tiles_n, tile_n, steps, splits, smem, workspace)
 
 
-def check_args(x, wq, scale, offset, stride, emit_xs, res=None, res_xs=None) -> None:
+def check_args(x, wq, scale, offset, stride, emit_xs, res=None, res_xs=None, pads=None) -> None:
     """Raise ValueError on anything the kernel does not take: x int8
     [N,H,W,Cin], wq int8 [Cout,k,k,Cin], scale (and offset) float32 [Cout],
     emit_xs a float32 scalar tensor, res int8 (with res_xs, a float32
@@ -211,7 +217,7 @@ def check_args(x, wq, scale, offset, stride, emit_xs, res=None, res_xs=None) -> 
     for name, t in (("emit_xs", emit_xs), ("res_xs", res_xs)):
         if t is not None and (t.dtype != torch.float32 or t.numel() != 1):
             raise ValueError(f"qconv: {name} must be one float32, got {t.dtype} {tuple(t.shape)}")
-    plan = launch_plan(x.shape[0], x.shape[1], x.shape[2], x.shape[3], cout, wq.shape[1], stride)
+    plan = launch_plan(x.shape[0], x.shape[1], x.shape[2], x.shape[3], cout, wq.shape[1], stride, pads)
     if res is not None:
         want = (x.shape[0], plan.ho, plan.wo, cout)
         if res.dtype not in (torch.int8, torch.bfloat16) or tuple(res.shape) != want:
@@ -247,17 +253,17 @@ def _workspace(device: torch.device, ints: int) -> torch.Tensor:
 
 
 def qconv_cuda(x, wq, scale, offset=None, stride: int = 1, relu: bool = False, emit_xs=None,
-               res=None, res_xs=None, store: Optional[int] = None) -> torch.Tensor:
+               res=None, res_xs=None, store: Optional[int] = None, pads=None) -> torch.Tensor:
     """Launch the kernel on the current stream -> [N,Ho,Wo,Cout] bfloat16, or
     int8 when ``emit_xs`` is given. ``store=ACC`` returns the raw int32
     accumulators instead (for holding them against the plain version).
     ``qconv_cuda.launches`` counts the launches."""
     if x.device.type != "cuda":
         raise ValueError(f"qconv: the CUDA kernel takes CUDA tensors, got {x.device}")
-    check_args(x, wq, scale, offset, stride, emit_xs, res, res_xs)
+    check_args(x, wq, scale, offset, stride, emit_xs, res, res_xs, pads)
     N, H, W, Cin = x.shape
     cout, k = wq.shape[0], wq.shape[1]
-    plan = launch_plan(N, H, W, Cin, cout, k, stride)
+    plan = launch_plan(N, H, W, Cin, cout, k, stride, pads)
     if store is None:
         store = BF16 if emit_xs is None else INT8
     if store == ACC and res is not None:
@@ -287,13 +293,13 @@ qconv_cuda.launches = 0
 
 
 def qconv(x, wq, scale, offset=None, stride: int = 1, relu: bool = False, emit_xs=None,
-          res=None, res_xs=None) -> torch.Tensor:
+          res=None, res_xs=None, pads=None) -> torch.Tensor:
     """The int8 convolution with its fused epilogue (see the module
     docstring): the CUDA kernel for tensors on the card, the plain version
-    for tensors on the CPU."""
+    for tensors on the CPU. ``pads`` see :func:`explicit_pads`."""
     if x.device.type == "cuda":
         return qconv_cuda(x.contiguous(), wq, scale, offset, stride, relu, emit_xs,
-                          None if res is None else res.contiguous(), res_xs)
+                          None if res is None else res.contiguous(), res_xs, pads=pads)
     if x.device.type == "cpu":
-        return qconv_plain(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs)
+        return qconv_plain(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs, pads)
     raise ValueError(f"qconv: no implementation for device {x.device}")

@@ -1,12 +1,13 @@
-"""Device mesh and batch sharding (port of the device and batch half of
+"""Device mesh, batch sharding and spatial partitioning (port of
 ``playground3d_tpu/parallel/mesh.py``).
 
-The JAX package's parallelism is a 1-D mesh on a ``data`` axis: training
+The JAX package's parallelism is a mesh with a ``data`` axis: training
 splits the batch over it with parameters replicated, and the multi-camera
 clip splits its camera axis over it. Here a :class:`Mesh` is an ordered
-tuple of ``torch.device`` s named by that axis, and a sharded tensor is a
-tuple of per-device tensors, one chunk of the sharded dimension each, in
-mesh order:
+tuple of ``torch.device`` s named by that axis (and, from
+:func:`make_mesh2`, a second axis, ``space``), and a batch-sharded tensor
+is a tuple of per-device tensors, one chunk of the sharded dimension each,
+in mesh order:
 
 * the camera-sharded clip (``pipeline/multi_cam.py``) is driven by one host
   thread: each shard's device runs the detector over its cameras, and only
@@ -17,6 +18,17 @@ mesh order:
   rank takes its slice of the global batch and the gradients are averaged
   by one all-reduce.
 
+* spatial partitioning (:func:`spatial_forward`, :func:`camera_spatial_forward`)
+  splits one frame's width (else its height) over an axis, so that several
+  devices share one frame's detector forward: :func:`shard_spatial` places
+  the frame as ``parallel/spatial.py``'s :class:`~playground3d_tpu_torch.
+  parallel.spatial.Slabs`, the network code runs on them with the halo
+  exchanges that XLA inserts in the JAX package, and the outputs come back
+  whole on the lead device. On a :func:`make_mesh2` mesh each camera group
+  (one index of the batch axis) runs on its own line of the space axis; a
+  level that does not divide the axis lies whole on that line's first
+  device (JAX replicates it over the whole mesh: the values are the same).
+
 A mesh may list a device more than once (``["cpu"] * 8``, or one card
 twice): that plays the part of the JAX tests' virtual CPU devices, and is how
 the CPU tests and a one-card run reach the sharded code.
@@ -26,24 +38,47 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from playground3d_tpu_torch.parallel import spatial
+from playground3d_tpu_torch.parallel.spatial import Line, Slabs
+
 DATA_AXIS = "data"
+SPACE_AXIS = "space"
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """An ordered tuple of devices on one named axis."""
+    """An ordered tuple of devices on one named axis, or, with
+    ``space_axis``, on two: ``devices`` row-major over (``axis``,
+    ``space_axis``), ``n_space`` to a row."""
 
     devices: Tuple[torch.device, ...]
     axis: str = DATA_AXIS
+    space_axis: Optional[str] = None
+    n_space: int = 1
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as JAX's ``Mesh.shape``."""
+        if self.space_axis is None:
+            return {self.axis: self.size}
+        return {self.axis: self.size // self.n_space, self.space_axis: self.n_space}
+
+    def lines(self, axis: str) -> List[List[int]]:
+        """The positions in ``devices`` of each line along ``axis`` (one a
+        index of the other axis, in order)."""
+        if axis not in self.shape:
+            raise KeyError(f"mesh axes are {tuple(self.shape)}, not {axis!r}")
+        rows = [list(range(r * self.n_space, (r + 1) * self.n_space)) for r in range(self.size // self.n_space)]
+        return rows if axis == self.space_axis else [list(c) for c in zip(*rows)]
 
     @property
     def lead(self) -> torch.device:
@@ -82,6 +117,149 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = DATA_AXIS, devices=No
     if not devices:
         raise ValueError("make_mesh: no devices")
     return Mesh(tuple(devices), axis)
+
+
+def make_mesh2(n_batch: int, n_space: int, batch_axis: str = DATA_AXIS, space_axis: str = SPACE_AXIS,
+               devices=None) -> Mesh:
+    """A 2-axis (batch or camera x space) mesh over the first ``n_batch *
+    n_space`` of ``devices`` (default: every visible card), row-major: a row
+    of ``n_space`` devices shares each camera group's frames, split on the
+    width."""
+    if batch_axis == space_axis:
+        raise ValueError(f"make_mesh2: both axes are named {batch_axis!r}")
+    flat = make_mesh(n_batch * n_space, devices=devices).devices
+    return Mesh(flat, batch_axis, space_axis, n_space)
+
+
+class P(tuple):
+    """A partition spec, read as JAX's ``PartitionSpec``: the mesh axis (or
+    None) each leading dimension is split on; ``P()`` is replicated."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def spatial_sharding(mesh: Mesh, shape, axis: str = DATA_AXIS, batch_axis: Optional[str] = None) -> P:
+    """The split of a frame batch ``[N, H', W', C]`` that shares one frame
+    over ``axis``: the width where the size of the named axis divides it,
+    else the height, else none. With ``batch_axis``, the leading dimension
+    keeps that axis where it divides it."""
+    n = mesh.shape[axis]
+    b = batch_axis if (batch_axis is not None and len(shape) >= 1 and shape[0] % mesh.shape[batch_axis] == 0) else None
+    if len(shape) >= 3 and shape[2] % n == 0:
+        return P(b, None, axis)
+    if len(shape) >= 2 and shape[1] % n == 0:
+        return P(b, axis)
+    return P(b) if b is not None else P()
+
+
+def shard_spatial(mesh: Mesh, frames, axis: str = DATA_AXIS, batch_axis: Optional[str] = None):
+    """``frames`` placed by :func:`spatial_sharding`: ``Slabs`` over the
+    devices of ``axis`` (the frames whole on its first device where neither
+    dimension divides it). With ``batch_axis``, a tuple of those, one a
+    camera group along ``batch_axis`` on its own line of ``axis`` (one group
+    on the first line where the axis does not divide the cameras)."""
+    frames = torch.as_tensor(frames)
+    spec = spatial_sharding(mesh, frames.shape, axis, batch_axis)
+    dim = spec.index(axis) if axis in spec else None
+    lines = [Line([mesh.devices[i] for i in pos]) for pos in mesh.lines(axis)]
+    if batch_axis is None:
+        return spatial.place(frames, dim, lines[0])
+    groups = frames.chunk(len(lines)) if spec[0] == batch_axis else (frames,)
+    return tuple(spatial.place(f, dim, line) for f, line in zip(groups, lines))
+
+
+def spatial_constrainer(mesh: Mesh, axis: str = DATA_AXIS, batch_axis: Optional[str] = None):
+    """The callable ``forward_raw(constrain=)`` applies to each pyramid
+    level: a level split over the ``axis`` keeps its slabs while they are
+    one a device of the axis and its extent divides the axis (the slab
+    operations of ``parallel/spatial.py`` keep that rule), and is gathered
+    onto its line's first device otherwise; a level that is not split is
+    already whole there. ``batch_axis``: each camera group runs on its own
+    line (see the module docstring)."""
+    n = mesh.shape[axis]
+
+    def constrain(x):
+        if isinstance(x, Slabs) and (x.size % n or len(x.parts) != n):
+            return x.join()
+        return x
+
+    return constrain
+
+
+def _line_forward(mesh: Mesh, model, placed: Sequence, lines: List[List[int]], constrain, depth, stem,
+                  fw_kwargs, cache: dict):
+    """``forward_raw`` of each placed camera group on its line, joined in
+    group order on the mesh's lead device."""
+    from playground3d_tpu_torch.models.retinanet import forward_raw
+
+    if isinstance(model, (tuple, list)):
+        copies = tuple(model)
+    else:  # the copies of the last model given, kept
+        if cache.get("model") is not model:
+            cache.clear()
+            cache["model"], cache["copies"] = model, replicate(mesh, model)
+        copies = cache["copies"]
+    if len(copies) != mesh.size:
+        raise ValueError(f"{len(copies)} model copies for a {mesh.size}-device mesh")
+    if (depth is not None and copies[0].depth != depth) or (stem is not None and copies[0].stem != stem):
+        raise ValueError(f"the model is depth {copies[0].depth} / {copies[0].stem}, the forward was built for "
+                         f"{depth} / {stem}")
+    outs = []
+    for x, pos in zip(placed, lines):
+        models = tuple(copies[i] for i in pos)
+        key = tuple(map(id, models))
+        line = cache.get(key)
+        if line is None:
+            line = cache[key] = Line([mesh.devices[i] for i in pos], models)
+        x = x.bind(line) if isinstance(x, Slabs) else x.to(line.devices[0])
+        outs.append(forward_raw(models[0], x, constrain=constrain, **fw_kwargs))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat([o[j].to(mesh.lead) for o in outs]) for j in range(len(outs[0])))
+
+
+def spatial_forward(mesh: Mesh, depth: Optional[int] = None, stem: Optional[str] = None, axis: str = DATA_AXIS,
+                    **fw_kwargs):
+    """``fwd(model, frame) -> forward_raw(model, frame, **fw_kwargs)`` with
+    the frame's width (else height) split over ``axis`` and every level
+    constrained by :func:`spatial_constrainer`. ``model`` is the detector
+    (copied to each device by :func:`replicate`) or its copies, one a mesh
+    device; ``frame`` is placed by :func:`shard_spatial` or whole (then
+    placed here; an s2d detector takes it packed, ``[N, H/4, W/4, 48]``).
+    The outputs are whole tensors on the lead device, anchors in
+    ``forward_raw``'s order. ``depth`` and ``stem``, where given, must be
+    the model's."""
+    constrain = spatial_constrainer(mesh, axis)
+    cache: dict = {}
+
+    def fwd(model, frame):
+        placed = frame if isinstance(frame, Slabs) else shard_spatial(mesh, frame, axis)
+        return _line_forward(mesh, model, (placed,), mesh.lines(axis)[:1], constrain, depth, stem, fw_kwargs,
+                             cache)
+
+    return fwd
+
+
+def camera_spatial_forward(mesh: Mesh, depth: Optional[int] = None, stem: Optional[str] = None,
+                           batch_axis: str = DATA_AXIS, space_axis: str = SPACE_AXIS, **fw_kwargs):
+    """:func:`spatial_forward` on a :func:`make_mesh2` mesh: the cameras
+    split over ``batch_axis``, each camera group's frames split on the
+    width over its line of ``space_axis``; ``frames`` whole or placed by
+    ``shard_spatial(mesh, frames, space_axis, batch_axis)``. The outputs
+    are whole on the lead device, cameras in order."""
+    constrain = spatial_constrainer(mesh, space_axis, batch_axis)
+    cache: dict = {}
+
+    def fwd(model, frames):
+        placed = frames if isinstance(frames, tuple) else shard_spatial(mesh, frames, space_axis, batch_axis)
+        return _line_forward(mesh, model, placed, mesh.lines(space_axis)[:len(placed)], constrain, depth, stem,
+                             fw_kwargs, cache)
+
+    return fwd
 
 
 def batch_sharding(mesh: Mesh, n: int) -> List[slice]:

@@ -8,7 +8,9 @@ Tolerances: the two readers decode the same bitstream through the same
 libav and are equal; decoded frames are within the lossy codec's error of
 what was encoded (mean below 4 levels); burned timestamps survive the codec
 (within 5e-3 s); the two feed layouts agree within 2 levels (the fixed-point
-host tail against the float converter, on a lossy decode).
+host tail against the float converter, on a lossy decode). The JAX reader's
+library is loaded through ``test_torch_jax_native``, which builds it whole
+where another test process left it missing or half written.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from playground3d_tpu_torch.data import avdecode as A
 from playground3d_tpu_torch.data.synthetic import SyntheticScene
 from playground3d_tpu_torch.data.toy_cameras import toy_camera_chain
 from playground3d_tpu_torch.data.video import SyntheticVideoSource, VideoFrameSource, pack_s2d, rgb_from_planes
+from test_torch_jax_native import jax_library, jax_video
 
 torch.set_num_threads(1)
 
@@ -69,6 +72,7 @@ def test_encode_decode_roundtrip(tmp_path, codec):
     was encoded, and equal to the JAX package's reader."""
     from playground3d_tpu.data import avdecode as JA
 
+    jax_library(JA)
     if not A.has_encoder(codec):
         pytest.skip(f"no {codec} encoder in this libav build")
     frames = _gradient_frames()
@@ -107,7 +111,7 @@ def test_planar_yuv420_path(tmp_path):
 
 
 def test_video_frame_source_h264_with_timestamps(tmp_path):
-    from playground3d_tpu.data.video import VideoFrameSource as JaxSource
+    JaxSource = jax_video().VideoFrameSource
 
     path = _mp4(str(tmp_path / "clip.mp4"), _rendered(8, 128, 512), crf=12)
     src = VideoFrameSource(path, resize_hw=(64, 256))

@@ -24,8 +24,18 @@ from playground3d_tpu_torch.data import native as N
 from playground3d_tpu_torch.data.timestamps import encode_timestamp, parse_frame_timestamp
 from playground3d_tpu_torch.data.video import VideoFrameSource, _Y4MReader, pack_s2d, rgb_from_planes, write_y4m
 from playground3d_tpu_torch.utils.constants import IMAGENET_MEAN, IMAGENET_STD
+from test_torch_jax_native import jax_video
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_host_libraries():
+    """The JAX package's host libraries whole and ``data.video``'s decoder
+    probed with them (``test_torch_jax_native``): JAX's host tail follows
+    them, and test processes that build them at once leave its loaders on
+    their fallback paths."""
+    jax_video()
 
 
 @pytest.fixture(scope="module")

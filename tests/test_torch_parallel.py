@@ -1,7 +1,7 @@
 """The device mesh in the PyTorch port (``parallel/mesh.py``) against the
 JAX package on its virtual 8-device CPU mesh (``tests/conftest.py``): the
 camera-sharded forward and detection, the camera-sharded multi-camera clip
-(``make_mc_clip_step(mesh=)``, ``track_clips(mesh=)``) and data-parallel
+(``make_mc_clip_step(mesh=)``, ``track_clips(mesh=)``, also fed YUV420 bytes) and data-parallel
 training over two gloo ranks. The port's meshes list the CPU once a shard
 (``make_mesh(devices=["cpu"] * n)``), as the JAX tests' virtual devices do.
 
@@ -472,6 +472,48 @@ def test_track_clips_on_a_mesh_gives_the_unsharded_rows(clip_nets, toy_cameras3)
     np.testing.assert_array_equal(np.asarray(plain.ts_bias_log), np.asarray(mesh.ts_bias_log))
     with pytest.raises(ValueError, match="lead"):
         plain._clip_fn(PM.Mesh((torch.device("meta"), torch.device("cpu"))))
+
+
+def test_track_clips_yuv_on_a_mesh_gives_the_unsharded_rows(clip_nets, monkeypatch):
+    """Flat YUV420 bytes through ``track_clips(yuv_hw=, mesh=)`` over a
+    2-shard mesh (each shard's cameras converted and packed on its device;
+    random output convs): every row and logged bias equals the unsharded
+    YUV clip's, over a full clip and a partial one."""
+    from playground3d_tpu.data.toy_cameras import make_projector, register_toy_camera
+    from playground3d_tpu.geometry.homography import CameraRegistry
+
+    ranges = {"p1c1": (350, 560), "p1c2": (480, 700)}
+    reg = CameraRegistry()
+    for i, (name, rx) in enumerate(ranges.items()):
+        register_toy_camera(reg, name, make_projector(cam_x=rx[0] - 30.0), rx, seed=7 + i)
+    centers = np.array([[(a + b) / 2.0, 60.0] for a, b in ranges.values()], np.float32)
+    buf = np.random.default_rng(35).integers(0, 256, (5, 2, 64 * 96 * 3 // 2), dtype=np.uint8)
+
+    def camera(ci):
+        return ((buf[f, ci], 1.6e9 + f / 30.0) for f in range(buf.shape[0]))
+
+    convert, converted = PMC.yuv420_flat_to_s2d, []  # the cameras of each conversion
+    monkeypatch.setattr(PMC, "yuv420_flat_to_s2d", lambda ft, hw: converted.append(ft.shape[1]) or convert(ft, hw))
+    rows = {}
+    for name, mesh in (("plain", None), ("mesh", _cpu_mesh(2))):
+        converted.clear()
+        trk = PMC.MultiCameraTracker(
+            reg, list(ranges), cfg=TrackerConfig(**KNOBS), det_model=clip_nets["det_random"],
+            crop_model=clip_nets["crop"], centers=centers, stem="s2d", crop_stem="s2d", device="cpu",
+        )
+        trk.state = _seed(trk.state, list(ranges.values()), torch.as_tensor)
+        stats = trk.track_clips([camera(ci) for ci in range(2)], clip_len=3, mesh=mesh, yuv_hw=(64, 96))
+        assert stats["frames"] == 5
+        assert converted == ([2, 2] if mesh is None else [1, 1, 1, 1])  # two clips; a shard converts its own
+        rows[name] = trk
+    plain, mesh = rows["plain"], rows["mesh"]
+    assert len(plain.rows) == len(mesh.rows) == 5 and sum(len(r[2]) for r in plain.rows) > 0
+    for rp, rm in zip(plain.rows, mesh.rows):
+        assert rp[0] == rm[0] and rp[1] == rm[1]
+        np.testing.assert_array_equal(rp[2], rm[2])
+        np.testing.assert_allclose(rp[3], rm[3], rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(rp[4], rm[4])
+    np.testing.assert_array_equal(np.asarray(plain.ts_bias_log), np.asarray(mesh.ts_bias_log))
 
 
 # ---------------------------------------------------------------------------

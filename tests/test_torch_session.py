@@ -38,8 +38,19 @@ from playground3d_tpu_torch.geometry.homography import CameraRegistry
 from playground3d_tpu_torch.models.nn import save_params
 from playground3d_tpu_torch.models.retinanet import retinanet_init
 from playground3d_tpu_torch.pipeline.camera_bank import bank_from_registry, ignore_hits
+from test_torch_jax_native import jax_video
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_host_libraries():
+    """The JAX package's host libraries whole and ``data.video``'s decoder
+    probed with them (``test_torch_jax_native``): JAX's session reader follows
+    them, and test processes that build them at once leave its loaders on
+    their fallback paths."""
+    jax_video()
+
 
 T0 = 1.6e9
 

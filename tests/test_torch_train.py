@@ -41,8 +41,19 @@ from playground3d_tpu_torch.data import dataset as PD
 from playground3d_tpu_torch.geometry import homography as PH
 from playground3d_tpu_torch.models.bridge import flatten_tree, params_from_jax_numpy
 from playground3d_tpu_torch.train import trainer as PT
+from test_torch_jax_native import jax_video
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_host_libraries():
+    """The JAX package's host libraries whole and ``data.video``'s decoder
+    probed with them (``test_torch_jax_native``): JAX's ``resize_frame``
+    (the scale-aspect augmentation) follows the decoder, and test processes
+    that build the libraries at once leave the decoder probe on cv2."""
+    jax_video()
+
 
 _init = jax.jit(jax_init, static_argnames=("depth", "stem", "tower_depth", "shared_tower", "feature_size"))
 HW = (64, 128)

@@ -15,7 +15,10 @@ equal to the port's own numpy composition. Timestamps are equal to JAX's and
 within 5e-3 s of the burned ones.
 
 The JAX package's ``data.video`` builds ``native/`` when it is imported, so
-it is imported inside the tests, never while this module is collected.
+it is imported inside the tests, never while this module is collected, and
+through ``test_torch_jax_native.jax_video``, which makes the JAX package's
+host libraries whole first (test processes that build them at once leave the
+JAX loaders on their fallback paths).
 """
 
 import os
@@ -29,6 +32,7 @@ from playground3d_tpu_torch.data import native as N
 from playground3d_tpu_torch.data import video as V
 from playground3d_tpu_torch.data.synthetic import SyntheticScene
 from playground3d_tpu_torch.data.toy_cameras import toy_camera_chain
+from test_torch_jax_native import jax_video
 
 torch.set_num_threads(1)
 
@@ -36,9 +40,7 @@ T0 = 1.6e9
 
 
 def _jv():
-    import playground3d_tpu.data.video as jv
-
-    return jv
+    return jax_video()
 
 
 def _rendered(n, h, w, seed=3):
