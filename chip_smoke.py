@@ -138,6 +138,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -943,14 +944,17 @@ _CACHE: dict = {}
 def record_qconv_shapes(device):
     """Every call of the int8 conv kernel in one detect frame and one crop
     frame of the main path, by shape: {branch: {(N,H,W,Cin,Cout,k,stride,
-    relu, has_offset, int8_out, residual): launches}}, residual "none",
-    "int8" or "bf16" (a block's tail fused into its last conv)."""
+    pads, relu, has_offset, int8_out, residual): launches}}, ``pads`` the
+    call's ((top, bottom), (left, right)) as given or the ``"SAME"`` pads
+    of its input, residual "none", "int8" or "bf16" (a block's tail fused
+    into its last conv)."""
     import collections
 
     import torch
 
     from playground3d_tpu_torch.models import quant
     from playground3d_tpu_torch.models.retinanet import detect_multiframe, localize
+    from playground3d_tpu_torch.ops import qconv as QC
 
     if "qconv_shapes" in _CACHE:
         return _CACHE["qconv_shapes"]
@@ -961,7 +965,9 @@ def record_qconv_shapes(device):
 
     def recording(x, wq, scale, offset=None, stride=1, relu=False, emit_xs=None, res=None, res_xs=None, pads=None):
         kind = "none" if res is None else ("int8" if res.dtype == torch.int8 else "bf16")
-        key = (*x.shape, wq.shape[0], wq.shape[1], stride, bool(relu), offset is not None, emit_xs is not None, kind)
+        pads = QC.explicit_pads(x.shape[1], x.shape[2], wq.shape[1], stride, pads)
+        key = (*x.shape, wq.shape[0], wq.shape[1], stride, pads, bool(relu), offset is not None, emit_xs is not None,
+               kind)
         seen[branch[0]][key] += 1
         return real(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs, pads)
 
@@ -1023,7 +1029,6 @@ def kernels_qconv(device, flush, noop_ms):
     import torch
     import torch.nn.functional as F
 
-    from playground3d_tpu_torch.models.nn import same_pads
     from playground3d_tpu_torch.ops import qconv as QC
 
     gen = torch.Generator().manual_seed(8)
@@ -1089,17 +1094,17 @@ def kernels_qconv(device, flush, noop_ms):
     rows = []
     host_us = None
     for key in shapes:
-        N, Hh, Ww, cin, cout, k, stride, relu, has_off, int8_out, res_kind = key
+        N, Hh, Ww, cin, cout, k, stride, pads, relu, has_off, int8_out, res_kind = key
         x, wq, scale, offset = operands(N, Hh, Ww, cin, cout, k)
         off, emit = (offset if has_off else None), (xs if int8_out else None)
-        plan = QC.launch_plan(N, Hh, Ww, cin, cout, k, stride)
+        plan = QC.launch_plan(N, Hh, Ww, cin, cout, k, stride, pads)
         res, rxs = residual(res_kind, (N, plan.ho, plan.wo, cout))
 
         def run():
-            return QC.qconv_cuda(x, wq, scale, off, stride, relu, emit, res, rxs)
+            return QC.qconv_cuda(x, wq, scale, off, stride, relu, emit, res, rxs, pads=pads)
 
         kernel_ms = gpu_ms(run, iters=20)
-        ref = QC.conv_int32_plain(x, wq, stride)
+        ref = QC.conv_int32_plain(x, wq, stride, pads)
         got = run()
         if not torch.equal(got, QC.epilogue_plain(ref, scale, off, relu, emit, res, rxs)):
             fail(f"qconv main-path shape {key}: output differs from the plain version")
@@ -1110,10 +1115,10 @@ def kernels_qconv(device, flush, noop_ms):
                 run()
             host_us = (time.perf_counter() - t0) / 200 * 1e6
             torch.cuda.synchronize()
-        plain_ms = gpu_ms(lambda: QC.qconv_plain(x, wq, scale, off, stride, relu, emit, res, rxs), iters=3)
+        plain_ms = gpu_ms(lambda: QC.qconv_plain(x, wq, scale, off, stride, relu, emit, res, rxs, pads), iters=3)
         # the library call: the bf16 channels-last convolution of the same
         # shape (what the float path runs there), operands already cast and padded
-        ph, pw = same_pads(Hh, k, stride), same_pads(Ww, k, stride)
+        ph, pw = pads
         xb = F.pad(x.permute(0, 3, 1, 2).to(torch.bfloat16), (pw[0], pw[1], ph[0], ph[1])).contiguous(
             memory_format=torch.channels_last)
         wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -1121,7 +1126,7 @@ def kernels_qconv(device, flush, noop_ms):
         # a second yardstick where one exists: at k = 1, stride 1 the int32
         # accumulators are one int8 matrix product (epilogue excluded)
         int_mm_ms = None
-        if k == 1 and stride == 1 and N * Hh * Ww > 16:
+        if k == 1 and stride == 1 and N * Hh * Ww > 16 and pads == ((0, 0), (0, 0)):
             xm, wm = x.view(N * Hh * Ww, cin), wq.view(cout, cin).t()
             if not torch.equal(torch._int_mm(xm, wm).view(ref.shape), ref):
                 fail(f"qconv main-path shape {key}: torch._int_mm differs from the plain accumulators")
@@ -1132,7 +1137,7 @@ def kernels_qconv(device, flush, noop_ms):
                   + (res.numel() * res.element_size() if res is not None else 0))
         t_ops, t_bytes = 2 * macs / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         rows.append(dict(
-            N=N, H=Hh, W=Ww, Cin=cin, Cout=cout, k=k, stride=stride, relu=relu, offset=has_off,
+            N=N, H=Hh, W=Ww, Cin=cin, Cout=cout, k=k, stride=stride, pads=pads, relu=relu, offset=has_off,
             out="int8" if int8_out else "bf16", residual=res_kind, per_detect=seen["detect"][key],
             per_crop=seen["crop"][key], tile_n=plan.tile_n, splits=plan.splits, macs=macs, ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms, int_mm_ms=int_mm_ms,
@@ -2635,15 +2640,16 @@ def swapped_halos(fn):
         PS._window = window
 
 
-def halo_windows(fn) -> "tuple[int, int, float]":
+def halo_windows(fn) -> "tuple[int, int, int, float]":
     """One ``fn()`` with its windows recorded: (bytes and pieces the
-    windows took from other slabs, ms of the windows alone, replayed one
-    after another by the host's clock with every card synchronized)."""
+    windows took from other slabs, joins of slabs onto the lead, ms of the
+    windows alone, replayed one after another by the host's clock with
+    every card synchronized)."""
     from playground3d_tpu_torch.parallel import spatial as PS
 
     window, calls = PS._window, []
     PS._window = lambda *a: calls.append(a) or window(*a)
-    PS.HALO.update(bytes=0, copies=0)
+    PS.HALO.update(bytes=0, copies=0, joins=0)
     try:
         fn()
     finally:
@@ -2654,7 +2660,121 @@ def halo_windows(fn) -> "tuple[int, int, float]":
     for a in calls:
         window(*a)
     sync_all()
-    return took["bytes"], took["copies"], (time.perf_counter() - t0) * 1e3
+    return took["bytes"], took["copies"], took["joins"], (time.perf_counter() - t0) * 1e3
+
+
+def window_ops(fn) -> list:
+    """``fn()`` with each conv, int8 conv and max pool that runs on slabs
+    run a second time whole, on its joined input on the lead (the unsharded
+    op on the same values): one row a split op, in order: (kind, output
+    shape, dtype, values that differ, excess). A halo fault shows in the op
+    it is made in, before the network carries it on.
+
+    An int8 conv and a max pool must equal the unsharded op: excess is the
+    largest difference. A float conv may add in another order (cuDNN picks
+    its algorithm by shape): excess is the largest difference over the
+    bound that rounding allows any two orders, element by element,
+    ``2 g S + u (|a| + |b| + |a - bias| + |b - bias|)``: ``S`` the conv of
+    the input's and the weight's magnitudes (in float64, the operands cast
+    as the conv casts them), ``g = K e / (1 - K e)`` for the K = Cin k k
+    products summed in float32 (``e`` = 2^-24), ``u`` the unit roundoff of
+    the output (bfloat16 2^-8, float32 2^-24) for the conv's and the bias
+    add's roundings, ``a`` and ``b`` the two outputs. It must be at most 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from playground3d_tpu_torch.models.nn import Conv, same_pads
+    from playground3d_tpu_torch.parallel import spatial as PS
+
+    split, conv_op, rows, convs = PS._split_conv, PS._SPLIT[Conv.forward], [], []
+
+    def noted(conv, x, stride=1, dtype=torch.bfloat16, pads=None):
+        convs.append((conv, dtype))
+        try:
+            return conv_op(conv, x, stride, dtype, pads)
+        finally:
+            convs.pop()
+
+    def checked(x, k, stride, run, fill):
+        out = split(x, k, stride, run, fill)
+        if not isinstance(out, PS.Slabs):
+            return out
+        whole = x.join()
+        got, want = out.join().double(), run(0, whole, None, 0, out.size).double()
+        kind = "qconv" if x.dtype == torch.int8 else "pool" if fill else "conv"
+        excess = float((got - want).abs().max())
+        if kind == "conv":
+            conv, dtype = convs[-1]
+            ph, pw = same_pads(x.shape[2], k, stride), same_pads(x.shape[3], k, stride)
+            mag = F.pad(whole.to(dtype).double().abs(), (pw[0], pw[1], ph[0], ph[1]))
+            S = F.conv2d(mag, conv.w.to(dtype).double().abs(), stride=stride)
+            K, e = conv.w[0].numel(), 2.0 ** -24
+            u = {torch.bfloat16: 2.0 ** -8, torch.float32: e}[dtype]
+            b = 0 if conv.b is None else conv.b.to(dtype).double()[None, :, None, None]
+            bound = 2 * K * e / (1 - K * e) * S + u * (got.abs() + want.abs() + (got - b).abs() + (want - b).abs())
+            excess = float(((got - want).abs() / bound.clamp_min(1e-300)).max())
+        rows.append((f"{kind} {k}x{k}/{stride}", tuple(want.shape), out.dtype, int((got != want).sum()), excess))
+        return out
+
+    PS._split_conv, PS._SPLIT[Conv.forward] = checked, noted
+    try:
+        fn()
+    finally:
+        PS._split_conv, PS._SPLIT[Conv.forward] = split, conv_op
+    return rows
+
+
+def op_faults(rows) -> list:
+    """The window ops that miss their bound (see :func:`window_ops`)."""
+    return [(i, r) for i, r in enumerate(rows) if (r[4] > 1 if r[0].startswith("conv") else r[4] != 0)]
+
+
+def first_differing(rows) -> str:
+    """How many window ops differ from the unsharded op, the first, and
+    the float conv nearest its rounding bound."""
+    differs = [(i, r) for i, r in enumerate(rows) if r[3]]
+    if not differs:
+        return f"all {len(rows)} equal"
+
+    def say(i, r):
+        excess = f"{r[4]:.3g} of its rounding bound" if r[0].startswith("conv") else f"by up to {r[4]:.3g}"
+        return f"op {i + 1} ({r[0]} -> {list(r[1])} {str(r[2])[6:]}: {r[3]:,} of {int(np.prod(r[1])):,} values, {excess})"
+
+    floats = [(i, r) for i, r in enumerate(rows) if r[0].startswith("conv")]
+    worst = f", nearest its bound {say(*max(floats, key=lambda ir: ir[1][4]))}" if floats else ""
+    return f"{len(differs)} of {len(rows)} differ, the first {say(*differs[0])}{worst}"
+
+
+def spatial_levels(build, mesh, model, x, kw) -> list:
+    """The pyramid levels a sharded forward's heads ran on, in order (one
+    line's after another's): (came split, the level joined on the lead)."""
+    from playground3d_tpu_torch.parallel import mesh as PM
+    from playground3d_tpu_torch.parallel import spatial as PS
+
+    real, seen = PM.spatial_constrainer, []
+
+    def recording(*a, **k):
+        cons = real(*a, **k)
+        return lambda f: seen.append(f) or cons(f)
+
+    PM.spatial_constrainer = recording
+    try:
+        build(mesh, **kw)(model, x)
+    finally:
+        PM.spatial_constrainer = real
+    return [(isinstance(f, PS.Slabs), PS._joined(f)) for f in seen]
+
+
+def level_distances(levels, ref_levels) -> list:
+    """||level - unsharded level|| / ||unsharded level|| for each pyramid
+    level, the worst over the lines (each line holds one frame of the
+    unsharded batch)."""
+    n = len(ref_levels)
+    out = [0.0] * n
+    for j, (_, f) in enumerate(levels):
+        want = ref_levels[j % n][j // n:j // n + 1].double()
+        out[j % n] = max(out[j % n], float((f.to(want.device).double() - want).norm() / want.norm()))
+    return out
 
 
 def spatial_meshes():
@@ -2700,20 +2820,58 @@ def spatial_small_reference(device) -> None:
             f"largest output from the unsharded forward (bound {SPATIAL_F32_TOL})")
 
 
+def qconv_checked(per_card, shapes, differ):
+    """``quant.qconv`` that also runs the plain version on the same inputs
+    (the slab's window, its explicit pads) and notes each call by card and
+    by shape, and each shape whose output is not equal."""
+    import torch
+
+    from playground3d_tpu_torch.models import quant
+    from playground3d_tpu_torch.ops import qconv as QC
+
+    real = quant.qconv
+
+    def call(x, wq, scale, offset=None, stride=1, relu=False, emit_xs=None, res=None, res_xs=None, pads=None):
+        got = real(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs, pads)
+        key = (*x.shape, wq.shape[0], wq.shape[1], stride, QC.explicit_pads(x.shape[1], x.shape[2], wq.shape[1],
+                                                                             stride, pads))
+        per_card[str(x.device)] += 1
+        shapes[key] += 1
+        if not torch.equal(got, QC.qconv_plain(x, wq, scale, offset, stride, relu, emit_xs, res, res_xs, pads)):
+            differ.add(key)
+        return got
+
+    return real, call
+
+
 def phase_spatial(device) -> None:
     """Spatial partitioning (``parallel/mesh.py::spatial_forward``,
     ``camera_spatial_forward``): the CPU test's case on the card, then one
     1080p s2d uint8 frame [1, 270, 480, 48] through the shipped ResNet-50
     detector (FPN and heads 256 wide) with random output convs (seed 17),
     float and int8, over each of :func:`spatial_meshes`. Each run is held
-    against the unsharded forward on the lead: float32 (TF32 off) within
-    twice the unsharded float32 forward's own distance from float64
-    (largest error over the largest output, as the CPU test measures);
-    bf16 and int8 within twice the unsharded bf16 forward's distance from
-    float32 (relative norm); both measured here. Swapped halos must miss
-    both. Prints ms a frame (CUDA events on the lead around the whole
-    forward) beside the unsharded forward's, the halo bytes and the
-    windows' ms, and ``qconv`` launches per card."""
+    against the unsharded forward on the lead:
+
+    * each conv, int8 conv and max pool on slabs against the same op run
+      whole on its joined input (:func:`window_ops`, :func:`op_faults`):
+      bf16 and int8 forwards;
+    * each ``qconv.cu`` launch against ``qconv_plain`` on the same window
+      and pads: equal;
+    * the outputs: int8 equal; float32 (TF32 off) no farther from the
+      float64 forward than twice the unsharded float32 forward is (largest
+      error over the largest output, as the CPU test measures; the spread
+      of two float32 orders, the frame alone and in a batch of two, is
+      printed beside it); bf16 within twice the unsharded bf16 forward's
+      distance from float32 (relative norm); both measured here;
+    * the levels reach the heads split while their extent divides the
+      axis, and the slabs are joined onto the lead only where that rule
+      and the heads' anchors need it.
+
+    Swapped halos must fail the window ops of bf16 and int8 and the float32
+    and int8 outputs. Prints ms a frame (CUDA events on the lead around the
+    whole forward) beside the unsharded forward's, each level's distance
+    from the unsharded forward, the first window op that differs, the halo
+    bytes and the windows' ms, and ``qconv`` launches per card."""
     import collections
 
     import torch
@@ -2732,29 +2890,46 @@ def phase_spatial(device) -> None:
     def run(kind, fn):
         return float32_exact(fn) if kind == "float32" else fn()
 
-    refs, unsharded_ms = {}, {}
+    refs, ref_levels, unsharded_ms = {}, {}, {}
     for n in (1, 2):
         x = frames[:n]
-        refs[n] = {k: run(k, lambda: forward_raw(m, x, **kw)) for k, (m, kw) in kinds.items()}
+        for k, (m, kw) in kinds.items():
+            levels = []
+            refs.setdefault(n, {})[k] = run(k, lambda: forward_raw(m, x, constrain=lambda f: levels.append(f) or f,
+                                                                   **kw))
+            ref_levels.setdefault(n, {})[k] = levels
         for k in ("bf16", "int8"):
             m, kw = kinds[k]
             unsharded_ms[n, k] = forward_ms(lambda: forward_raw(m, x, **kw), device)
+    widths = [f.shape[3] for f in ref_levels[1]["bf16"]]
+    exact = {n: forward_raw(det_f, frames[:n], dtype=torch.float64) for n in refs}
+    f32_own = {n: rel_errors(refs[n]["float32"], exact[n])[0] for n in refs}
     bf_own = max(rel_errors(refs[n]["bf16"], refs[n]["float32"])[1] for n in refs)
-    f32_own = max(rel_errors(refs[n]["float32"], forward_raw(det_f, frames[:n], dtype=torch.float64))[0]
-                  for n in refs)
-    tol, f32_tol = 2 * bf_own, 2 * f32_own
+    f32_orders = rel_errors([o[:1] for o in refs[2]["float32"]], refs[1]["float32"])[0]
+    tol = 2 * bf_own
     log(f"spatial: unsharded on {device}: bf16 {unsharded_ms[1, 'bf16']:.3f} ms, int8 {unsharded_ms[1, 'int8']:.3f} ms "
-        f"a 1080p s2d frame (eager, CUDA events, median of 5); the float32 forward's distance from float64 "
-        f"{f32_own:.4g} of the largest output: the float32 bound is {f32_tol:.4g}; the bf16 forward's from "
-        f"float32 {bf_own:.4g} (relative norm): the bf16 and int8 bound is {tol:.4g}")
+        f"a 1080p s2d frame (eager, CUDA events, median of 5); levels {widths} columns wide; the float32 forward "
+        f"{f32_own[1]:.4g} (a batch of two {f32_own[2]:.4g}) of the largest output from float64: a sharded float32 "
+        f"forward may be twice that far; two float32 orders (the frame alone and in a batch of two) "
+        f"{f32_orders:.4g} apart; the bf16 forward's distance from float32 {bf_own:.4g} (relative norm): the bf16 "
+        f"bound is {tol:.4g}; int8 must equal")
+
+    def e2e_faults(k, errs, n, got):
+        if k == "float32":
+            return rel_errors(got, exact[n])[0] > 2 * f32_own[n]
+        return errs[1] > tol if k == "bf16" else errs[0] != 0
 
     counter = kernel_counters()["qconv"]
-    qconv, per_card = quant.qconv, collections.Counter()
+    per_card, shapes, differ = collections.Counter(), collections.Counter(), set()
     for label, mesh, cams in spatial_meshes():
         n = 2 if cams else 1
         x = frames[:n]
+        axis = PM.SPACE_AXIS if cams else PM.DATA_AXIS
+        slabs = mesh.shape[axis]
         build = PM.camera_spatial_forward if cams else PM.spatial_forward
-        errs, ms = {}, {}
+        errs, ms, dist, first = {}, {}, {}, {}
+        n_lines = len(mesh.lines(axis)[:n])
+        split = [all(w % slabs == 0 for w in widths[:i + 1]) for i in range(len(widths))]
         for k, (m, kw) in kinds.items():
             fwd = build(mesh, **kw)
             got = run(k, lambda: fwd(m, x))
@@ -2763,16 +2938,29 @@ def phase_spatial(device) -> None:
                 fail(f"spatial ({label}, {k}): outputs {[tuple(g.shape) for g in got]} not finite or not the "
                      f"unsharded forward's shapes")
             errs[k] = rel_errors(got, refs[n][k])
-            bad = errs[k][0] > f32_tol if k == "float32" else errs[k][1] > tol
-            if bad:
-                fail(f"spatial ({label}, {k}): {errs[k]} from the unsharded forward (float32 bound "
-                     f"{f32_tol:.4g} of the largest output, else {tol:.4g} relative norm)")
-            if k != "float32":
+            if k == "float32":
+                to_exact = rel_errors(got, exact[n])[0]
+            if e2e_faults(k, errs[k], n, got):
+                fail(f"spatial ({label}, {k}): {errs[k]} from the unsharded forward, {rel_errors(got, exact[n])} from "
+                     f"float64 (float32: at most {2 * f32_own[n]:.4g} of the largest output from float64; bf16 "
+                     f"{tol:.4g} relative norm from the unsharded; int8 equal)")
+            levels = run(k, lambda: spatial_levels(build, mesh, m, x, kw))
+            dist[k] = level_distances(levels, ref_levels[n][k])
+            if [s for s, _ in levels] != split * n_lines:
+                fail(f"spatial ({label}, {k}): levels {widths} reached the heads split {[s for s, _ in levels]}, the "
+                     f"rule says {split}")
+            ops = run(k, lambda: window_ops(lambda: fwd(m, x)))
+            first[k] = first_differing(ops)
+            if k != "float32":  # float32 is held by its outputs; its window ops are reported
+                faults = op_faults(ops)
+                if faults:
+                    fail(f"spatial ({label}, {k}): window ops miss their bound: {faults[:4]}")
                 ms[k] = forward_ms(lambda: fwd(m, x), device)
         fwd = build(mesh, compact=True)
         counter.launches = 0
         per_card.clear()
-        quant.qconv = lambda xq, *a, **kw: per_card.update([str(xq.device)]) or qconv(xq, *a, **kw)
+        shapes.clear()
+        qconv, quant.qconv = qconv_checked(per_card, shapes, differ)
         try:
             fwd(det_q, x)
         finally:
@@ -2780,23 +2968,45 @@ def phase_spatial(device) -> None:
         launches = counter.launches
         if launches < 1 or launches != sum(per_card.values()):
             fail(f"spatial ({label}): qconv launched {launches} times ({dict(per_card)} by card)")
+        if differ:
+            fail(f"spatial ({label}): qconv.cu differs from qconv_plain at {sorted(differ)}")
+        want_joins = n_lines * (2 * sum(split) + (not all(split))) if slabs > 1 else 0
         halo = {k: halo_windows(lambda: build(mesh, **kinds[k][1])(kinds[k][0], x)) for k in ("bf16", "int8")}
+        if any(h[2] != want_joins for h in halo.values()):
+            fail(f"spatial ({label}): slabs joined {halo['bf16'][2]} (bf16) and {halo['int8'][2]} (int8) times onto "
+                 f"the lead, the levels' rule and the heads' anchors need {want_joins}")
         log(f"spatial ({label}): {mesh.size} shards on {[str(d) for d in mesh.devices]}, {n} frame(s): "
             f"ms a frame bf16 {ms['bf16'] / n:.3f} (unsharded {unsharded_ms[n, 'bf16'] / n:.3f}), int8 "
             f"{ms['int8'] / n:.3f} (unsharded {unsharded_ms[n, 'int8'] / n:.3f}), same call; against the unsharded "
-            f"forward: float32 {errs['float32'][0]:.3g} of the largest output (bound {f32_tol:.3g}), bf16 "
-            f"{errs['bf16'][1]:.4g} and int8 {errs['int8'][1]:.4g} relative norm (bound {tol:.4g}); halos bf16 "
-            f"{halo['bf16'][0]:,} bytes in {halo['bf16'][1]} pieces, the windows alone {halo['bf16'][2]:.3f} ms; "
-            f"int8 {halo['int8'][0]:,} bytes in {halo['int8'][1]} pieces, {halo['int8'][2]:.3f} ms (host clock); "
-            f"qconv {launches} launches a forward, by card {dict(per_card)}")
+            f"forward: float32 {errs['float32'][0]:.3g} of the largest output ({to_exact:.4g} from float64, bound "
+            f"{2 * f32_own[n]:.4g}), bf16 "
+            f"{errs['bf16'][1]:.4g} relative norm (bound {tol:.4g}), int8 {errs['int8'][0]:.3g} (equal); halos bf16 "
+            f"{halo['bf16'][0]:,} bytes in {halo['bf16'][1]} pieces, the windows alone {halo['bf16'][3]:.3f} ms; "
+            f"int8 {halo['int8'][0]:,} bytes in {halo['int8'][1]} pieces, {halo['int8'][3]:.3f} ms (host clock); "
+            f"{want_joins} joins onto the lead; qconv {launches} launches a forward, by card {dict(per_card)}, "
+            f"{len(shapes)} shapes and pads, each equal to qconv_plain")
+        for k in kinds:
+            log(f"spatial ({label}, {k}): each level's distance from the unsharded level (relative norm) "
+                + ", ".join(f"P{3 + i} [{w}] {d:.3g}" for i, (w, d) in enumerate(zip(widths, dist[k])))
+                + f"; window ops against the unsharded op: {first[k]}")
         if mesh.size == 4 and not cams:
-            f32 = rel_errors(float32_exact(lambda: swapped_halos(lambda: PM.spatial_forward(
-                mesh, dtype=torch.float32)(det_f, x))), refs[1]["float32"])
-            bf = rel_errors(swapped_halos(lambda: PM.spatial_forward(mesh)(det_f, x)), refs[1]["bf16"])
-            if f32[0] <= f32_tol or bf[1] <= tol:
-                fail(f"spatial ({label}): swapped halos pass the bounds: float32 {f32}, bf16 {bf}")
-            log(f"spatial ({label}): the canary, halos swapped: float32 {f32[0]:.3g} of the largest output, bf16 "
-                f"{bf[1]:.4g} relative norm: both miss their bounds")
+            f32_got = float32_exact(lambda: swapped_halos(lambda: PM.spatial_forward(mesh, dtype=torch.float32)(
+                det_f, x)))
+            f32 = rel_errors(f32_got, exact[1])
+            canary = {}
+            for k in ("bf16", "int8"):
+                m, kw = kinds[k]
+                got = swapped_halos(lambda: PM.spatial_forward(mesh, **kw)(m, x))
+                ops = swapped_halos(lambda: window_ops(lambda: PM.spatial_forward(mesh, **kw)(m, x)))
+                canary[k] = rel_errors(got, refs[1][k]), len(op_faults(ops)), len(ops)
+            if not e2e_faults("float32", None, 1, f32_got) or not e2e_faults("int8", canary["int8"][0], 1, None) or \
+                    not all(c[1] for c in canary.values()):
+                fail(f"spatial ({label}): swapped halos pass the bounds: float32 {f32}, {canary}")
+            log(f"spatial ({label}): the canary, halos swapped: float32 {f32[0]:.3g} of the largest output from "
+                f"float64 (bound {2 * f32_own[1]:.4g}); bf16 {canary['bf16'][0][1]:.4g} relative norm (bound {tol:.4g}), "
+                f"{canary['bf16'][1]} of {canary['bf16'][2]} window ops miss theirs; int8 {canary['int8'][0][0]:.3g} "
+                f"of the largest output (must be 0), {canary['int8'][1]} of {canary['int8'][2]} window ops miss "
+                f"theirs")
     log(f"spatial: phase took {time.time() - t_phase:.1f} s")
 
 

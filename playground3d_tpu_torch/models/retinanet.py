@@ -111,9 +111,8 @@ def forward_raw(
     A model that ``models/quant.py`` has quantized takes its int8 paths: the
     chained backbone, int8 FPN convs, and the chained heads when ``compact``.
     ``constrain`` is applied to each pyramid level before the heads
-    (``parallel/mesh.py::spatial_constrainer``: a level split over devices
-    stays split while its extent divides the axis and is gathered onto the
-    lead device otherwise)."""
+    (``parallel/mesh.py::spatial_constrainer``, which finds each level
+    placed by JAX's rule already)."""
     images = normalize_on_device(images)
     if quant.is_quantized(model.backbone):
         c3, c4, c5 = quant.resnet_apply_int8_chained(model.backbone, images)

@@ -174,20 +174,22 @@ def shard_spatial(mesh: Mesh, frames, axis: str = DATA_AXIS, batch_axis: Optiona
 
 def spatial_constrainer(mesh: Mesh, axis: str = DATA_AXIS, batch_axis: Optional[str] = None):
     """The callable ``forward_raw(constrain=)`` applies to each pyramid
-    level: a level split over the ``axis`` keeps its slabs while they are
-    one a device of the axis and its extent divides the axis (the slab
-    operations of ``parallel/spatial.py`` keep that rule), and is gathered
-    onto its line's first device otherwise; a level that is not split is
-    already whole there. ``batch_axis``: each camera group runs on its own
-    line (see the module docstring)."""
-    n = mesh.shape[axis]
+    level. JAX's rule (a level stays split over ``axis`` while its extent
+    divides the axis, and is replicated otherwise) is kept where each level
+    is made: a conv or pool on slabs whose output extent does not divide
+    the axis gathers its input and runs whole on the line's first device
+    (``parallel/spatial.py::_split_conv``). So every level reaches the
+    heads placed by that rule, and the callable returns it as it is.
+    ``axis`` and ``batch_axis`` (JAX's signature) must name axes of the
+    mesh."""
+    for name in (axis,) if batch_axis is None else (axis, batch_axis):
+        if name not in mesh.shape:
+            raise KeyError(f"the mesh has no axis {name!r}: {mesh.shape}")
+    return _as_placed
 
-    def constrain(x):
-        if isinstance(x, Slabs) and (x.size % n or len(x.parts) != n):
-            return x.join()
-        return x
 
-    return constrain
+def _as_placed(level):
+    return level
 
 
 def _line_forward(mesh: Mesh, model, placed: Sequence, lines: List[List[int]], constrain, depth, stem,

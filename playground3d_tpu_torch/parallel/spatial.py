@@ -31,15 +31,22 @@ of the network code (``models/resnet.py``, ``fpn.py``, ``heads.py``,
   does not span the split dimension is broadcast);
   ``upsample2x_nearest`` doubles each slab; ``crop_add`` crops at the
   frame's right or bottom edge, which lies in the last slab;
-* any other function gathers its split arguments onto the lead and runs
-  there: the heads' reshape of each level into anchors is one, so anchors
-  keep the unsplit order, (H, W, anchor) in level order.
+* ``reshape``, the heads' reshape of each level into anchors, gathers its
+  split argument onto the lead and runs there, so anchors keep the unsplit
+  order, (H, W, anchor) in level order;
+* any other function raises ``TypeError``: it would gather the slabs and
+  run the rest of the forward whole on the lead, unseen.
+
+So JAX's placement rule for the pyramid levels (a level stays split while
+its extent divides the axis, and is replicated otherwise) is kept by the
+window ops themselves, in :func:`_split_conv` and :func:`_crop_add`.
 
 Each slab runs the modules and buffers of the model's copy on its device
 (:class:`Line`, from ``mesh.replicate``), found by the lead copy's identity;
 an operand that no copy holds (a constant made during the forward) is copied
 to the slab's device. A copy between cards waits for both cards' streams
-(``Tensor.to``). :data:`HALO` counts what the windows took from other slabs.
+(``Tensor.to``). :data:`HALO` counts what the windows took from other slabs
+and the joins of slabs onto the lead.
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ from torch.utils._pytree import tree_map
 from playground3d_tpu_torch.models import quant
 from playground3d_tpu_torch.models.nn import Conv, FrozenBN, crop_add, max_pool, same_pads, upsample2x_nearest
 
-HALO = {"bytes": 0, "copies": 0}  # slab pieces copied into other shards' windows; the caller resets it
+# slab pieces copied into other shards' windows, and slabs joined onto the lead; the caller resets it
+HALO = {"bytes": 0, "copies": 0, "joins": 0}
 
 
 class Line:
@@ -119,6 +127,7 @@ class Slabs:
         """The whole tensor on the lead."""
         if len(self.parts) == 1:
             return self.parts[0]
+        HALO["joins"] += 1
         lead = self.line.devices[0]
         return torch.cat([p.to(lead, non_blocking=True) for p in self.parts], self.sdim)
 
@@ -141,6 +150,9 @@ class Slabs:
             out = _per_slab(func, args, kwargs)
             if out is not None:
                 return out
+        if func not in _GATHER:
+            raise TypeError(f"{getattr(func, '__qualname__', func)} is no operation on slabs (parallel/spatial.py): "
+                            "it would gather them onto the lead and run the rest of the forward whole there")
         args, kwargs = tree_map(_joined, (args, kwargs))
         return func(*args, **kwargs)
 
@@ -166,6 +178,9 @@ _PER_SLAB = {torch.add, torch.sub, torch.mul, torch.div, torch.relu, torch.clamp
              torch.Tensor.add, torch.Tensor.sub, torch.Tensor.mul, torch.Tensor.div, torch.Tensor.relu,
              torch.Tensor.clamp, torch.Tensor.round, torch.Tensor.sigmoid, torch.Tensor.to,
              *(getattr(torch.Tensor, n) for n in _OPERATORS)}
+
+
+_GATHER = {torch.Tensor.reshape}  # the heads' reshape of each level into anchors
 
 
 def _joined(x):

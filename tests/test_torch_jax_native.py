@@ -20,6 +20,14 @@ change nothing in the JAX package:
 * :func:`jax_video` does so for both libraries and probes ``data.video``'s
   decoder again, as its import would have with the libraries whole.
 
+The lock orders the port's helpers only. The JAX package's own loaders,
+and the JAX tests that run them in other test processes
+(``tests/test_native.py``, ``tests/test_avdecode.py``), still run ``make``
+in place without it, so a link that writes the library in place while a
+helper renames a whole one over it can still leave a truncated file: the
+race is rarer, not gone. A helper whose load fails therefore builds and
+loads once more, and once more again after a short wait, before it raises.
+
 The tests below hold the helpers to that.
 """
 
@@ -29,11 +37,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 import numpy as np
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 _SOURCES = {"libframepipe.so": "framepipe.cc", "libavdecode.so": "avdecode.cc"}
+RETRY_WAIT_S = 2.0
 
 
 def _target_of(module) -> str:
@@ -62,7 +72,8 @@ def _fresh(path: str, source: str) -> bool:
 
 def jax_library(module) -> ctypes.CDLL:
     """``module``'s (``playground3d_tpu.data.native`` or ``.avdecode``)
-    library, loaded through its own loader; raises if it cannot be built."""
+    library, loaded through its own loader; raises if it does not load
+    after three builds, the last after a short wait."""
     if module._lib is not None:
         return module._lib
     target = _target_of(module)
@@ -70,14 +81,16 @@ def jax_library(module) -> ctypes.CDLL:
     source = os.path.join(NATIVE_DIR, _SOURCES[target])
     with open(os.path.join(NATIVE_DIR, "Makefile")) as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        for attempt in range(2):
+        for attempt in range(3):
+            if attempt == 2:
+                time.sleep(RETRY_WAIT_S)  # an in-place build of the JAX package's own may be under way
             if attempt or not _fresh(path, source):
                 build_whole(target)
             module._tried = False
             lib = module._load()
             if lib is not None:
                 return lib
-    raise AssertionError(f"{module.__name__}: {target} does not load after a whole build")
+    raise AssertionError(f"{module.__name__}: {target} does not load after three whole builds")
 
 
 def jax_video():
@@ -129,3 +142,40 @@ def test_video_decoder_is_probed_again():
     jv.DECODER = "lost-the-race"
     assert jax_video() is jv
     assert jv.DECODER == ("lav" if avdecode.available() else jv._probe_decoder())
+
+
+def test_a_load_that_fails_twice_is_tried_again_after_a_wait(monkeypatch):
+    """A load that fails after the first whole build (a JAX loader's
+    in-place build wrote over it) is built and loaded again, then once more
+    after the wait; three failures raise."""
+    import sys
+    import types
+
+    this = sys.modules[__name__]
+    builds, waits = [], []
+    monkeypatch.setattr(this, "build_whole", lambda target: builds.append(target))
+    monkeypatch.setattr(this, "_fresh", lambda path, source: False)
+    monkeypatch.setattr(time, "sleep", waits.append)
+
+    def loader(succeed_at):
+        tries = []
+        module = types.SimpleNamespace(__name__="fake", _LIB_PATH="native/libframepipe.so", _lib=None, _tried=True)
+
+        def load():
+            assert module._tried is False
+            tries.append(1)
+            return "lib" if len(tries) == succeed_at else None
+
+        module._load = load
+        return module
+
+    assert jax_library(loader(3)) == "lib"
+    assert builds == ["libframepipe.so"] * 3 and waits == [RETRY_WAIT_S]
+    builds.clear()
+    try:
+        jax_library(loader(4))
+    except AssertionError as e:
+        assert "three whole builds" in str(e)
+    else:
+        raise AssertionError("a library that never loads was returned")
+    assert len(builds) == 3

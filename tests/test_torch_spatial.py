@@ -179,15 +179,47 @@ def test_forward_raw_constrains_each_level_as_jax(nets, min_level):
     assert seen_p == [tuple(s) for s in seen_j] and len(seen_p) == 8 - min_level
 
 
-def test_constrainer_keeps_divisible_slabs_and_gathers_the_rest():
-    mesh = PM.make_mesh(devices=["cpu"] * 4)
-    cons = PM.spatial_constrainer(mesh)
-    x = torch.arange(2 * 3 * 5 * 8, dtype=torch.float32).reshape(2, 3, 5, 8)
-    four = PS.place(x, 3, PS.Line(mesh.devices))
-    assert cons(four) is four
-    two = PS.place(x, 3, PS.Line(mesh.devices[:2]))
-    assert torch.equal(cons(two), x)  # slabs that are not one a device of the axis: gathered
-    assert cons(x) is x
+def test_constrainer_keeps_divisible_slabs_and_gathers_the_rest(nets, monkeypatch):
+    """JAX's rule for the levels, kept by the slab ops: over 8 slabs of the
+    (1,34,64,48) frame, P3-P5 (32, 16 and 8 columns) reach the constrainer
+    split and P6 and P7 (4 and 2) whole, and the constrainer passes each on
+    as it is. The slabs are joined 7 times: P6's conv gathers C5 once, and
+    the heads' two reshapes into anchors gather each split level."""
+    _, model = nets["s2d"]
+    real, seen = PM.spatial_constrainer, []
+
+    def recording(*a):
+        cons = real(*a)
+        return lambda f: seen.append((f, cons(f))) or cons(f)
+
+    monkeypatch.setattr(PM, "spatial_constrainer", recording)
+    x = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (1, 34, 64, 48), dtype=np.uint8))
+    PS.HALO.update(joins=0)
+    PM.spatial_forward(PM.make_mesh(devices=["cpu"] * 8), dtype=torch.float32)(model, x)
+    assert [(type(f).__name__, f.shape[3]) for f, _ in seen] == [("Slabs", 32), ("Slabs", 16), ("Slabs", 8),
+                                                                ("Tensor", 4), ("Tensor", 2)]
+    assert all(out is f for f, out in seen)
+    assert PS.HALO["joins"] == 7
+    with pytest.raises(KeyError):
+        real(PM.make_mesh(devices=["cpu"] * 4), "space")
+
+
+@pytest.mark.parametrize("op", ["contiguous", "float", "F.relu", "torch.exp", "to_device", "mismatched_add"])
+def test_an_op_that_is_not_a_slab_op_raises(op):
+    """An op the slabs do not list would gather them onto the lead and run
+    the rest of the forward whole there: it raises instead."""
+    import torch.nn.functional as F
+
+    x = torch.arange(2 * 3 * 4 * 8, dtype=torch.float32).reshape(2, 3, 4, 8)
+    s = PS.place(x, 3, PS.Line(["cpu"] * 4))
+    calls = {"contiguous": lambda: s.contiguous(), "float": lambda: s.float(), "F.relu": lambda: F.relu(s),
+             "torch.exp": lambda: torch.exp(s), "to_device": lambda: s.to("cpu"),
+             "mismatched_add": lambda: s + PS.place(x, 3, PS.Line(["cpu"] * 2))}
+    PS.HALO.update(joins=0)
+    with pytest.raises(TypeError, match="no operation on slabs"):
+        calls[op]()
+    assert PS.HALO["joins"] == 0
+    assert torch.equal(s.reshape(2, -1), x.reshape(2, -1)) and PS.HALO["joins"] == 1  # the one op that gathers
 
 
 # ---------------------------------------------------------------------------
