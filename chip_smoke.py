@@ -1918,11 +1918,12 @@ def run_clips(label, det, crop, frames, device, n_warm: int, yuv_hw=None, detail
         f"(tolerance 1e-4)" + (f"; the eager run within {ediff[0]:.3g} / {ediff[1]:.3g} of the three-branch clip"
                                if reference is not None else "")
         + f"; births {births}, crop measurements {crop_measured:.0f}, live tracks at crop frames {live_at_crop}")
-    timers = {k: v for k, v in first["stats"].items() if k not in ("frames", "fps", "crop")}
+    timers = {k: v for k, v in first["stats"].items() if k not in ("frames", "fps", "detect", "crop")}
     log(f"{phase} ({label}): host time in the first graph run (wall {first['wall'] * 1e3:.1f} ms): "
         + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timers.items())
-        + " (stage: the producer thread filling pinned buffers and queueing the copies; detect: enqueueing "
-        "the clips; drain: waiting for and unpacking the reads)")
+        + " (the producer thread's source, stack: pulling and stacking the cameras' frames; stage: filling "
+        "pinned buffers and queueing the copies; put_wait: the queue full; the consumer's get_wait: the queue "
+        "empty; enqueue: enqueueing the clips; drain: reading back and unpacking, drain_wait its wait)")
     log(f"{phase} ({label}): host reads {first['syncs']} ({first['loops']}; the eager run {ref['syncs']}), none "
         f"inside a clip (sync-debug mode); device rounds {first['rounds']} "
         f"({first['rounds']['nms'] / n_frames:.2f} NMS and {first['rounds']['auction'] / n_frames:.2f} auction "

@@ -25,6 +25,7 @@ import torch
 from playground3d_tpu_torch.ops.cuda_build import credit, launches_recorded
 from playground3d_tpu_torch.pipeline.tracker_state import TrackState
 from playground3d_tpu_torch.track.kf import KFSlots
+from playground3d_tpu_torch.utils.profiling import Spans
 
 
 def state_leaves(state: TrackState) -> List[torch.Tensor]:
@@ -56,7 +57,9 @@ class StaticGraphs:
     capture that fails raises; nothing falls back to eager. The kernels'
     launch counters are Python integers, so each graph's launches are
     tallied at capture and credited once at every replay. On the CPU the
-    body runs eagerly over the same buffers."""
+    body runs eagerly over the same buffers. Each run is a span
+    ``replay.<name>`` of :attr:`spans`; while :class:`Spans` records, a
+    replay is also timed on the device by two events around it."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -65,14 +68,23 @@ class StaticGraphs:
         self.capture_s: Dict[str, Tuple[float, float]] = {}  # name -> host seconds (capture, instantiate)
         self.pool = None
         self.capture_stream = None  # torch.cuda.graph's default capture stream lies on the first card it met
+        self.spans = Spans()
 
     def run(self, name: str, body: Callable[[bool], None]) -> None:
         if not self.capture:
-            body(True)
+            with self.spans("replay." + name):
+                body(True)
             return
         with torch.cuda.device(self.device):  # a graph is captured and replayed on its own card's streams
             graph, tally = self.graphs.get(name) or self._capture(name, body)
-            graph.replay()
+            with self.spans("replay." + name) as span:
+                if span is None:
+                    graph.replay()
+                else:
+                    start, end = Spans.device_timer(span, self.device)
+                    start.record()
+                    graph.replay()
+                    end.record()
         credit(tally)
 
     def _capture(self, name: str, body: Callable[[bool], None]):

@@ -95,6 +95,7 @@ from playground3d_tpu_torch.utils.constants import (
     CLASS_NAMES,
     NUM_CLASSES,
 )
+from playground3d_tpu_torch.utils.profiling import Spans
 
 
 # ---------------------------------------------------------------------------
@@ -816,14 +817,13 @@ class MultiCameraTracker:
         self.epoch: Optional[float] = None
         self.rows: List[tuple] = []
         self.ts_bias_log: List[np.ndarray] = []
-        # host seconds: enqueueing branches or clips ("detect", "crop"),
-        # reading results back ("drain"), and, in track_clips' producer
-        # thread, filling pinned buffers and queueing the copies ("stage")
-        self.timers = {"detect": 0.0, "crop": 0.0, "drain": 0.0, "stage": 0.0}
+        # host seconds a span (:class:`Spans`): ``process`` enqueues a branch
+        # ("detect", "crop") and reads a frame back ("drain"); for
+        # :meth:`track_clips`' spans see its docstring
+        self.spans = Spans(("source", "stack", "stage", "put_wait", "get_wait", "enqueue", "drain", "drain_wait",
+                            "track_clips", "detect", "crop"))
+        self.timers = self.spans.totals
         self.on_frame = on_frame
-
-    def _timed(self, stage: str, t0: float) -> None:
-        self.timers[stage] += time.time() - t0
 
     def _append_row(self, frame_num, t_off, ids, mask, states, classes, bias):
         self.rows.append(
@@ -843,58 +843,54 @@ class MultiCameraTracker:
         if self.stem == "s2d" and frames_t.shape[-1] == 3:
             frames_t = space_to_depth(frames_t, 4)  # raw frames are packed on the device
 
-        t0 = time.time()
         if frame_num % self.cfg.det_step == 0:
-            if self.detect_fn is None:
-                self.state, snap, self.ts_bias = self._detect_step(
-                    self.state, frames_t, cam_times, self.ts_bias
-                )
-            else:
-                det = self.detect_fn(frames_t, frame_num)
-                self.state, snap, self.ts_bias = self._parsed_step(
-                    self.state, det, cam_times, self.ts_bias
-                )
-            stage = "detect"
+            with self.spans("detect", frame_num):
+                if self.detect_fn is None:
+                    self.state, snap, self.ts_bias = self._detect_step(
+                        self.state, frames_t, cam_times, self.ts_bias
+                    )
+                else:
+                    det = self.detect_fn(frames_t, frame_num)
+                    self.state, snap, self.ts_bias = self._parsed_step(
+                        self.state, det, cam_times, self.ts_bias
+                    )
         elif self._crop_step is not None and frame_num % self.cfg.skip_step == 0:
-            self.state, snap = self._crop_step(self.state, frames_t, cam_times, self.ts_bias)
-            stage = "crop"
+            with self.spans("crop", frame_num):
+                self.state, snap = self._crop_step(self.state, frames_t, cam_times, self.ts_bias)
         else:
-            snap = snapshot(self.state, torch.mean(cam_times), self.kfp, self.cfg)
-            stage = "drain"
-        self._timed(stage, t0)
+            with self.spans("drain", frame_num):
+                snap = snapshot(self.state, torch.mean(cam_times), self.kfp, self.cfg)
 
-        t0 = time.time()
-        bias = self.ts_bias.cpu().numpy()
-        self._append_row(
-            frame_num, snap.t.cpu(), snap.ids.cpu().numpy(), snap.raw_mask.cpu().numpy(),
-            snap.states7.cpu().numpy(), snap.classes.cpu().numpy(), bias,
-        )
-        self._timed("drain", t0)
+        with self.spans("drain", frame_num):
+            bias = self.ts_bias.cpu().numpy()
+            self._append_row(
+                frame_num, snap.t.cpu(), snap.ids.cpu().numpy(), snap.raw_mask.cpu().numpy(),
+                snap.states7.cpu().numpy(), snap.classes.cpu().numpy(), bias,
+            )
         if self.on_frame is not None:
             self.on_frame(frame_num, frames, snap, bias)
         return snap
 
-    def _synced_frames(self, sources: List[Iterable], cutoff: int, sync_ms: float):
+    def _synced_frames(self, sources: List[Iterable], cutoff: int, sync_ms: float, clip_len: int = 1):
         """Yield (frames [C,H,W,3], times [C]); cameras lagging the latest
-        timestamp by >= sync_ms skip frames (MC3D time_sync_cameras:219-235)."""
+        timestamp by >= sync_ms skip frames (MC3D time_sync_cameras:219-235).
+        Spans: "source" (the pulls, skips included) and "stack", each of the
+        clip of ``clip_len`` frames the frame falls in."""
         iters = [iter(s) for s in sources]
-        try:
-            cur = [next(it) for it in iters]
-        except StopIteration:
-            return
-        for _ in range(cutoff):
-            latest = max(c[1] for c in cur)
-            try:
-                for i in range(len(iters)):
-                    while latest - cur[i][1] >= sync_ms / 1000.0:
-                        cur[i] = next(iters[i])
-            except StopIteration:
-                return
-            yield np.stack([c[0] for c in cur]), [c[1] for c in cur]
-            try:
-                cur = [next(it) for it in iters]
-            except StopIteration:
-                return
+        for k in range(cutoff):
+            clip = k - k % clip_len
+            with self.spans("source", clip):
+                try:
+                    cur = [next(it) for it in iters]
+                    latest = max(c[1] for c in cur)
+                    for i in range(len(iters)):
+                        while latest - cur[i][1] >= sync_ms / 1000.0:
+                            cur[i] = next(iters[i])
+                except StopIteration:
+                    return
+            with self.spans("stack", clip):
+                frames = np.stack([c[0] for c in cur])
+            yield frames, [c[1] for c in cur]
 
     def track(self, sources: List[Iterable], cutoff: int = 10**9, sync_ms: float = 20.0,
               per_frame: bool = False, clip_len: int = 24, mesh: Optional[Mesh] = None,
@@ -906,12 +902,12 @@ class MultiCameraTracker:
         if not per_frame and self.detect_fn is None:
             return self.track_clips(sources, clip_len=clip_len, cutoff=cutoff, sync_ms=sync_ms, mesh=mesh,
                                     yuv_hw=yuv_hw)
-        start = time.time()
+        start = time.perf_counter()
         n = 0
         for frame_num, (frames, times) in enumerate(self._synced_frames(sources, cutoff, sync_ms)):
             self.process(frames, times, frame_num)
             n += 1
-        wall = time.time() - start
+        wall = time.perf_counter() - start
         return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}
 
     def _clip_fn(self, mesh: Optional[Mesh] = None):
@@ -953,7 +949,15 @@ class MultiCameraTracker:
         ``yuv_hw``: the frames' (H, W) when the sources emit flat planar
         YUV420 bytes; colour conversion and s2d packing then run on the
         device (:func:`yuv420_flat_to_s2d`), which halves the bytes copied
-        to it. Needs ``stem="s2d"``."""
+        to it. Needs ``stem="s2d"``.
+
+        Spans (:class:`Spans`; their host seconds add to :attr:`timers`):
+        the call ("track_clips"); the producer's "source", "stack", "stage"
+        and "put_wait"; the consumer's "get_wait", "enqueue" (each graph's
+        "replay.<name>" inside it) and "drain" (its wait for the read
+        "drain_wait"). A call that starts while a ``torch.profiler`` runs
+        records them whole in ``Spans.log``, each with the first frame index
+        of its clip, and times each replay on the device."""
         if self.detect_fn is not None or self._det_model is None:
             raise ValueError("track_clips needs det_model (not a detect_fn)")
         if yuv_hw is not None and self.stem != "s2d":
@@ -961,6 +965,13 @@ class MultiCameraTracker:
                 "track_clips(yuv_hw=...) requires stem='s2d' (the on-device YUV conversion "
                 f"emits s2d-packed frames); this tracker has stem={self.stem!r}"
             )
+        with Spans.recorded_if_profiled(), self.spans("track_clips") as root:
+            n, wall = self._clip_loop(sources, clip_len, cutoff, sync_ms, mesh, yuv_hw, root)
+        return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}
+
+    def _clip_loop(self, sources, clip_len, cutoff, sync_ms, mesh, yuv_hw, root) -> Tuple[int, float]:
+        """:meth:`track_clips`' loop, inside its span ``root`` (None unless
+        recording) -> (frames read back, host seconds)."""
         clip = self._clip_fn(mesh)
         on_card = self.device.type == "cuda"
         # (device, its cameras) of each shard; without a mesh, one shard of every camera
@@ -998,36 +1009,37 @@ class MultiCameraTracker:
             bufs, times = None, []
             frame0 = 0
             try:
-                for frames, ts in self._synced_frames(sources, cutoff, sync_ms):
-                    if self.epoch is None:
-                        self.epoch = float(min(ts))
-                    t0 = time.time()
-                    host = torch.from_numpy(frames)
-                    if bufs is None:
-                        bufs = [torch.empty((clip_len,) + tuple(host[cams].shape), dtype=host.dtype,
-                                            pin_memory=on_card) for _, cams in shards]
-                    for buf, (_, cams) in zip(bufs, shards):
-                        buf[len(times)].copy_(host[cams])
-                    times.append([t - self.epoch for t in ts])
-                    staged = stage(bufs, times) if len(times) == clip_len else None
-                    self._timed("stage", t0)
-                    if staged is not None:
-                        q.put((staged, frame0))
-                        frame0 += clip_len
-                        bufs, times = None, []
-                if times:
-                    t0 = time.time()
-                    staged = stage([buf[:len(times)] for buf in bufs], times)
-                    self._timed("stage", t0)
-                    q.put((staged, frame0))
+                with Spans.within(root):
+                    for frames, ts in self._synced_frames(sources, cutoff, sync_ms, clip_len):
+                        if self.epoch is None:
+                            self.epoch = float(min(ts))
+                        with self.spans("stage", frame0):
+                            host = torch.from_numpy(frames)
+                            if bufs is None:
+                                bufs = [torch.empty((clip_len,) + tuple(host[cams].shape), dtype=host.dtype,
+                                                    pin_memory=on_card) for _, cams in shards]
+                            for buf, (_, cams) in zip(bufs, shards):
+                                buf[len(times)].copy_(host[cams])
+                            times.append([t - self.epoch for t in ts])
+                            staged = stage(bufs, times) if len(times) == clip_len else None
+                        if staged is not None:
+                            with self.spans("put_wait", frame0):
+                                q.put((staged, frame0))
+                            frame0 += clip_len
+                            bufs, times = None, []
+                    if times:
+                        with self.spans("stage", frame0):
+                            staged = stage([buf[:len(times)] for buf in bufs], times)
+                        with self.spans("put_wait", frame0):
+                            q.put((staged, frame0))
             except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
                 producer_err.append(e)
             finally:
                 q.put(done)
 
-        thread = threading.Thread(target=producer, daemon=True)
+        thread = threading.Thread(target=producer, name="track_clips producer", daemon=True)
         thread.start()
-        start = time.time()
+        start = time.perf_counter()
         n = 0
         drain_lag = 3  # clips in flight before the oldest is read back (JAX's drain_lag)
         pending: list = []  # (read, frame0, rows' shape, staged inputs held until their clip is read)
@@ -1035,31 +1047,34 @@ class MultiCameraTracker:
         def drain_one():
             nonlocal n
             read, frame0, shape, _ = pending.pop(0)
-            t0 = time.time()
-            packed = read()
-            rows = packed[:-len(self.cameras)].reshape(shape)
-            bias = packed[-len(self.cameras):].astype(np.float32)
-            states, ids, classes, mask, ts = unpack_snapshot(rows)
-            for k in range(shape[0]):
-                self._append_row(frame0 + k, ts[k], ids[k], mask[k], states[k], classes[k], bias)
-            n += shape[0]
-            self._timed("drain", t0)
+            with self.spans("drain", frame0):
+                with self.spans("drain_wait", frame0):
+                    packed = read()
+                Spans.settle(frame0)  # the clip's replays are over: read their device times
+                rows = packed[:-len(self.cameras)].reshape(shape)
+                bias = packed[-len(self.cameras):].astype(np.float32)
+                states, ids, classes, mask, ts = unpack_snapshot(rows)
+                for k in range(shape[0]):
+                    self._append_row(frame0 + k, ts[k], ids[k], mask[k], states[k], classes[k], bias)
+                n += shape[0]
 
         while True:
-            item = q.get()
+            with self.spans("get_wait") as waited:
+                item = q.get()
             if item is done:
                 break
             (fts, tt, readies), frame0 = item
-            t0 = time.time()
-            for (dev, _), ready in zip(shards, readies):
-                torch.cuda.current_stream(dev).wait_event(ready)
-            self.state, self.ts_bias, snaps = clip(self.state, self.ts_bias, fts if mesh is not None else fts[0],
-                                                   tt, frame0)
-            # one read a clip: its snapshots [T, N, 11] and the bias it returned
-            rows = pack_snapshot(snaps)
-            read = HostSyncs.fetch_later(torch.cat([rows.reshape(-1), self.ts_bias.to(torch.float64)]))
-            pending.append((read, frame0, tuple(rows.shape), (fts, tt)))
-            self._timed("detect", t0)
+            if waited is not None:
+                waited.clip = frame0
+            with self.spans("enqueue", frame0):
+                for (dev, _), ready in zip(shards, readies):
+                    torch.cuda.current_stream(dev).wait_event(ready)
+                self.state, self.ts_bias, snaps = clip(self.state, self.ts_bias,
+                                                       fts if mesh is not None else fts[0], tt, frame0)
+                # one read a clip: its snapshots [T, N, 11] and the bias it returned
+                rows = pack_snapshot(snaps)
+                read = HostSyncs.fetch_later(torch.cat([rows.reshape(-1), self.ts_bias.to(torch.float64)]))
+                pending.append((read, frame0, tuple(rows.shape), (fts, tt)))
             while len(pending) > drain_lag:
                 drain_one()
         while pending:
@@ -1067,8 +1082,7 @@ class MultiCameraTracker:
         thread.join(timeout=10)
         if producer_err:
             raise producer_err[0]
-        wall = time.time() - start
-        return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}
+        return n, time.perf_counter() - start
 
     # -- output --------------------------------------------------------------
     def records(self, camera: Optional[str] = None) -> List[TrackRecord]:

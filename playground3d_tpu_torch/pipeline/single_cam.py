@@ -45,7 +45,7 @@ from playground3d_tpu_torch.pipeline.tracker_state import (
 from playground3d_tpu_torch.track.kf import KFParams, default_params
 from playground3d_tpu_torch.utils.config import TrackerConfig
 from playground3d_tpu_torch.utils.constants import CLASS_NAMES
-from playground3d_tpu_torch.utils.profiling import StageTimers
+from playground3d_tpu_torch.utils.profiling import Spans
 
 
 def _track_tail(state: TrackState, det: Detections, bank: CameraBank, cam_times: torch.Tensor,
@@ -223,7 +223,9 @@ class SingleCameraTracker:
         self.state = init_track_state(cfg.max_tracks, self.device)
         self.epoch: Optional[float] = None
         self.rows: List[tuple] = []  # (frame, t_abs, ids, states7, classes)
-        self.timers = StageTimers(["detect+track", "stage", "drain"])
+        # host seconds a span (:class:`Spans`): staging a frame, its step, its read
+        self.spans = Spans(("detect+track", "stage", "drain"))
+        self.timers = self.spans.totals
         self.on_frame = on_frame
 
     @torch.no_grad()
@@ -234,11 +236,11 @@ class SingleCameraTracker:
             self.epoch = float(t_abs)
         t_off = np.float32(t_abs - self.epoch)
 
-        with self.timers("stage"):
+        with self.spans("stage", frame_num):
             frames = self._stage(np.asarray(frame)[None])
             cam_times = self._stage(np.asarray([t_off], np.float32))
 
-        with self.timers("detect+track"):
+        with self.spans("detect+track", frame_num):
             if self._graph is not None:
                 self._graph.run(self.state, frames, cam_times)
                 self.state, packed = self._graph.state, self._graph.packed
@@ -260,7 +262,7 @@ class SingleCameraTracker:
                 done.record()
                 done.synchronize()
 
-        with self.timers("drain"):
+        with self.spans("drain", frame_num):
             # one read (pack_snapshot: every field exact in float64)
             states, ids, classes, mask, t = unpack_snapshot(HostSyncs.fetch(packed))
             self.rows.append((frame_num, float(self.epoch + float(t)), ids[mask], states[mask], classes[mask]))
@@ -282,15 +284,15 @@ class SingleCameraTracker:
         return buf.copy_(host)
 
     def track(self, frames: Iterable[Tuple[np.ndarray, float]], cutoff: int = 10**9):
-        start = time.time()
+        start = time.perf_counter()
         n = 0
         for frame_num, (frame, t_abs) in enumerate(frames):
             if frame_num >= cutoff:
                 break
             self.process_frame(frame, t_abs, frame_num)
             n += 1
-        wall = time.time() - start
-        return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers.totals()}
+        wall = time.perf_counter() - start
+        return {"frames": n, "fps": n / max(wall, 1e-9), **self.timers}
 
     # -- output --------------------------------------------------------------
     def records(self) -> List[TrackRecord]:

@@ -81,7 +81,7 @@ _SINGLE = textwrap.dedent(
     from playground3d_tpu_torch.models.nn import load_params, save_params
     from playground3d_tpu_torch.pipeline.single_cam import SingleCameraTracker
     from playground3d_tpu_torch.utils.config import TrackerConfig
-    from playground3d_tpu_torch.utils.profiling import StageTimers
+    from playground3d_tpu_torch.utils.profiling import Spans
 
     reg, ranges, _, _ = toy_cameras.toy_camera_chain(1)
     scene = synthetic.SyntheticScene(n_objects=4, seed=1)

@@ -17,11 +17,16 @@ computes, so ties decide the detections in both packages alike, and the crop
 pixels reach nothing but the tie-broken candidates' scores.
 """
 
+import collections
+import threading
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from playground3d_tpu.models import retinanet_init as jax_init
 from playground3d_tpu.models.quant import quantize_detector as jax_quantize_detector
@@ -34,11 +39,13 @@ from playground3d_tpu.utils.config import TrackerConfig as JaxConfig
 from playground3d_tpu_torch.models.bridge import params_from_jax_numpy
 from playground3d_tpu_torch.models.quant import is_quantized
 from playground3d_tpu_torch.ops.crop_mxu import pack_s2d
+from playground3d_tpu_torch.pipeline import multi_cam
 from playground3d_tpu_torch.pipeline.camera_bank import bank_from_registry
 from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker, make_mc_clip_step
 from playground3d_tpu_torch.pipeline.tracker_state import init_track_state
 from playground3d_tpu_torch.track.kf import default_params
 from playground3d_tpu_torch.utils.config import TrackerConfig
+from playground3d_tpu_torch.utils.profiling import Spans
 
 # the suite runs in several worker processes at once: one intra-op thread
 # each keeps torch's small CPU ops from oversubscribing the cores
@@ -506,3 +513,197 @@ def test_track_clips_reads_each_clip_once_three_clips_later(setup, toy_cameras3,
     assert events == [("clip", 0), ("clip", 3), ("clip", 6), ("clip", 9), ("read", 0), ("clip", 12),
                       ("read", 3), ("read", 6), ("read", 9), ("read", 12)]
     assert [r[0] for r in pt.rows] == list(range(N_CLIPS_FRAMES))
+
+
+# ---------------------------------------------------------------------------
+# host spans (utils/profiling.py::Spans)
+# ---------------------------------------------------------------------------
+
+
+def _by_name(log):
+    out = collections.defaultdict(list)
+    for sp in log:
+        out[sp.name].append(sp)
+    return out
+
+
+def test_spans_total_always_and_are_kept_only_while_recording(monkeypatch):
+    """A span adds its seconds to its total whether or not it is recorded;
+    the log keeps it whole only inside ``recorded_if_profiled`` under a
+    running profiler: under the span open on its thread (or the one another
+    thread gives by ``within``), with its parent's clip unless given one."""
+    monkeypatch.setattr(Spans, "log", [])
+    spans = Spans(["a"])
+    with Spans.recorded_if_profiled():
+        with spans("a", 3):
+            time.sleep(0.001)
+    assert Spans.log == [] and spans.totals["a"] >= 0.001 and not Spans.recording
+    totals0 = dict(spans.totals)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with Spans.recorded_if_profiled():
+            assert Spans.recording
+            with spans("root") as root:
+                with spans("a", 3) as a:
+                    with spans("b") as b:
+                        time.sleep(0.001)
+
+                def other():
+                    with Spans.within(root):
+                        with spans("c", 6):
+                            pass
+                    with spans("d"):
+                        pass
+
+                thread = threading.Thread(target=other)
+                thread.start()
+                thread.join(timeout=10)
+                assert not thread.is_alive()
+    assert not Spans.recording
+    spans_by = _by_name(Spans.log)
+    assert sorted(spans_by) == ["a", "b", "c", "d", "root"]
+    c, d = spans_by["c"][0], spans_by["d"][0]
+    assert root.parent is None and a.parent is root and b.parent is a and c.parent is root and d.parent is None
+    assert (a.clip, b.clip, c.clip, d.clip, root.clip) == (3, 3, 6, None, None)
+    assert root.thread == a.thread == b.thread != c.thread == d.thread
+    for sp in (a, b, c):
+        assert sp.parent.start_ns <= sp.start_ns <= sp.end_ns <= sp.parent.end_ns
+    for name, recorded in spans_by.items():
+        assert spans.totals[name] - totals0.get(name, 0.0) == pytest.approx(
+            sum(sp.end_ns - sp.start_ns for sp in recorded) / 1e9, rel=1e-9)
+    # realtime - perf_counter, sampled at the start and at the end: the same clock pair
+    lo, hi = Spans.offsets_ns
+    assert lo and hi and abs(hi - lo) < 50_000_000 and Spans.offset_ns() == (lo + hi) // 2
+    assert Spans.log[-1] is root and Spans.log[-1].end_ns > 0  # kept as it closes
+
+
+def test_replay_timers_are_read_when_their_clip_is_drained(monkeypatch):
+    """While recording, ``device_timer`` gives a span a pair of timing events
+    from its device's pool; ``settle(clip)`` reads that clip's pairs alone and
+    returns them to their device's pool, the end of the recording the rest;
+    a later recording reuses them."""
+
+    class Event:  # a CUDA timing event's interface, on the host clock
+        made = 0
+
+        def __init__(self, enable_timing):
+            Event.made += 1
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter_ns()
+
+        def synchronize(self):
+            assert self.t is not None
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) / 1e6
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(Spans, "_free_events", {})
+    spans = Spans()
+
+    def recorded_clips(check):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with Spans.recorded_if_profiled():
+                for clip in (0, 4):
+                    with spans("enqueue", clip):
+                        for dev in ("cuda:0", "cuda:1"):
+                            with spans("replay.frame") as sp:
+                                start, end = Spans.device_timer(sp, dev)
+                                start.record()
+                                time.sleep(0.001)
+                                end.record()
+                check()
+        return [sp for sp in Spans.log if sp.name == "replay.frame"]
+
+    def drain_first():
+        Spans.settle(0)
+        assert [sp.device_ms is not None for sp in Spans.log if sp.name == "replay.frame"] == [True, True, False, False]
+        assert {dev: len(free) for dev, free in Spans._free_events.items()} == {"cuda:0": 1, "cuda:1": 1}
+
+    replays = recorded_clips(drain_first)
+    assert all(sp.device_ms >= 1.0 and sp.events is None for sp in replays) and Event.made == 8
+    assert {dev: len(free) for dev, free in Spans._free_events.items()} == {"cuda:0": 2, "cuda:1": 2}
+    recorded_clips(lambda: None)
+    assert Event.made == 8  # the pools served the second recording
+
+
+def test_track_clips_records_spans_only_under_a_profiler(setup, toy_cameras3, monkeypatch):
+    """``track_clips`` keeps no span outside a profiler. Inside one it
+    records the call; the producer thread's ``source``, ``stack``, ``stage``
+    and ``put_wait``; the consumer's ``get_wait``, ``enqueue`` (each graph
+    run inside) and ``drain`` (``drain_wait`` inside). Each span nests in
+    its parent, a clip's consumer spans do not overlap, each total is the
+    sum of its spans, and ``stage`` covers what it covered as a timer: one
+    span a frame between the frame's stack and its clip's ``put_wait`` (and
+    one more for a last, partial clip), the clip's staging inside the last."""
+    cfg = TrackerConfig(**dict(BASE, **SHIPPED))
+    frames = setup["frames"]
+
+    def sources():
+        return [((frames[f, ci], 1.6e9 + f / 30.0) for f in range(T_CLIP)) for ci in range(frames.shape[1])]
+
+    pt = MultiCameraTracker(
+        toy_cameras3["registry"], list(toy_cameras3["ranges"]), cfg=cfg, det_model=setup["det_int8"],
+        crop_model=setup["crop_int8"], centers=toy_cameras3["centers"], stem="s2d", crop_stem="s2d",
+        device="cpu",
+    )
+    pt.state = _seed(pt.state, list(toy_cameras3["ranges"].values()), cfg.max_tracks)
+    monkeypatch.setattr(Spans, "log", [])
+    pt.track_clips(sources(), clip_len=4)
+    assert Spans.log == []
+
+    staged = []  # (perf_counter ns, thread) of each clip's packing on the device, in its staging
+    real = multi_cam.space_to_depth
+
+    def packing(x, block):
+        staged.append((time.perf_counter_ns(), threading.get_ident()))
+        return real(x, block)
+
+    monkeypatch.setattr(multi_cam, "space_to_depth", packing)
+    runners = list(pt._clip.runners.values()) + [sd for sds in pt._clip.shard_runners.values() for sd in sds]
+    totals0 = dict(pt.timers), [dict(r.programs.spans.totals) for r in runners]
+    with profile(activities=[ProfilerActivity.CPU]):
+        stats = pt.track_clips(sources(), clip_len=4)  # a full clip and a partial one
+    assert stats["frames"] == T_CLIP and len(pt.rows) == 2 * T_CLIP
+    log = Spans.log
+    by = _by_name(log)
+    (root,) = by.pop("track_clips")
+    producer = {"source", "stack", "stage", "put_wait"}
+    consumer = {"get_wait", "enqueue", "drain"}
+    graphs = {f"replay.{g}" for g in ("frame", "detect", "crop", "passthrough")}
+    assert set(by) == producer | consumer | graphs | {"drain_wait"}
+    for sp in log:
+        if sp is not root:
+            assert sp.parent.start_ns <= sp.start_ns <= sp.end_ns <= sp.parent.end_ns, sp
+    for name in producer | consumer:
+        assert all(sp.parent is root for sp in by[name]), name
+    threads = {name: {sp.thread for sp in by[name]} for name in by}
+    assert {t for n in producer for t in threads[n]} == threads["source"] != {root.thread}
+    assert len(threads["source"]) == 1 and all(threads[n] == {root.thread} for n in consumer)
+    assert all(sp.parent.name == "enqueue" for n in graphs for sp in by[n])
+    assert all(sp.parent.name == "drain" for sp in by["drain_wait"])
+    # clips by their first frame index; a clip's consumer spans apart
+    assert sorted(sp.clip for sp in by["enqueue"]) == sorted(sp.clip for sp in by["drain"]) == [0, 4]
+    assert [sp.clip for sp in by["stack"]] == [0, 0, 0, 0, 4, 4]
+    assert all(sp.clip == sp.parent.clip for n in graphs | {"drain_wait"} for sp in by[n])
+    for clip in (0, 4):
+        mine = sorted((sp.start_ns, sp.end_ns) for n in consumer for sp in by[n] if sp.clip == clip)
+        assert len(mine) == 3 and all(a[1] <= b[0] for a, b in zip(mine, mine[1:]))
+    totals1 = {k: v - totals0[0].get(k, 0.0) for k, v in pt.timers.items()}
+    for r, t0 in zip(runners, totals0[1]):
+        totals1.update({k: v - t0.get(k, 0.0) for k, v in r.programs.spans.totals.items()})
+    for name, recorded in list(by.items()) + [("track_clips", [root])]:
+        assert totals1[name] == pytest.approx(sum(sp.end_ns - sp.start_ns for sp in recorded) / 1e9, rel=1e-9), name
+    # stage: a span a frame and one for the partial clip's staging; each
+    # after its frame's stack, the clips' packing inside their last
+    stage = sorted(by["stage"], key=lambda sp: sp.start_ns)
+    stacks = sorted(by["stack"], key=lambda sp: sp.start_ns)
+    puts = sorted(by["put_wait"], key=lambda sp: sp.start_ns)
+    assert len(stage) == T_CLIP + 1 and len(puts) == 2
+    assert all(st.end_ns <= sg.start_ns for st, sg in zip(stacks, stage))
+    assert [sp.clip for sp in stage] == [0, 0, 0, 0, 4, 4, 4]
+    assert len(staged) == 2 and {t for _, t in staged} == threads["source"]
+    for (t, _), last, put in zip(staged, (stage[3], stage[6]), puts):
+        assert last.start_ns <= t <= last.end_ns <= put.start_ns

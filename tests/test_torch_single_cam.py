@@ -165,6 +165,18 @@ def test_drain_is_one_read_per_frame(monkeypatch):
     assert all(len(ids) == len(st) == len(cl) for _, _, ids, st, cl in tracker.rows)
 
 
+def test_timers_total_the_stage_spans():
+    """The tracker's ``timers`` are its spans' totals, a plain dict of host
+    seconds under the stage names it always had, and ``track`` returns them
+    beside the frame count."""
+    tracker = _oracle_run("port", 5, 6, 9, 0.5, 0.0)
+    assert type(tracker.timers) is dict and tracker.timers is tracker.spans.totals
+    assert set(tracker.timers) == {"detect+track", "stage", "drain"}
+    assert all(isinstance(v, float) and v > 0 for v in tracker.timers.values()), tracker.timers
+    stats = tracker.track(iter([(np.zeros((4, 4, 3), np.float32), 1.6e9 + 5 / 30.0)]))
+    assert set(stats) == {"frames", "fps", "detect+track", "stage", "drain"} and stats["frames"] == 1
+
+
 # ---------------------------------------------------------------------------
 # the detector path: make_full_step / make_clip_step
 # ---------------------------------------------------------------------------
