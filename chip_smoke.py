@@ -15,7 +15,10 @@ result line):
              ``crop_resize.cu`` (raw frames), ``crop_resize_s2d.cu`` (s2d
              frames, every pyramid level), ``yuv420_s2d.cu`` and ``qconv.cu``
              (every conv shape that the quantized detector and crop net
-             launch at 1080p, listed by a hook), ``nms.cu`` and
+             launch at 1080p, listed by a hook), ``quantize.cu`` (edge
+             values, then every quantize step of a detect frame of 6
+             cameras and of a crop frame, and both frames' forwards as
+             graphs with the plain ops and with the kernel), ``nms.cu`` and
              ``auction.cu`` (the tracker's NMS and auction loops, at the main
              path's sizes and at edges; equal to the plain loops, round
              counts included; NMS on both routes, at every cluster size of
@@ -406,6 +409,7 @@ KERNEL_MODULES = (
     "playground3d_tpu_torch.ops.nms",
     "playground3d_tpu_torch.ops.assignment",
     "playground3d_tpu_torch.ops.focal_loss",
+    "playground3d_tpu_torch.ops.quantize",
 )
 
 
@@ -1186,6 +1190,249 @@ def kernels_qconv(device, flush, noop_ms):
     }
 
 
+# ---- quantize.cu ---------------------------------------------------------------
+
+QUANTIZE_EDGE_SCALES = (0.0625, 0.043, 7.874015748031496e-11, 1.0, 255.0 / 127.0,  # powers of two keep ties exact
+                        0.0, -0.5, 1e-40, float("inf"), float("nan"))  # scales that take the division everywhere
+
+
+def quantize_counts(device):
+    """The quantize steps (``models/quant.py::_quantize_act``) of one detect
+    frame and one crop frame of the main path -> {"detect": n, "crop": n};
+    the count does not depend on the number of cameras."""
+    if "quantize_counts" not in _CACHE:
+        _CACHE["quantize_counts"] = {b: len(calls) for b, calls in quantize_inputs(device, cameras=1)[0].items()}
+    return _CACHE["quantize_counts"]
+
+
+def check_quantize_launches(tag: str, launches: dict, device) -> None:
+    """The quantize launches of a run against the forwards its other
+    launches imply: one ``crop_and_resize_s2d`` a crop frame, so
+    ``qconv`` = detect forwards x its launches a detect forward (a mesh
+    shard's forward counted apiece) + crop frames x its launches a crop
+    frame; ``quantize`` must be those detect forwards x 25 + crop frames
+    x 33 (:func:`quantize_counts`)."""
+    seen, counts = record_qconv_shapes(device), quantize_counts(device)
+    per_detect, per_crop = sum(seen["detect"].values()), sum(seen["crop"].values())
+    n_crop = launches["crop_and_resize_s2d"]
+    n_detect, rest = divmod(launches["qconv"] - n_crop * per_crop, per_detect)
+    want = n_detect * counts["detect"] + n_crop * counts["crop"]
+    if rest or n_detect < 1 or launches["quantize"] != want:
+        fail(f"{tag}: quantize launched {launches['quantize']} times; qconv {launches['qconv']} and "
+             f"crop_and_resize_s2d {n_crop} imply {n_detect} detect forwards and {n_crop} crop frames, so {want}")
+
+
+def quantize_inputs(device, cameras: int = 6):
+    """The input and scale of every quantize step of one detect frame of
+    ``cameras`` 1080p cameras and of one crop frame (32 crops of 112 px),
+    as the shipped int8 pair runs them on random pixels: ({branch: [(x,
+    xs)]}, each x a copy with its strides; (frames, crops))."""
+    import torch
+
+    from playground3d_tpu_torch.models import quant
+    from playground3d_tpu_torch.models.retinanet import forward_raw, localize
+
+    _, cfg, _, (det_q, crop_q), _ = shipped_models(device)
+    gen = np.random.default_rng(11)
+    frames = torch.as_tensor(pack_frames(gen.integers(0, 256, (cameras, H, W, 3), dtype=np.uint8))).to(device)
+    crops = torch.as_tensor(gen.integers(0, 256, (cfg.crop_slots, cfg.cs // 4, cfg.cs // 4, 48),
+                                         dtype=np.uint8)).to(device)
+    seen = {"detect": [], "crop": []}
+    branch = ["detect"]
+    real = quant.quantize
+
+    def recording(x, xs):
+        seen[branch[0]].append((x.clone(), xs))
+        return real(x, xs)
+
+    quant.quantize = recording
+    try:
+        with torch.no_grad():
+            forward_raw(det_q, frames, compact=True, min_level=cfg.det_min_level, score_path=True)
+            branch[0] = "crop"
+            localize(crop_q, crops)
+        torch.cuda.synchronize()
+    finally:
+        quant.quantize = real
+    return seen, (frames, crops)
+
+
+def quantize_graph(fn, device):
+    """``fn()`` captured in a CUDA graph after a warm-up on a side stream:
+    (graph, {wrapper name: launches a replay credits}, nodes, replay ms)."""
+    import torch
+
+    from playground3d_tpu_torch.ops.cuda_build import launches_recorded
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with launches_recorded() as tally:
+        with torch.cuda.graph(graph):
+            fn()
+    graph.instantiate()
+    tally = {w.__name__: n for w, n in tally.items()}
+    return graph, tally, graph_nodes(graph), graph_replay_ms(graph, device)
+
+
+def quantize_entry(device) -> None:
+    """``ops/quantize.py::quantize`` on the card sends every tensor to the
+    kernel: a view with gaps, a transpose, a broadcast, float16 and float64
+    raise ValueError there, and nothing runs the plain ops."""
+    import torch
+
+    from playground3d_tpu_torch.ops import quantize as QZ
+
+    x = (torch.randn(2, 16, 6, 10, device=device) * 3).to(torch.bfloat16)
+    xs = torch.tensor(0.043, device=device)
+    cases = {"gaps": x[:, ::2], "transpose": x.transpose(2, 3), "broadcast": x[:1].expand(2, -1, -1, -1),
+             "float16": x.half(), "float64": x.double()}
+    for name, v in cases.items():
+        try:
+            QZ.quantize(v, xs)
+            fail(f"quantize: the entry took a {name} tensor on the card")
+        except ValueError:
+            pass
+    log(f"kernels: quantize's entry on the card raises ValueError for {', '.join(cases)}")
+
+
+def kernels_quantize(device, flush, noop_ms):
+    """``quantize.cu``: equal to the five plain ops at the edges (every
+    scale of ``QUANTIZE_EDGE_SCALES``, bfloat16 and float32, aligned,
+    unaligned and channels-last) and at every quantize step of a detect
+    frame of 6 cameras and of a crop frame, each at its own calibrated scale
+    (bfloat16 as the nets give it, and widened to float32); each step timed
+    L2 cold and warm against its bytes, beside the plain ops; then a detect
+    frame's and a crop frame's forward captured as a CUDA graph with the
+    plain ops (as before the kernel) and with the kernel: nodes, launches a
+    replay credits, replay time."""
+    import torch
+
+    from playground3d_tpu_torch.models import quant
+    from playground3d_tpu_torch.models.retinanet import forward_raw, localize
+    from playground3d_tpu_torch.ops import quantize as QZ
+
+    t_phase = time.time()
+    gen = torch.Generator().manual_seed(12)
+    differ, checked = 0, 0
+    for xs in QUANTIZE_EDGE_SCALES:
+        edges = QZ.edge_values(xs)
+        rand = (torch.randn(4100 - len(edges), generator=gen) * 60 * (xs if math.isfinite(xs) and xs else 1.0))
+        values = torch.cat([torch.tensor(edges, dtype=torch.float32), rand.to(torch.float32)])
+        scale = torch.tensor(xs, dtype=torch.float32, device=device)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = values.to(dtype).to(device)
+            views = {"aligned": x, "unaligned": x[1:],
+                     "channels-last": x[:4096].view(2, 8, 16, 16).permute(0, 3, 1, 2)}
+            for name, v in views.items():
+                got, want = QZ.quantize_cuda(v, scale), QZ.quantize_plain(v, scale)
+                torch.cuda.synchronize()
+                n = int((got != want).sum())
+                if n or got.stride() != v.stride():
+                    log(f"kernels: quantize edge case xs {xs!r} {str(dtype)[6:]} {name}: {n} values differ "
+                        f"(strides {got.stride()} for {v.stride()})")
+                differ += n
+                checked += v.numel()
+    log(f"kernels: quantize at the edges: {len(QUANTIZE_EDGE_SCALES)} scales x bfloat16 and float32 x aligned, "
+        f"unaligned (the tail loop alone) and channels-last: {differ} of {checked} values differ from the five "
+        f"plain ops (must be 0)")
+    if differ:
+        fail(f"quantize: {differ} edge values differ from the plain ops")
+    quantize_entry(device)
+
+    seen, (frames, crops) = quantize_inputs(device)
+    rows = []
+    for branch in ("detect", "crop"):
+        for i, (x, xs) in enumerate(seen[branch]):
+            n_diff = 0
+            for v in (x, x.to(torch.float32)):
+                got = QZ.quantize_cuda(v, xs)
+                n_diff += int((got != QZ.quantize_plain(v, xs)).sum()) + (got.stride() != v.stride())
+            torch.cuda.synchronize()
+            if n_diff:
+                fail(f"quantize: the {branch} frame's step {i} {tuple(x.shape)} differs from the plain ops "
+                     f"({n_diff})")
+            nbytes = x.numel() * (x.element_size() + 1)
+            rows.append(dict(
+                branch=branch, i=i, shape=tuple(x.shape), channels_last=x.is_contiguous(
+                    memory_format=torch.channels_last) and not x.is_contiguous(), dtype=str(x.dtype)[6:],
+                numel=x.numel(), xs=float(xs), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                cold_ms=gpu_ms(lambda: QZ.quantize_cuda(x, xs), iters=20, flush=flush),
+                warm_ms=gpu_ms(lambda: QZ.quantize_cuda(x, xs), iters=20),
+                plain_cold_ms=gpu_ms(lambda: QZ.quantize_plain(x, xs), iters=5, flush=flush),
+                plain_warm_ms=gpu_ms(lambda: QZ.quantize_plain(x, xs), iters=5),
+            ))
+    log(f"kernels: quantize at every step of a detect frame of 6 cameras ({len(seen['detect'])} steps) and a crop "
+        f"frame ({len(seen['crop'])}), each at its calibrated scale: equal to the plain ops in bfloat16 and "
+        f"float32 (CUDA events, mean of 20, L2 cold = a 256 MB write before each; plain: mean of 5; an empty "
+        f"kernel {noop_ms * 1e3:.2f} us)")
+    log("kernels: quantize branch  #  shape                   CL  dtype   M elems  cold us  warm us  bound us  "
+        "cold % of bound  plain cold us  plain warm us")
+    for r in rows:
+        log(f"kernels: quantize {r['branch']:>6s} {r['i']:2d}  {str(list(r['shape'])):22s} {int(r['channels_last']):3d}  "
+            f"{r['dtype']:8s} {r['numel'] / 1e6:7.2f} {r['cold_ms'] * 1e3:8.1f} {r['warm_ms'] * 1e3:8.1f} "
+            f"{r['bound_ms'] * 1e3:9.1f} {r['bound_ms'] / r['cold_ms'] * 100:16.1f} {r['plain_cold_ms'] * 1e3:14.1f} "
+            f"{r['plain_warm_ms'] * 1e3:14.1f}")
+    totals = {}
+    for branch in ("detect", "crop"):
+        br = [r for r in rows if r["branch"] == branch]
+        tot = {f: sum(r[f] for r in br) for f in ("cold_ms", "warm_ms", "bound_ms", "plain_cold_ms", "plain_warm_ms",
+                                                   "numel")}
+        totals[branch] = tot
+        log(f"kernels: quantize total per {branch} frame: {len(br)} launches, {tot['numel'] / 1e6:.1f} M elements, "
+            f"kernel {tot['cold_ms']:.3f} ms cold ({tot['warm_ms']:.3f} warm), bound {tot['bound_ms']:.3f} ms "
+            f"({tot['bound_ms'] / tot['cold_ms'] * 100:.1f}% of it cold), the five plain ops {tot['plain_cold_ms']:.3f} "
+            f"ms cold ({tot['plain_warm_ms']:.3f} warm)")
+    big = [r for r in rows if r["numel"] >= 1e8]
+    if big:
+        log(f"kernels: quantize at the {len(big)} steps of 100 M elements or more (layer1's outputs): "
+            + ", ".join(f"{r['bound_ms'] / r['cold_ms'] * 100:.1f}%" for r in big) + " of the 3-byte bound, cold")
+
+    _, cfg, _, (det_q, crop_q), _ = shipped_models(device)
+    programs = {"detect": lambda: forward_raw(det_q, frames, compact=True, min_level=cfg.det_min_level,
+                                              score_path=True),
+                "crop": lambda: localize(crop_q, crops)}
+    real = quant.quantize
+    graphs = {}
+    for branch, fn in programs.items():
+        for label, entry in (("plain ops", QZ.quantize_plain), ("kernel", real)):
+            quant.quantize = entry
+            try:
+                with torch.no_grad():
+                    graph, tally, nodes, replay_ms = quantize_graph(fn, device)
+            finally:
+                quant.quantize = real
+            graphs[(branch, label)] = (tally, nodes, replay_ms)
+            del graph
+            torch.cuda.synchronize()
+        (t0, n0, ms0), (t1, n1, ms1) = graphs[(branch, "plain ops")], graphs[(branch, "kernel")]
+        log(f"kernels: quantize in a {branch} frame's forward ({'6 cameras' if branch == 'detect' else '32 crops'}) "
+            f"captured as one CUDA graph: with the plain ops {n0} nodes, launches a replay {t0}, replay {ms0:.3f} ms; "
+            f"with the kernel {n1} nodes, launches a replay {t1}, replay {ms1:.3f} ms (median of 5)")
+        want = len(seen[branch])
+        if t1.get("quantize_cuda") != want or t0.get("quantize_cuda"):
+            fail(f"quantize: the {branch} graph credits {t1} with the kernel and {t0} with the plain ops; "
+                 f"{want} quantize steps a frame")
+    del seen, frames, crops
+    torch.cuda.synchronize()
+    os.makedirs("_outputs", exist_ok=True)
+    with open(os.path.join("_outputs", "quantize_shapes.json"), "w") as fh:
+        json.dump({"rows": rows, "totals": totals,
+                   "graphs": {f"{b} {lbl}": v for (b, lbl), v in graphs.items()}}, fh, indent=1)
+    log(f"kernels: quantize phase took {time.time() - t_phase:.1f} s")
+    det = totals["detect"]
+    return {
+        "name": "quantize", "route": "cuda", "source": "playground3d_tpu_torch/csrc/quantize.cu",
+        "replaces": "none: the quantize-input expression, playground3d_tpu/models/quant.py:140",
+        "max_abs_err": 0.0, "bound_by": "bytes", "ms": det["cold_ms"], "plain_ms": det["plain_cold_ms"],
+        "library_ms": None, "bound_ms": det["bound_ms"],
+    }
+
+
 # ---- nms.cu and auction.cu --------------------------------------------------
 
 
@@ -1482,7 +1729,7 @@ def phase_kernels(device):
     log(f"kernels: an empty kernel takes {noop_ms * 1e3:.2f} us between CUDA events "
         f"(that much of every launch below is the launch itself)")
     return [fn(device, flush, noop_ms) for fn in (kernels_crop_resize, kernels_crop_s2d, kernels_yuv, kernels_qconv,
-                                                   kernels_nms, kernels_auction, kernels_focal)]
+                                                   kernels_quantize, kernels_nms, kernels_auction, kernels_focal)]
 
 
 def phase_small_reference(device):
@@ -1646,13 +1893,14 @@ def time_tracker_loops(calls, per_clip: dict, label: str, save: str | None = Non
 
 def kernel_counters():
     """name in the ``kernels`` line -> the wrapper that counts its launches."""
-    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, nms, qconv, yuv420
+    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, nms, qconv, quantize, yuv420
 
     return {
         "crop_and_resize": crop_resize.crop_and_resize_cuda,
         "crop_and_resize_s2d": crop_mxu.crop_and_resize_s2d_cuda,
         "yuv420_flat_to_s2d": yuv420.yuv420_flat_to_s2d_cuda,
         "qconv": qconv.qconv_cuda,
+        "quantize": quantize.quantize_cuda,
         "nms": nms.nms_cuda,
         "auction": assignment.assign_auction_cuda,
     }
@@ -1971,18 +2219,22 @@ def phase_main(device, loop_calls: str | None = None):
         fail(f"main: crop_and_resize_s2d launched {launches['crop_and_resize_s2d']} times for {n_crop} crop frames")
     if launches["qconv"] != n_detect * per_detect + n_crop * per_crop:
         fail(f"main: qconv launched {launches['qconv']} times, expected {n_detect} x {per_detect} + {n_crop} x {per_crop}")
+    q_counts = quantize_counts(device)
+    if launches["quantize"] != n_detect * q_counts["detect"] + n_crop * q_counts["crop"]:
+        fail(f"main: quantize launched {launches['quantize']} times, expected {n_detect} x {q_counts['detect']} + "
+             f"{n_crop} x {q_counts['crop']}")
     if launches["crop_and_resize"] or launches["yuv420_flat_to_s2d"]:
         fail(f"main: the s2d path launched a kernel of another path: {launches}")
     if launches["nms"] < 1 or launches["auction"] < 1:
         fail(f"main: the NMS or auction kernel was launched no time: {launches}")
     report = {"s2d + int8": res["fps"]}
-    path_launches = {k: launches[k] for k in ("crop_and_resize_s2d", "qconv", "nms", "auction")}
+    path_launches = {k: launches[k] for k in ("crop_and_resize_s2d", "qconv", "quantize", "nms", "auction")}
     refs = {"s2d + int8": (det_q, crop_q, packed, res)}
 
     # comparisons, one clip each after a short warm-up
     res_f = run_clips("s2d + float", det_f, crop_f, packed[:T_CLIP], device, 6)
     l_f = res_f["launches"]
-    if l_f["qconv"] or l_f["crop_and_resize_s2d"] != res_f["n_crop"]:
+    if l_f["qconv"] or l_f["quantize"] or l_f["crop_and_resize_s2d"] != res_f["n_crop"]:
         fail(f"main: the float s2d path's launches are off: {l_f}")
     report["s2d + float"] = res_f["fps"]
 
@@ -2097,6 +2349,7 @@ def phase_variants(device, refs: dict) -> None:
     t_phase = time.time()
     seen = record_qconv_shapes(device)
     per_detect, per_crop = sum(seen["detect"].values()), sum(seen["crop"].values())
+    q_counts = quantize_counts(device)
     batched_detections(device)
     det_q, crop_q, packed, res = refs["s2d + int8"]
     base = res["launches"]
@@ -2108,6 +2361,7 @@ def phase_variants(device, refs: dict) -> None:
         want = dict(base)
         if name == "batch_detects":  # one detector forward a clip, over its 4 detect frames
             want["qconv"] = n_clips * per_detect + n_crop * per_crop
+            want["quantize"] = n_clips * q_counts["detect"] + n_crop * q_counts["crop"]
         if got != want:
             fail(f"variants ({name}): launches {got}, the code implies {want}")
         log(f"variants (s2d + int8, {name}): launches a clip "
@@ -2291,6 +2545,7 @@ def mesh_clips(device, refs: dict) -> None:
         f"{ref_replay:.1f}; births {births}, track rows {dets}; launches {ref_launches}")
     if births <= 0:
         fail("mesh: the random-head detector produced no births")
+    check_quantize_launches("mesh (unsharded)", ref_launches, device)
 
     fps = {"unsharded": (ref_fps, ref_replay)}
     for label, mesh in meshes.items():
@@ -2312,6 +2567,7 @@ def mesh_clips(device, refs: dict) -> None:
             if launches["qconv"] < 1 or launches["nms"] < 1 or launches["auction"] < 1 or \
                     launches["crop_and_resize_s2d"] < 1:
                 fail(f"mesh ({tag}): a kernel of the path was launched no time: {launches}")
+            check_quantize_launches(f"mesh ({tag})", launches, device)
             fps[tag] = (f, replay)
             if name == "three branches":
                 log(f"mesh ({tag}): the crop frame's gather of {n_cams} cameras to the lead: "
@@ -2845,6 +3101,28 @@ def qconv_checked(per_card, shapes, differ):
     return real, call
 
 
+def quantize_checked(per_card, elements, differ):
+    """``quant.quantize`` that also runs the plain ops on the same slab and
+    notes each call's elements by card, and each call whose output is not
+    equal or that got a tensor off the card."""
+    import torch
+
+    from playground3d_tpu_torch.models import quant
+    from playground3d_tpu_torch.ops import quantize as QZ
+
+    real = quant.quantize
+
+    def call(x, xs):
+        got = real(x, xs)
+        per_card[str(x.device)] += 1
+        elements[str(x.device)] += x.numel()
+        if x.device.type != "cuda" or not torch.equal(got, QZ.quantize_plain(x, xs)):
+            differ.add((tuple(x.shape), str(x.device)))
+        return got
+
+    return real, call
+
+
 def phase_spatial(device) -> None:
     """Spatial partitioning (``parallel/mesh.py::spatial_forward``,
     ``camera_spatial_forward``): the CPU test's case on the card, then one
@@ -2920,8 +3198,19 @@ def phase_spatial(device) -> None:
             return rel_errors(got, exact[n])[0] > 2 * f32_own[n]
         return errs[1] > tol if k == "bf16" else errs[0] != 0
 
-    counter = kernel_counters()["qconv"]
+    counter, q_counter = kernel_counters()["qconv"], kernel_counters()["quantize"]
     per_card, shapes, differ = collections.Counter(), collections.Counter(), set()
+    q_cards, q_elems, q_differ = collections.Counter(), collections.Counter(), set()
+    q_whole = {}  # frames -> elements the unsharded int8 forward quantizes
+    for n in refs:
+        real, quant.quantize = quantize_checked(q_cards, q_elems, q_differ)
+        try:
+            forward_raw(det_q, frames[:n], compact=True)
+        finally:
+            quant.quantize = real
+        q_whole[n] = sum(q_elems.values())
+        q_cards.clear()
+        q_elems.clear()
     for label, mesh, cams in spatial_meshes():
         n = 2 if cams else 1
         x = frames[:n]
@@ -2958,19 +3247,26 @@ def phase_spatial(device) -> None:
                     fail(f"spatial ({label}, {k}): window ops miss their bound: {faults[:4]}")
                 ms[k] = forward_ms(lambda: fwd(m, x), device)
         fwd = build(mesh, compact=True)
-        counter.launches = 0
+        counter.launches = q_counter.launches = 0
         per_card.clear()
         shapes.clear()
+        q_cards.clear()
+        q_elems.clear()
         qconv, quant.qconv = qconv_checked(per_card, shapes, differ)
+        quantize, quant.quantize = quantize_checked(q_cards, q_elems, q_differ)
         try:
             fwd(det_q, x)
         finally:
-            quant.qconv = qconv
-        launches = counter.launches
+            quant.qconv, quant.quantize = qconv, quantize
+        launches, q_launches = counter.launches, q_counter.launches
         if launches < 1 or launches != sum(per_card.values()):
             fail(f"spatial ({label}): qconv launched {launches} times ({dict(per_card)} by card)")
         if differ:
             fail(f"spatial ({label}): qconv.cu differs from qconv_plain at {sorted(differ)}")
+        if q_launches != sum(q_cards.values()) or sum(q_elems.values()) != q_whole[n] or q_differ:
+            fail(f"spatial ({label}): quantize launched {q_launches} times for {dict(q_cards)} calls by "
+                 f"card over {dict(q_elems)} elements (the unsharded forward quantizes {q_whole[n]}); differing or "
+                 f"off the card: {sorted(q_differ)}")
         want_joins = n_lines * (2 * sum(split) + (not all(split))) if slabs > 1 else 0
         halo = {k: halo_windows(lambda: build(mesh, **kinds[k][1])(kinds[k][0], x)) for k in ("bf16", "int8")}
         if any(h[2] != want_joins for h in halo.values()):
@@ -2985,7 +3281,9 @@ def phase_spatial(device) -> None:
             f"{halo['bf16'][0]:,} bytes in {halo['bf16'][1]} pieces, the windows alone {halo['bf16'][3]:.3f} ms; "
             f"int8 {halo['int8'][0]:,} bytes in {halo['int8'][1]} pieces, {halo['int8'][3]:.3f} ms (host clock); "
             f"{want_joins} joins onto the lead; qconv {launches} launches a forward, by card {dict(per_card)}, "
-            f"{len(shapes)} shapes and pads, each equal to qconv_plain")
+            f"{len(shapes)} shapes and pads, each equal to qconv_plain; quantize {q_launches} launches, by card "
+            f"{dict(q_cards)}, {sum(q_elems.values()):,} elements as the unsharded forward, each equal to the plain "
+            f"ops")
         for k in kinds:
             log(f"spatial ({label}, {k}): each level's distance from the unsharded level (relative norm) "
                 + ", ".join(f"P{3 + i} [{w}] {d:.3g}" for i, (w, d) in enumerate(zip(widths, dist[k])))
@@ -3103,6 +3401,7 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
     det_q = quantize_detector(steer_detector(det, reg, (H, W), car=(480.0, 54.0, 18.0, 6.0, 5.0, 1.0)),
                               calib[None])
     per_detect = sum(record_qconv_shapes(device)["detect"].values())
+    q_detect = quantize_counts(device)["detect"]
     raw = np.random.default_rng(3).integers(0, 256, (n_warm + n_frames, H, W, 3), dtype=np.uint8)
     packed = pack_frames(raw)
     stream = [(packed[k], 1.6e9 + k / 30.0) for k in range(len(packed))]
@@ -3148,9 +3447,11 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
                                                        run.loops, run.ms)
     if stats["frames"] != n_frames or len(trk.rows) != n_frames:
         fail(f"single: {stats['frames']} frames tracked, {len(trk.rows)} rows, expected {n_frames}")
-    if launches["qconv"] != n_frames * per_detect or eager.launches != launches:
-        fail(f"single: qconv launched {launches['qconv']} times, expected {n_frames} x {per_detect}; the eager "
-             f"run launched {eager.launches}, the graph run credited {launches}")
+    if launches["qconv"] != n_frames * per_detect or launches["quantize"] != n_frames * q_detect or \
+            eager.launches != launches:
+        fail(f"single: qconv launched {launches['qconv']} times, expected {n_frames} x {per_detect}; quantize "
+             f"{launches['quantize']}, expected {n_frames} x {q_detect}; the eager run launched {eager.launches}, "
+             f"the graph run credited {launches}")
     if launches["crop_and_resize"] or launches["crop_and_resize_s2d"] or launches["yuv420_flat_to_s2d"]:
         fail(f"single: the single camera launched a crop or YUV kernel: {launches}")
     if syncs != n_frames or loops != {"drain": n_frames}:
@@ -3181,7 +3482,8 @@ def single_full_width(device, n_warm: int = 3, n_frames: int = T_CLIP):
         f"on the card (its counters, read once); drain {timers['drain'] / sum(timers.values()) * 100:.1f}% of the "
         f"stage timers ({', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timers.items())})")
     log(f"single: the graph run equals the eager run: ids/classes equal, states7 within {diff[0]:.3g}, final kf.x "
-        f"within {diff[1]:.3g} (tolerance 1e-4); kernel launches {launches} ({per_detect} qconv a frame, credited "
+        f"within {diff[1]:.3g} (tolerance 1e-4); kernel launches {launches} ({per_detect} qconv and {q_detect} "
+        f"quantize a frame, credited "
         f"{ {k.__name__: v for k, v in tally.items()} } a replay); {live_pairs} live (id, frame) pairs = CSV rows "
         f"read back")
 

@@ -79,6 +79,8 @@
 #include <atomic>
 #include <mutex>
 
+#include "int8_round.cuh"  // requantize_guess, requantize_exact
+
 namespace {
 
 constexpr int kConsumers = 256;  // CONSUMERS of ops/qconv.py: two warpgroups, 64 tile rows each
@@ -341,32 +343,6 @@ __device__ __forceinline__ void bf16_round2(float& u, float& v) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(u, v);
   u = __low2float(p);
   v = __high2float(p);
-}
-
-// clip(rint(fl(v / xs)), -127, 127), rint to even: the int8 value at scale xs.
-// The exactly rounded division is a routine of some forty dependent
-// instructions, so it is kept for the values that need it. With
-// inv_xs = fl(1 / xs), q = fl(v * inv_xs) lies within 2^-23 |v / xs| of the
-// true quotient, and so does t = fl(v / xs) within 2^-24 of it: |q - t| <
-// 2.3e-5 wherever |v / xs| <= 128. So if |q| >= 126.75 then |t| > 126.5 and
-// the clipped result is +-127; else if q is further than 1e-4 from the
-// nearest half-integer, t lies on the same side of it and rint(q) = rint(t).
-// Only the one value in five thousand that is closer takes the division.
-// requantize_guess returns the result from q and sets `exact` where it must
-// come from requantize_exact instead. It has no branch, so a thread's values
-// interleave, and no conversion instruction (those issue at a quarter of the
-// rate): q is clamped to [-128, 128], and fl(q + 1.5 * 2^23) has a unit last
-// bit, so the addition rounds q to the nearest integer, ties to even, and
-// that integer is the sum's bits less those of 1.5 * 2^23.
-__device__ __forceinline__ int requantize_guess(float v, float inv_xs, bool& exact) {
-  constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23, bits 0x4B400000
-  const float q = __fmul_rn(v, inv_xs);
-  const float big = __fadd_rn(fminf(fmaxf(q, -128.0f), 128.0f), kMagic);
-  exact = fabsf(q) < 126.75f && fabsf(__fsub_rn(q, __fsub_rn(big, kMagic))) > 0.4999f;
-  return min(max(__float_as_int(big) - 0x4B400000, -127), 127);
-}
-__device__ __forceinline__ int requantize_exact(float v, float xs) {
-  return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(v, xs)), -127.0f), 127.0f));
 }
 
 __device__ __forceinline__ void named_barrier_consumers() {
@@ -742,16 +718,16 @@ __global__ void __launch_bounds__(kThreads, 1) qconv_kernel(const __grid_constan
         }
       } else {
         int qi[8];
-        bool exact[8], any = false;
+        bool divide[8], any = false;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          qi[i] = requantize_guess(w[i], inv_xs, exact[i]);
-          any |= exact[i];
+          qi[i] = requantize_guess(w[i], inv_xs, divide[i]);
+          any |= divide[i];
         }
         if (any) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            if (exact[i]) qi[i] = requantize_exact(w[i], xs);
+            if (divide[i]) qi[i] = requantize_exact(w[i], xs);
           }
         }
         Run8 q;

@@ -35,8 +35,11 @@ epilogue's scale and offset are folded once per conv in float32 on the
 device (:func:`_folded`) and handed to the kernel. Where the last conv of a
 ResNet block is quantized, the block's tail (dequantize the residual, add,
 relu, requantize) runs in that conv's epilogue (:func:`_chain_block`); the
-quantize-input step, and the tail of blocks whose last conv stays bfloat16
-(:func:`_chain_block_unfused`), are plain tensor ops.
+tail of blocks whose last conv stays bfloat16 (:func:`_chain_block_unfused`)
+is plain tensor ops. A float input is quantized by :func:`_quantize_act`:
+one launch of ``csrc/quantize.cu`` for every tensor on the card
+(:mod:`playground3d_tpu_torch.ops.quantize`), the same five plain tensor
+ops as the JAX package's expression on the CPU, with the same bits.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from playground3d_tpu_torch.models.heads import N_REG_OUTPUTS, Heads
 from playground3d_tpu_torch.models.nn import Conv, FrozenBN, max_pool
 from playground3d_tpu_torch.models.resnet import LAYER_SPECS, ResNet, space_to_depth
 from playground3d_tpu_torch.ops.qconv import qconv
+from playground3d_tpu_torch.ops.quantize import quantize
 
 _EPS = 1e-8
 
@@ -131,8 +135,15 @@ def is_quantized(module: nn.Module) -> bool:
 
 
 def _quantize_act(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """float -> int8 at scale ``xs``: true division, half-even, clip."""
-    return torch.clamp(torch.round(x.to(torch.float32) / xs), -127.0, 127.0).to(torch.int8)
+    """float -> int8 at the scale ``xs`` (a float32 scalar on the device):
+    ``int8(clip(round_half_even(float32(x) / xs), -127, 127))``, a true
+    division. :func:`~playground3d_tpu_torch.ops.quantize.quantize` runs
+    the kernel on the card and the plain ops on the CPU; an activation
+    split over devices (``parallel/spatial.py::Slabs``) is quantized slab by
+    slab, each on its own device."""
+    if has_torch_function((x,)):
+        return handle_torch_function(_quantize_act, (x,), x, xs)
+    return quantize(x, xs)
 
 
 def _folded(conv: Conv, bn: Optional[FrozenBN], s_in: torch.Tensor):

@@ -3,10 +3,11 @@ under ``csrc/``.
 
 A :class:`KernelLibrary` names one ``.cu`` file. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
-into ``playground3d_tpu_torch/_build/`` (named by a digest of source and
-flags, so an edited source is rebuilt), and bound with ``ctypes``. Nothing
-here imports a GPU package or runs ``nvcc`` when a module is imported, and
-nothing falls back when the build fails: it raises.
+into ``playground3d_tpu_torch/_build/`` (named by a digest of source, the
+``csrc/*.cuh`` headers and flags, so an edited source or header is
+rebuilt), and bound with ``ctypes``. Nothing here imports a GPU package or
+runs ``nvcc`` when a module is imported, and nothing falls back when the
+build fails: it raises.
 
 Every source exports ``const char* kernel_error_string(int)``; every launcher
 returns the ``cudaError_t`` of its launch, which :meth:`KernelLibrary.check`
@@ -55,14 +56,16 @@ def build_library(name: str, source: Path, compile_cmd: Sequence[str], libs: Seq
     """Compile ``source`` with ``compile_cmd`` (compiler and flags) and link
     ``libs`` into ``_build/lib<name>-<digest>.so``, unless that file exists;
     returns its path and the compiler's output ("" when it was built
-    already). The digest covers the source, the command, ``libs`` and
-    ``digest_extra``, so an edited source or other flags build anew. The
+    already). The digest covers the source, the headers beside it
+    (``*.cuh``), the command, ``libs`` and ``digest_extra``, so an edited
+    source or header or other flags build anew. The
     compiler writes a temporary file named with this process's id, which
     is then renamed into place: processes that build the same library at
     once each rename a whole file. A failed build raises with the
     compiler's output."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join([*compile_cmd, *libs]).encode() + digest_extra
+        source.read_bytes() + headers + " ".join([*compile_cmd, *libs]).encode() + digest_extra
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib_path.exists():

@@ -26,9 +26,10 @@ of the network code (``models/resnet.py``, ``fpn.py``, ``heads.py``,
   Where the output extent does not divide the axis, the input is gathered
   onto the lead and the output is replicated. int8 activations are
   exchanged as int8;
-* ``FrozenBN``, elementwise arithmetic, ``relu``, ``clamp``, ``round``,
-  ``sigmoid``, dtype casts and ``permute`` run slab by slab (an operand that
-  does not span the split dimension is broadcast);
+* ``FrozenBN``, elementwise arithmetic, ``relu``, ``sigmoid``, dtype
+  casts, ``permute`` and ``quant._quantize_act`` (on the card one quantize
+  kernel a slab) run slab by slab (an operand that does not span the split
+  dimension is broadcast);
   ``upsample2x_nearest`` doubles each slab; ``crop_add`` crops at the
   frame's right or bottom edge, which lies in the last slab;
 * ``reshape``, the heads' reshape of each level into anchors, gathers its
@@ -174,10 +175,9 @@ _OPERATORS = ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__
 for _name in _OPERATORS:
     setattr(Slabs, _name, _operator(_name))
 
-_PER_SLAB = {torch.add, torch.sub, torch.mul, torch.div, torch.relu, torch.clamp, torch.round, torch.sigmoid,
-             torch.Tensor.add, torch.Tensor.sub, torch.Tensor.mul, torch.Tensor.div, torch.Tensor.relu,
-             torch.Tensor.clamp, torch.Tensor.round, torch.Tensor.sigmoid, torch.Tensor.to,
-             *(getattr(torch.Tensor, n) for n in _OPERATORS)}
+_PER_SLAB = {torch.add, torch.sub, torch.mul, torch.div, torch.relu, torch.sigmoid, torch.Tensor.add, torch.Tensor.sub,
+             torch.Tensor.mul, torch.Tensor.div, torch.Tensor.relu, torch.Tensor.sigmoid, torch.Tensor.to,
+             *(getattr(torch.Tensor, n) for n in _OPERATORS), quant._quantize_act}
 
 
 _GATHER = {torch.Tensor.reshape}  # the heads' reshape of each level into anchors

@@ -309,7 +309,7 @@ def test_no_module_of_the_port_imports_jax():
 
 
 @pytest.mark.parametrize("module", ["ops.qconv", "ops.crop_resize", "ops.nms", "models.nn", "models", "pipeline.graphs",
-                                    "parallel.mesh"])
+                                    "parallel.mesh", "ops.quantize"])
 def test_a_module_imports_first_in_a_fresh_interpreter(module):
     """``chip_smoke.py`` imports the kernel loaders before anything else:
     each imports with nothing of the package loaded before it (the
@@ -322,10 +322,10 @@ def test_a_module_imports_first_in_a_fresh_interpreter(module):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-_SOURCES = ["crop_resize", "crop_resize_s2d", "yuv420_s2d", "qconv", "nms", "auction", "focal_loss"]
+_SOURCES = ["crop_resize", "crop_resize_s2d", "yuv420_s2d", "qconv", "nms", "auction", "focal_loss", "quantize"]
 _LOADERS = {
     "crop_resize": "crop_resize", "crop_resize_s2d": "crop_mxu", "yuv420_s2d": "yuv420", "qconv": "qconv",
-    "nms": "nms", "auction": "assignment", "focal_loss": "focal_loss",
+    "nms": "nms", "auction": "assignment", "focal_loss": "focal_loss", "quantize": "quantize",
 }
 
 
@@ -350,7 +350,8 @@ def _wrapper_calls():
     """wrapper name -> (CUDA wrapper call, plain call, dispatching call) on
     small CPU tensors."""
     from playground3d_tpu_torch.losses import focal
-    from playground3d_tpu_torch.ops import assignment, crop_mxu, crop_resize, focal_loss, nms, qconv, roi_align, yuv420
+    from playground3d_tpu_torch.ops import (assignment, crop_mxu, crop_resize, focal_loss, nms, qconv, quantize,
+                                            roi_align, yuv420)
 
     frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     s2d = torch.zeros((1, 4, 4, 48), dtype=torch.uint8)
@@ -380,6 +381,9 @@ def _wrapper_calls():
         "auction": (lambda: assignment.assign_auction_cuda(b, rm, cm),
                     lambda: assignment.assign_auction_plain(b, rm, cm),
                     lambda: assignment.assign_auction(b, rm, cm)),
+        "quantize": (lambda: quantize.quantize_cuda(frames.float(), scale[0]),
+                     lambda: quantize.quantize_plain(frames.float(), scale[0]),
+                     lambda: quantize.quantize(frames.float(), scale[0])),
         "focal_loss": (lambda: focal_loss.focal_loss_forward_cuda(*loss_in),
                        lambda: focal.detection_loss_plain(*loss_in),
                        lambda: focal.detection_loss(*loss_in)),

@@ -347,6 +347,52 @@ def test_int8_detector_sharded_equals_unsharded(nets, n, monkeypatch):
     assert calls and set(calls) == {torch.int8}
 
 
+@pytest.mark.parametrize("mesh", ["2", "4", "2x2"])
+def test_int8_detector_quantizes_each_element_once_on_slabs(nets, mesh, monkeypatch):
+    """The quantized detector's quantize steps on slabs quantize, over all
+    slabs, as many elements as the unsharded forward, each call on a plain
+    tensor (one kernel launch a slab on the card); ``chip_smoke.py``'s
+    spatial phase holds the card's launches to the same count."""
+    _, model = nets["s2d"]
+    x = torch.as_tensor(np.random.default_rng(5).integers(0, 256, (2, 34, 64, 48), dtype=np.uint8))
+    qm = quant.quantize_detector(model, [x[:1]])
+    seen = []
+    real = quant.quantize
+    monkeypatch.setattr(quant, "quantize", lambda t, s: seen.append((type(t), t.numel())) or real(t, s))
+    if mesh == "2x2":
+        frames, fwd = x, PM.camera_spatial_forward(PM.make_mesh2(2, 2, devices=["cpu"] * 4), compact=True)
+    else:
+        frames, fwd = x[:1], PM.spatial_forward(PM.make_mesh(devices=["cpu"] * int(mesh)), compact=True)
+    PR.forward_raw(qm, frames, compact=True)
+    whole, calls = sum(n for _, n in seen), len(seen)
+    seen.clear()
+    fwd(qm, frames)
+    assert {t for t, _ in seen} == {torch.Tensor} and sum(n for _, n in seen) == whole and len(seen) > calls
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_act_runs_slab_by_slab(n, dtype, monkeypatch):
+    """The int8 quantize step on slabs is one call a slab, each on its
+    slab's device with its copy of the scale (on the card one kernel launch
+    a slab), gathers nothing, and equals the whole tensor's."""
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.randn(2, 16, 6, 32, generator=gen) * 3).to(dtype).contiguous(memory_format=torch.channels_last)
+    xs = torch.tensor(0.0213)
+    s = PS.place(x, 3, PS.Line(["cpu"] * n))
+    seen = []
+    real = quant.quantize
+    monkeypatch.setattr(quant, "quantize", lambda t, scale: seen.append((type(t), tuple(t.shape), scale)) or
+                        real(t, scale))
+    PS.HALO.update(joins=0, copies=0)
+    got = quant._quantize_act(s, xs)
+    assert isinstance(got, PS.Slabs) and got.dtype == torch.int8 and (got.sdim, got.size) == (3, 32)
+    assert PS.HALO["joins"] == 0 and PS.HALO["copies"] == 0
+    assert [(t, shape) for t, shape, _ in seen] == [(torch.Tensor, (2, 16, 6, 32 // n))] * n
+    assert all(scale is xs for _, _, scale in seen)
+    assert torch.equal(got.join(), quant._quantize_act(x, xs))
+
+
 @pytest.mark.parametrize("corrupt", ["zeroed", "swapped"])
 def test_canary_broken_halos_miss_the_bound(nets, monkeypatch, corrupt):
     _, model = nets["s2d"]
