@@ -6,7 +6,8 @@ One run of one cell (a configuration under a traffic mix, on its chips):
 
 ``BENCHMARK.json`` at the root of the checkout names the cells and the
 metrics. Everything else is found by name: ``configs/<config>.json`` (the
-nets, their precision, the tracker's settings), ``traffic/<mix>.json`` (the
+nets, their precision, the tracker's settings), ``archs/<arch>.py`` (what
+the harness needs of a net's architecture), ``traffic/<mix>.json`` (the
 cameras, frames and loop) and ``metrics/<metric>.py`` (one reader a
 per-layer metric). ``reference/`` holds the plain PyTorch copy of the
 tracker that decides ``correct``; nothing in this package imports JAX.

@@ -1,7 +1,8 @@
 """What one run of a cell is made of, all from ``--seed``: the cameras'
-fitted geometry, the two nets' raw weights, the frame rings, the seeded
-tracks and the calibration inputs. The program and the reference are each
-handed the same of these and derive the rest themselves.
+fitted geometry, the frame rings, the seeded tracks and the calibration
+inputs; each net's raw weights come from its architecture module
+(``archs/``). The program and the reference are each handed the same of
+these and derive the rest themselves.
 
 Everything here is the benchmark's own: it uses the reference's geometry
 (``reference/``), never the program's.
@@ -9,14 +10,14 @@ Everything here is the benchmark's own: it uses the reference's geometry
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 SEEDED_SPEED_FT_S = 80.0
+NETS = ("detector", "crop_net")  # the configuration's nets, each with an architecture of its own
 
 
 def sub_seed(seed: int, stream: int) -> int:
@@ -106,6 +107,7 @@ def seed_tracks(state, n_seed: int):
 def crop_target(cfg: dict, traffic: dict) -> List[float]:
     """The mean crop pixel (x, y) of the seeded tracks' bottom centres, for
     crops made as the crop branch makes them (reference geometry)."""
+    from cellbench import archs
     from cellbench.reference.geometry import homography, transforms as T
     from cellbench.reference.ops.crop_mxu import max_crop_span_s2d
     from cellbench.reference.pipeline.camera_bank import bank_from_registry, state_to_im_banked
@@ -119,67 +121,11 @@ def crop_target(cfg: dict, traffic: dict) -> List[float]:
     im = state_to_im_banked(bank, s6, torch.zeros(n, dtype=torch.long))
     hull = T.im_hull_xyxy(im)
     scale = torch.maximum(hull[:, 2] - hull[:, 0], hull[:, 3] - hull[:, 1]) * tc.crop_expand
-    if cfg["crop_net"]["stem"] == "s2d":
+    if archs.layout(cfg["crop_net"]) == "s2d":
         scale = torch.clamp(scale, max=max_crop_span_s2d())
     corner = (hull[:, :2] + hull[:, 2:]) / 2 - scale[:, None] / 2
     bottom = im[:, 0:4].mean(1)
     return ((bottom - corner) / scale[:, None] * tc.cs).mean(0).tolist()
-
-
-def net_shapes(net: dict) -> Dict[str, Tuple[int, ...]]:
-    """Name -> shape of every parameter and buffer of a RetinaNet built as
-    ``net`` says (the reference's module tree, which names them as the
-    program's does), without allocating."""
-    from cellbench.reference.models.retinanet import RetinaNet
-
-    with torch.device("meta"):
-        model = RetinaNet(net["num_classes"], net["depth"], net["stem"], net["tower_depth"],
-                          net["shared_tower"], net["feature_size"])
-    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
-
-
-def raw_weights(net: dict, seed: int, device, out_std: float, reg_bias_xy=None) -> Dict[str, torch.Tensor]:
-    """A net's float32 weights, drawn on ``device`` from ``seed`` in one
-    call: He-normal convs, the two output convs N(0, ``out_std``), identity
-    frozen batch norm, zero biases but the classification output's (the
-    focal prior raised by 3, so scores cross the trackers' gates) and, with
-    ``reg_bias_xy``, the regression output's, which puts every anchor's box
-    corner offsets at that crop pixel."""
-    shapes = net_shapes(net)
-    conv_w = [k for k in shapes if k.endswith(".w")]
-    sizes = [math.prod(shapes[k]) for k in conv_w]
-    stds = [out_std if k.startswith("heads.") and k.split(".")[1] in ("cls_out", "reg_out")
-            else math.sqrt(2.0 / math.prod(shapes[k][1:])) for k in conv_w]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    flat = torch.randn(sum(sizes), generator=gen, device=device, dtype=torch.float32)
-    flat.mul_(torch.repeat_interleave(torch.tensor(stds, device=device), torch.tensor(sizes, device=device)))
-    out = dict(zip(conv_w, (p.view(shapes[k]) for p, k in zip(torch.split(flat, sizes), conv_w))))
-    for k, shape in shapes.items():
-        if k in out:
-            continue
-        leaf = k.rsplit(".", 1)[1]
-        out[k] = (torch.ones if leaf in ("scale", "var") else torch.zeros)(shape, device=device)
-    prior = -math.log((1.0 - 0.01) / 0.01)
-    out["heads.cls_out.b"].fill_(prior + 3.0)
-    if reg_bias_xy is not None:
-        from cellbench.reference.models.anchors import base_anchors
-
-        wh = torch.as_tensor(base_anchors(32.0)[:, 2:] * 2.0, dtype=torch.float32, device=device)
-        offset = (torch.as_tensor(reg_bias_xy, dtype=torch.float32, device=device)[None, :] - 4.0) / wh
-        out["heads.reg_out.b"].view(-1, 12)[:, 0:2] = offset
-    return out
-
-
-def load_net(model_cls, net: dict, weights: Dict[str, torch.Tensor], device):
-    """A RetinaNet of ``model_cls`` (the program's or the reference's) as
-    ``net`` says, holding copies of ``weights``."""
-    with torch.device("meta"):
-        model = model_cls(net["num_classes"], net["depth"], net["stem"], net["tower_depth"],
-                          net["shared_tower"], net["feature_size"])
-    model = model.to_empty(device=device)
-    model.load_state_dict(weights, strict=True)
-    return model.eval().requires_grad_(False)
 
 
 def frame_rings(traffic: dict, seed: int, device) -> np.ndarray:

@@ -33,27 +33,26 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from cellbench import cell, counts
+from cellbench import archs, cell, counts
 
 NUMBERS = ("rows_differ", "states7_gap", "handover_differ", "handover_gap")
 
 
 class Reference:
-    """The reference tracker of one configuration at one precision: the
-    nets built from the raw weights and quantized (int8 and int4 alike) by
-    the reference's own code, the camera bank fitted by its own geometry."""
+    """The reference tracker of one configuration at one precision: each
+    net built by its architecture module from the raw weights and quantized
+    (int8 and int4 alike) by the reference's own code, the camera bank
+    fitted by its own geometry."""
 
     def __init__(self, cfg: dict, traffic: dict, weights: dict, calib: dict, device, precision: str):
         from cellbench.reference.geometry import homography
-        from cellbench.reference.models.quant import quantize_detector
-        from cellbench.reference.models.retinanet import RetinaNet
         from cellbench.reference.pipeline.camera_bank import bank_from_registry
         from cellbench.reference.pipeline.clip import reference_clip
         from cellbench.reference.track.kf import default_params
         from cellbench.reference.utils.config import TrackerConfig
 
         self.precision, self.traffic, self.device = precision, traffic, torch.device(device)
-        self.stem = cfg["detector"]["stem"]
+        self.stem = archs.layout(cfg["detector"])
         self.tc = cell.tracker_config(TrackerConfig, cfg)
         self.value_bytes = cfg["crop_value_bytes"]
         self.qconv_frames: Dict[str, list] = {}  # branch -> the qconv launches of its first frame
@@ -61,16 +60,13 @@ class Reference:
         self._recording: Optional[list] = None
         cams = cell.cameras(traffic)
         with self.computing():
-            det = cell.load_net(RetinaNet, cfg["detector"], weights["detector"], self.device)
-            crop = cell.load_net(RetinaNet, cfg["crop_net"], weights["crop_net"], self.device)
-            if precision in ("int8", "int4"):
-                det = quantize_detector(det, calib["detector"][None])
-                crop = quantize_detector(crop, calib["crop_net"])
+            det, crop = (archs.of(cfg[name]).build(cfg[name], weights[name], self.device, precision, calib.get(name),
+                                                   "reference") for name in cell.NETS)
         self.bank = bank_from_registry(cell.registry(homography, cams), device=self.device)
         self.kfp = default_params(device=self.device)
         self.centers = torch.tensor([c.centre for c in cams], dtype=torch.float32, device=self.device)
-        self.clip = reference_clip(det, crop, self.bank, self.centers, self.kfp, self.tc, cfg["detector"]["stem"],
-                                   cfg["crop_net"]["stem"], observe=self._observe)
+        self.clip = reference_clip(det, crop, self.bank, self.centers, self.kfp, self.tc, self.stem,
+                                   archs.layout(cfg["crop_net"]), observe=self._observe)
 
     @contextlib.contextmanager
     def computing(self):

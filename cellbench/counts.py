@@ -1,9 +1,9 @@
 """The yardstick: operations and bytes of the work a cell does, counted
 from shapes and boxes, never from a kernel, and the H100's peaks.
 
-* a net's operations: two per multiply-add of every convolution of one
-  forward at the cell's input size (the reference's module tree run on
-  the meta device, so nothing is computed);
+* a net's operations: two per multiply-add of one forward at the cell's
+  input size, by the precision each part runs in, counted by the net's
+  architecture module (``archs/``), held against that precision's peak;
 * an int8 convolution launch (``qconv``): its multiply-adds, and the bytes
   it must move: the int8 input and weights read once, the output written
   once (int8, or bfloat16 where it emits no int8), the scale and offset,
@@ -16,39 +16,21 @@ from shapes and boxes, never from a kernel, and the H100's peaks.
 from __future__ import annotations
 
 import math
-from typing import Iterable, Tuple
+from typing import Dict, Iterable, Tuple
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT8_OPS_PER_S = 1.979e15  # dense int8 on the tensor cores
+PEAK_OPS_PER_S = {"int8": INT8_OPS_PER_S, "bf16": 0.989e15}  # dense, the same sheet
 
 
-def net_ops(net: dict, images_shape: Tuple[int, ...], min_level: int = 3) -> int:
-    """Operations (2 per multiply-add) of every convolution of one forward
-    of a RetinaNet built as ``net`` says over uint8 images of
-    ``images_shape`` (NHWC, raw or s2d-packed as the stem takes them),
-    heads on levels ``min_level`` and up."""
-    from cellbench.reference.models.nn import Conv
-    from cellbench.reference.models.retinanet import RetinaNet, forward_raw
-
-    with torch.device("meta"):
-        model = RetinaNet(net["num_classes"], net["depth"], net["stem"], net["tower_depth"],
-                          net["shared_tower"], net["feature_size"])
-    macs = [0]
-
-    def count(conv, args, out):
-        macs[0] += out.numel() * conv.w.shape[1] * conv.k * conv.k
-
-    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, Conv)]
-    try:
-        with torch.no_grad():
-            forward_raw(model, torch.empty(images_shape, dtype=torch.uint8, device="meta"), compact=True,
-                        min_level=min_level, score_path=True)
-    finally:
-        for h in hooks:
-            h.remove()
-    return 2 * macs[0]
+def peaks(cfg: dict) -> Dict[str, float]:
+    """Operations a second of each precision: the configuration's own
+    ``peak_ops_per_s`` for its ``precision``, the table's for the others
+    (a part of a net that runs in another precision, such as a bfloat16
+    backbone before an int8 FPN and heads)."""
+    return {**PEAK_OPS_PER_S, cfg["precision"]: cfg["peak_ops_per_s"]}
 
 
 def qconv_launch(x_shape, w_shape, out_shape, int8_out: bool, res_bytes: int) -> Tuple[int, int, int]:

@@ -10,45 +10,45 @@ import statistics
 import numpy as np
 import torch
 
-from cellbench import cell
+from cellbench import archs, cell
 from cellbench.window import Recorder
 
-KERNEL_MODULES = ("qconv", "nms", "assignment", "crop_mxu", "crop_resize", "yuv420")
+COMMON_KERNELS = ("nms", "assignment", "crop_mxu", "crop_resize", "yuv420")  # every cell's, whatever its nets
 
 
-def build_kernels() -> None:
-    """Compile the program's kernels side by side, each unless its
+def build_kernels(cfg: dict) -> None:
+    """Compile the kernels the configuration needs side by side (the
+    common ones and those of each net's architecture), each unless its
     library is in the program's build cache already."""
     import importlib
 
-    libs = [importlib.import_module(f"playground3d_tpu_torch.ops.{m}").LIB for m in KERNEL_MODULES]
+    names = list(COMMON_KERNELS)
+    for name in cell.NETS:
+        names += [k for k in archs.of(cfg[name]).KERNELS if k not in names]
+    libs = [importlib.import_module(f"playground3d_tpu_torch.ops.{m}").LIB for m in names]
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
 
 
 def build(cfg: dict, traffic: dict, weights: dict, calib: dict, device):
-    """(the tracker with its seeded tracks, the recorder of its clip): the
-    nets loaded with ``weights`` and, for an int8 configuration, quantized
-    by the program on ``calib``; the clip is the tracker's own (the one
+    """(the tracker with its seeded tracks, the recorder of its clip): each
+    net built by its architecture module through the program's entry points,
+    holding ``weights`` and, for an int8 configuration, quantized by the
+    program on ``calib``; the clip is the tracker's own (the one
     ``track_clips`` makes for its users: the default clip, each branch a
     CUDA graph on the card), wrapped in a recorder."""
     from playground3d_tpu_torch.geometry import homography
-    from playground3d_tpu_torch.models.quant import quantize_detector
-    from playground3d_tpu_torch.models.retinanet import RetinaNet
     from playground3d_tpu_torch.pipeline.multi_cam import MultiCameraTracker
     from playground3d_tpu_torch.utils.config import TrackerConfig
 
-    det = cell.load_net(RetinaNet, cfg["detector"], weights["detector"], device)
-    crop = cell.load_net(RetinaNet, cfg["crop_net"], weights["crop_net"], device)
-    if cfg["precision"] == "int8":
-        det = quantize_detector(det, calib["detector"][None])
-        crop = quantize_detector(crop, calib["crop_net"])
+    det, crop = (archs.of(cfg[name]).build(cfg[name], weights[name], device, cfg["precision"], calib.get(name),
+                                           "program") for name in cell.NETS)
     cams = cell.cameras(traffic)
     trk = MultiCameraTracker(
         cell.registry(homography, cams), [c.name for c in cams], cfg=cell.tracker_config(TrackerConfig, cfg),
         det_model=det, crop_model=crop, centers=np.asarray([c.centre for c in cams], np.float32),
-        stem=cfg["detector"]["stem"], crop_stem=cfg["crop_net"]["stem"], device=device, graphs=True,
+        stem=archs.layout(cfg["detector"]), crop_stem=archs.layout(cfg["crop_net"]), device=device, graphs=True,
     )
     trk.state = cell.seed_tracks(trk.state, cfg["seeded_tracks"])
     rec = Recorder(trk._clip_fn())

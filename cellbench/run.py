@@ -46,17 +46,17 @@ def log(*a) -> None:
 
 
 def calibration(cfg: dict, traffic: dict, rings, seed: int, device) -> dict:
-    """The int8 calibration inputs both sides quantize on: the first
-    camera's first frame as the detector sees it, and four random crops in
-    the crop net's layout; none for a float configuration."""
+    """The int8 calibration batches both sides quantize on, by net: the
+    first camera's first frame as the detector sees it, and four random
+    crops in the crop net's layout; none for a float configuration."""
     import torch
 
-    from cellbench import cell
+    from cellbench import archs, cell
 
     if cfg["precision"] != "int8":
         return {}
-    if cfg["detector"]["stem"] != "s2d" or cfg["crop_net"]["stem"] != "s2d":
-        raise ValueError("an int8 configuration runs s2d stems")
+    if archs.layout(cfg["detector"]) != "s2d" or archs.layout(cfg["crop_net"]) != "s2d":
+        raise ValueError("an int8 configuration's nets take s2d-packed frames")
     from cellbench.reference.models.resnet import space_to_depth
     from cellbench.reference.ops.yuv420 import yuv420_flat_to_s2d
 
@@ -68,8 +68,21 @@ def calibration(cfg: dict, traffic: dict, rings, seed: int, device) -> dict:
     cs = cfg["tracker"]["cs"]
     gen = torch.Generator(device=device)
     gen.manual_seed(cell.sub_seed(seed, 6))
-    crops = torch.randint(0, 256, (4, cs // 4, cs // 4, 48), generator=gen, device=device, dtype=torch.uint8)
-    return {"detector": packed, "crop_net": crops}
+    crops = torch.randint(0, 256, archs.images_shape(cfg["crop_net"], 4, cs, cs), generator=gen, device=device,
+                          dtype=torch.uint8)
+    return {"detector": packed[None], "crop_net": crops}
+
+
+def frame_ops(cfg: dict, traffic: dict, crops: int):
+    """(operations of one detect frame over every camera, of one crop frame
+    of ``crops`` crops), each by the precision it runs in, from the nets'
+    architecture modules at the cell's input shapes."""
+    from cellbench import archs
+
+    t, det, crop = cfg["tracker"], cfg["detector"], cfg["crop_net"]
+    det_shape = archs.images_shape(det, len(traffic["cameras"]), traffic["height"], traffic["width"])
+    return (archs.of(det).ops(det, det_shape, cfg["precision"], t["det_min_level"]),
+            archs.of(crop).ops(crop, archs.images_shape(crop, crops, t["cs"], t["cs"]), cfg["precision"]))
 
 
 def branch_frames(n_frames: int, det_step: int, skip_step: int) -> Dict[str, int]:
@@ -89,7 +102,7 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     receives what the check compared (for the control and the tests)."""
     import torch
 
-    from cellbench import cell, check, counts, program
+    from cellbench import archs, cell, check, program
     from cellbench.trace import DeviceTrace, clock_offset_ns, label_gaps
     from cellbench.window import Backlog
 
@@ -101,7 +114,7 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
 
     mark("imports")
     if on_card:
-        program.build_kernels()
+        program.build_kernels(cfg)
         mark("kernels built or found")
     n_cams, T = len(traffic["cameras"]), traffic["clip_len"]
     H, W = traffic["height"], traffic["width"]
@@ -110,9 +123,9 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
     jitter = cell.clock_jitter_s(traffic, cell.sub_seed(seed, 2))
     out_std = cfg["weights"]["output_conv_std"]
     weights = {
-        "detector": cell.raw_weights(cfg["detector"], cell.sub_seed(seed, 3), device, out_std),
-        "crop_net": cell.raw_weights(cfg["crop_net"], cell.sub_seed(seed, 4), device, out_std,
-                                     reg_bias_xy=cell.crop_target(cfg, traffic)),
+        "detector": archs.of(cfg["detector"]).raw_weights(cfg["detector"], cell.sub_seed(seed, 3), device, out_std),
+        "crop_net": archs.of(cfg["crop_net"]).raw_weights(cfg["crop_net"], cell.sub_seed(seed, 4), device, out_std,
+                                                          reg_bias_xy=cell.crop_target(cfg, traffic)),
     }
     calib = calibration(cfg, traffic, rings, seed, device)
     mark("frames, weights and calibration inputs made")
@@ -189,17 +202,13 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, d
         crowded = sum(len(rows[g - 1][3]) > k for g in crop_frames)
         log(f"crop bytes of {len(crop_frames)} crop frames counted in {time.perf_counter() - t_crop:.2f} s "
             f"({crowded} with more live tracks than crop slots, scaled)")
-        s2d = cfg["detector"]["stem"] == "s2d"
+        det_ops, crop_ops = frame_ops(cfg, traffic, k)
         ctx = SimpleNamespace(
             cfg=cfg, traffic=traffic, n_cams=n_cams, clip_len=T, clips=len(spans), frames=read_back,
             camera_frames=read_back * n_cams, window_s=window_s, timers=timers,
             branch_frames=branch_frames(read_back, tc["det_step"], tc["skip_step"]),
             clip_starts_ns=[s for s, _ in spans], trace=tracer, replay_ms=replays,
-            det_ops=counts.net_ops(cfg["detector"], (n_cams, H // 4, W // 4, 48) if s2d else (n_cams, H, W, 3),
-                                   tc["det_min_level"]),
-            crop_ops=counts.net_ops(cfg["crop_net"], (k, tc["cs"] // 4, tc["cs"] // 4, 48)
-                                    if cfg["crop_net"]["stem"] == "s2d" else (k, tc["cs"], tc["cs"], 3)),
-            qconv_frames=ref.qconv_frames, crop_bytes=crop_bytes,
+            det_ops=det_ops, crop_ops=crop_ops, qconv_frames=ref.qconv_frames, crop_bytes=crop_bytes,
         )
         for m in per_layer or []:
             value = readers[m["name"]](ctx)

@@ -5,7 +5,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from cellbench import counts
+from cellbench import archs, counts
 from cellbench.manifest import Manifest
 from cellbench.run import branch_frames
 
@@ -51,7 +51,8 @@ def test_yuv420_bytes_a_clip_of_one_camera():
 def test_net_ops_of_one_conv_net():
     tiny = {"num_classes": 8, "depth": 18, "stem": "conv7", "tower_depth": 1, "shared_tower": True,
             "feature_size": 32}
-    one, two = counts.net_ops(tiny, (1, 64, 96, 3)), counts.net_ops(tiny, (2, 64, 96, 3))
+    arch = archs.of(tiny)
+    one, two = arch.ops(tiny, (1, 64, 96, 3), "bf16")["bf16"], arch.ops(tiny, (2, 64, 96, 3), "bf16")["bf16"]
     assert two == 2 * one
     # the 7x7/2 stem alone: 32 x 48 outputs x 64 filters x 7 x 7 x 3
     assert one > 2 * 32 * 48 * 64 * 49 * 3
@@ -65,8 +66,8 @@ def test_branch_frames():
 def ctx(**kw):
     base = dict(camera_frames=600, clips=10, frames=240, window_s=2.0, timers={"stage": 0.3},
                 clip_starts_ns=[i * 200_000_000 for i in range(10)], trace=None, replay_ms={},
-                branch_frames=branch_frames(240, 6, 3), det_ops=5e12, crop_ops=7e10,
-                cfg={"peak_ops_per_s": 1e15, "crop_kernels": ["sample_kernel"],
+                branch_frames=branch_frames(240, 6, 3), det_ops={"int8": 5e12}, crop_ops={"int8": 7e10},
+                cfg={"precision": "int8", "peak_ops_per_s": 1e15, "crop_kernels": ["sample_kernel"],
                      "tracker": {"det_step": 6}}, clip_len=24,
                 traffic={"format": "yuv420", "height": 1080, "width": 1920}, qconv_frames={}, crop_bytes=[])
     base.update(kw)
